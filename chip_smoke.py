@@ -14,11 +14,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. kernels — each ring kernel against its plain PyTorch version on the
    card, exactly, at the main path's shapes and at the edge cases
    (wraparound, ``n == cap``, ``cap == 1``, int32 and bool elements);
-   CUDA-event times of kernel, plain version and one library call.
+   CUDA-event times of kernel, plain version and one library call, each
+   timed call starting from a head/size inside the op's contract.
 4. main path — gemm, gaussian and page_rank through
    ``run_step(engine="compiled")`` at full size, with launch counts
-   reset just before and read just after: every ring kernel must have
-   launched.
+   read just before and just after each app: every ring kernel must have
+   launched in every app's run.  Then each app at full size once more,
+   held against the reference and against the CPU lowering of the same
+   graph, relative to the output's scale (``REF_REL_TOL``,
+   ``CPU_REL_TOL``).
 5. twin vs compiled — each app at a reduced size under the coroutine
    twin and under ``CompiledEngine``, both on the card: bit-identical
    outputs and equal token counts; the sweeps equal those of the CPU
@@ -29,9 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel's mean device time per launch.  Measurement only: the checks
    are phases 3-5.
 
-The last three lines of standard output are the ``nvidia-smi`` line, one
-JSON object of per-kernel numbers, and the result object
-``{"ok": true, "device": {...}}``.  Details also go to
+The last four lines of standard output are the ``nvidia-smi`` line, the
+JSON object of per-kernel numbers after the word ``kernels``, the same
+object alone, and the result object ``{"ok": true, "device": {...}}``.
+Details also go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -48,7 +53,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/csrc/ring.cu"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-INT_OPS_PER_S = 1979e12         # H100 SXM int8 dense peak (no int32 figure)
+# The guards' int32 compares run on the CUDA cores.  The data sheet gives
+# no integer rate outside the tensor cores; its float32 CUDA-core rate
+# stands in (an upper bound on the int32 rate, so the bound stays a bound).
+CUDA_CORE_OPS_PER_S = 67e12
+# Full-size card run against the CPU (plain-version) lowering of the same
+# graph: max |card - cpu| / max |cpu|.  gemm sums its 4096-long dot
+# products in another order in cuBLAS than on the CPU; the other two run
+# the same elementwise ops in the same order on both.
+CPU_REL_TOL = {"gemm": 1e-5, "gaussian": 1e-6, "page_rank": 1e-6}
+# max |card - reference| / max |reference|, for every app: well under the
+# apps' own check() limits, which are set for the reference's toy sizes.
+REF_REL_TOL = 1e-5
 FULL = {
     "gemm": dict(P=8, n=256, K=16),
     "gaussian": dict(h=2048, w=2048, iters=4),
@@ -71,26 +87,53 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
-def time_ms(fn, reps: int = 200, warm: int = 20) -> float:
+REPS, WARM = 200, 20
+
+
+def time_ms(fn, reps: int = REPS, warm: int = WARM) -> float:
     """Mean milliseconds per call over ``reps`` back-to-back calls on the
-    current stream, after ``warm`` calls; CUDA events, one sync."""
-    for _ in range(warm):
-        fn()
+    current stream, after ``warm`` calls; CUDA events, one sync.  ``fn``
+    takes the call's index, ``0 .. warm + reps - 1``."""
+    for i in range(warm):
+        fn(i)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
-    for _ in range(reps):
-        fn()
+    for i in range(warm, warm + reps):
+        fn(i)
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
 
 
 def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """The larger of bytes over HBM bandwidth and operations over the
+    CUDA-core rate, and which of the two it is."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / INT_OPS_PER_S * 1e3
+    t_o = ops / CUDA_CORE_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+class _Counters:
+    """One fresh (head, size) pair per timed call: 0-d int32 views into two
+    device vectors, so every call of a ring op starts from a state inside
+    its contract (``0 <= size``, ``size + n <= cap`` for a push, ``n <=
+    size`` for a pop) with no reset launched between calls."""
+
+    def __init__(self, head: int, size: int, k: int = WARM + REPS):
+        self.heads = torch.full((k,), head, dtype=torch.int32, device="cuda")
+        self.sizes = torch.full((k,), size, dtype=torch.int32, device="cuda")
+        self.h = self.heads.unbind()
+        self.s = self.sizes.unbind()
+
+    def expect(self, op: str, head: int, size: int) -> None:
+        """Raise unless every call left the state the op's contract
+        gives."""
+        if not (bool((self.heads == head).all())
+                and bool((self.sizes == size).all())):
+            raise AssertionError(f"{op}: timed calls left head/size other "
+                                 f"than ({head}, {size})")
 
 
 # ---------------------------------------------------------------------------
@@ -216,29 +259,38 @@ def kernel_phase() -> tuple[dict, dict]:
     log(f"kernels: eval_guards exact at T x C = {n_tasks} x {n_chans}, "
         f"6x5, 1x1, 33x70, 4x0")
 
-    # times at the main path's shapes
+    # times at the main path's shapes; every timed call gets its own
+    # in-contract head/size (a pop from `size` tokens, a push into exactly
+    # n free slots), checked again after the timing
     timing = {"ring_pop": [], "ring_push": [], "eval_guards": []}
     for c in cases[:4]:
-        buf, h, s = _ring(c["cap"], c["elem"], c["dtype"], c["head"],
-                          c["size"], gen)
-        n = c["n"]
+        cap, head, size, n = c["cap"], c["head"], c["size"], c["n"]
+        buf = _ring(cap, c["elem"], c["dtype"], 0, 0, gen)[0]
         row = buf[0].numel() * buf.element_size()
-        idx = ((c["head"] + torch.arange(n)) % c["cap"]).cuda()
+        idx = ((head + torch.arange(n)) % cap).cuda()
         arr = buf[:n].clone()
         nb = 2 * n * row + 16           # rows in + out, head/size r+w
         bnd, by = bound_ms(nb)
-        hh, ss = h.clone(), s.clone()
+        times = {}
+        for op, fn in (("ring_pop", ring.ring_pop),
+                       ("ring_pop_plain", ring.ring_pop_plain)):
+            st = _Counters(head, size)
+            times[op] = time_ms(lambda i: fn(buf, st.h[i], st.s[i], n))
+            st.expect(op, (head + n) % cap, size - n)
+        for op, fn in (("ring_push", ring.ring_push),
+                       ("ring_push_plain", ring.ring_push_plain)):
+            st = _Counters(head, cap - n)
+            times[op] = time_ms(lambda i: fn(buf, st.h[i], st.s[i], arr))
+            st.expect(op, head, cap)
         timing["ring_pop"].append(dict(
-            shape=c["tag"], n=n, cap=c["cap"], row_bytes=row,
-            ms=time_ms(lambda: ring.ring_pop(buf, hh, ss, n)),
-            plain_ms=time_ms(lambda: ring.ring_pop_plain(buf, hh, ss, n)),
-            library_ms=time_ms(lambda: buf.index_select(0, idx)),
+            shape=c["tag"], n=n, cap=cap, row_bytes=row,
+            ms=times["ring_pop"], plain_ms=times["ring_pop_plain"],
+            library_ms=time_ms(lambda i: buf.index_select(0, idx)),
             bound_ms=bnd, bound_by=by))
         timing["ring_push"].append(dict(
-            shape=c["tag"], n=n, cap=c["cap"], row_bytes=row,
-            ms=time_ms(lambda: ring.ring_push(buf, hh, ss, arr)),
-            plain_ms=time_ms(lambda: ring.ring_push_plain(buf, hh, ss, arr)),
-            library_ms=time_ms(lambda: buf.index_copy_(0, idx, arr)),
+            shape=c["tag"], n=n, cap=cap, row_bytes=row,
+            ms=times["ring_push"], plain_ms=times["ring_push_plain"],
+            library_ms=time_ms(lambda i: buf.index_copy_(0, idx, arr)),
             bound_ms=bnd, bound_by=by))
     T, C = n_tasks, n_chans
     g = torch.Generator().manual_seed(1)
@@ -252,8 +304,8 @@ def kernel_phase() -> tuple[dict, dict]:
     bnd, by = bound_ms(nb, ops=4 * T * C)
     timing["eval_guards"].append(dict(
         shape=f"gemm T x C = {T} x {C}",
-        ms=time_ms(lambda: ring.eval_guards(*args)),
-        plain_ms=time_ms(lambda: ring.eval_guards_plain(*args)),
+        ms=time_ms(lambda i: ring.eval_guards(*args)),
+        plain_ms=time_ms(lambda i: ring.eval_guards_plain(*args)),
         library_ms=None, bound_ms=bnd, bound_by=by))
     for k, rows in timing.items():
         for r in rows:
@@ -288,6 +340,10 @@ def main_path() -> tuple[dict, dict]:
             raise AssertionError(f"{name}: run failed or check() failed: "
                                  f"{r.report.error} correct={r.correct} "
                                  f"err={r.max_err}")
+        for k, v in launches.items():
+            if v <= 0:
+                raise AssertionError(f"{name}: its run never launched {k}: "
+                                     f"{launches}")
         sweeps = r.report.switches
         per_app[name] = dict(params=kw, check=bool(r.correct),
                              max_err=r.max_err, sweeps=sweeps, wall_s=wall,
@@ -295,17 +351,47 @@ def main_path() -> tuple[dict, dict]:
         log(f"main {name}: check {r.correct} max_err {r.max_err:.3e} "
             f"sweeps {sweeps} wall {wall:.3f} s "
             f"({sweeps / wall:.1f} sweeps/s) launches {launches}")
-    counts = launch_counts()
-    for k in REPLACES:
-        if counts.get(k, 0) <= 0:
-            raise AssertionError(f"main path never launched {k}: {counts}")
-    return per_app, counts
+    return per_app, launch_counts()
 
 
 def _outputs(name: str, args) -> torch.Tensor:
     if name == "gemm":
         return torch.cat([m.data for m in args[2]])
     return args[1].data
+
+
+def full_size_vs_cpu() -> dict:
+    """Each app at full size once more on the card, held tightly against
+    the reference (relative to the output's scale) and against the CPU
+    lowering of the same graph, whose ring ops take their plain
+    versions."""
+    from repro_torch import ENGINES
+    from repro_torch.apps import APPS
+    out = {}
+    for name, kw in FULL.items():
+        ys = {}
+        for dev in ("cuda", "cpu"):
+            top, args, check = APPS[name].build_step(device=dev, **kw)
+            rep = ENGINES["compiled"](device=dev).run(top, *args)
+            if not rep.ok:
+                raise AssertionError(f"{name} on {dev}: {rep.error}")
+            ys[dev] = _outputs(name, args).cpu().double()
+            if dev == "cuda":
+                _, ref_err = check()
+        scale = float(ys["cpu"].abs().max())
+        rel_ref = ref_err / scale
+        rel_cpu = float((ys["cuda"] - ys["cpu"]).abs().max()) / scale
+        if not (rel_ref < REF_REL_TOL and rel_cpu <= CPU_REL_TOL[name]):
+            raise AssertionError(
+                f"{name}: max err / max |out| = {rel_ref:.3e} against the "
+                f"reference (limit {REF_REL_TOL:g}), {rel_cpu:.3e} against "
+                f"the CPU lowering (limit {CPU_REL_TOL[name]:g})")
+        out[name] = dict(rel_err_ref=rel_ref, rel_err_cpu=rel_cpu,
+                         max_abs_out=scale)
+        log(f"full {name}: card vs reference {rel_ref:.3e}, card vs CPU "
+            f"lowering {rel_cpu:.3e} of max |out| {scale:.4e} (limits "
+            f"{REF_REL_TOL:g}, {CPU_REL_TOL[name]:g})")
+    return out
 
 
 def twin_vs_compiled() -> dict:
@@ -430,6 +516,7 @@ def main() -> int:
     # 3-5
     timing, errs = kernel_phase()
     per_app, counts = main_path()
+    full = full_size_vs_cpu()
     twin = twin_vs_compiled()
     brk, dev_ms = breakdown()
 
@@ -448,11 +535,13 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        kernels=kernels, main_path=per_app, twin_vs_compiled=twin,
-        breakdown=brk),
+        kernels=kernels, main_path=per_app, full_size_vs_cpu=full,
+        twin_vs_compiled=twin, breakdown=brk),
         indent=1))
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    line = json.dumps({"kernels": kernels})
+    print(f"kernels {line}")
+    print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
