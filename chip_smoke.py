@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis path on one CUDA card and check it.
+"""Drive the PyTorch port's synthesis and LM-serving paths on one CUDA card
+and check them.
 
 Run from the repository root with no arguments::
 
@@ -9,8 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device — the card's name and power limit (``nvidia-smi``), CUDA
    version; TF32 matmuls off.
-2. build — ``src/repro_torch/kernels/csrc/ring.cu`` with ``nvcc`` into
-   ``build/kernels/``.
+2. build — every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` into
+   ``build/kernels/``, one compiler process per source, all at once.
 3. kernels — each ring kernel against its plain PyTorch version on the
    card, exactly, at the main path's shapes and at the edge cases
    (wraparound, ``n == cap``, ``cap == 1``, int32 and bool elements);
@@ -32,6 +33,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the sweep loop; the device's busy share of the sweep loop; each ring
    kernel's mean device time per launch.  Measurement only: the checks
    are phases 3-5.
+7. attention kernels — flash attention forward and flash-decode against
+   their plain versions on the card, in float32 and bfloat16, at the
+   serving path's shapes (Qwen3-0.6B: 16 query heads, 8 KV heads of
+   width 128; prefill buckets 8-2048, batch 1 and 8, causal, one
+   windowed and one head-width-64 case; decode at 8 slots of a 2048-row
+   cache with ragged lengths, 0 and 2048 included).  Limits, relative to
+   the plain output's largest magnitude: ``ATTN_REL_TOL``; flash's
+   ``lse`` within ``LSE_ABS_TOL``; exact zeros where ``kv_len == 0``.
+   CUDA-event times of kernel, plain version and
+   ``scaled_dot_product_attention`` (the yardstick, never called by the
+   port), reading a different layer's tensors on each call as the model
+   does, so the 50 MB L2 holds none of them.
+8. serving — Qwen3-0.6B at full width (28 layers, bf16, random weights
+   from a seed) through ``ServingEngine`` + ``lm.serving_adapter`` +
+   ``serve_requests`` with ``attn_impl="kernel"``: 8 slots of 2048
+   positions, 16 requests with prompts of 64-1500 tokens, 32 new tokens
+   each.  Launch counts are zeroed just before the requests and read just
+   after: flash attention launched once per layer per prefill call,
+   flash-decode once per layer per decode step; no logit NaN.  Then
+   ``repro_torch.launch.serve.serve(["--full"])`` at its defaults.
+9. card vs CPU — Qwen3-0.6B at full width cut to 2 layers, float32, the
+   same weights on both devices: bucketed prefill of 4 ragged prompts
+   (37-512 tokens) and 8 ragged decode steps, logits within
+   ``LOGIT_REL_TOL`` of their largest magnitude, equal greedy tokens.
+10. serving breakdown — the first wave of phase 8 again under
+   ``torch.profiler`` (device activity): its prefill and decode seconds,
+   the device's busy share and each attention kernel's mean device time
+   per launch; then the decode step alone, 32 times over that wave's 8
+   live slots: host and device ms per step, the busy share, and the aten
+   operations one step dispatches.
 
 The last four lines of standard output are the ``nvidia-smi`` line, the
 JSON object of per-kernel numbers after the word ``kernels``, the same
@@ -42,21 +73,44 @@ Details also go to
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-SOURCE = "src/repro_torch/kernels/csrc/ring.cu"
+CSRC = "src/repro_torch/kernels/csrc"
+SOURCE = f"{CSRC}/ring.cu"
+SOURCES = {"ring": SOURCE,
+           "flash_attention": f"{CSRC}/flash_attention.cu",
+           "decode_attention": f"{CSRC}/decode_attention.cu"}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # The guards' int32 compares run on the CUDA cores.  The data sheet gives
 # no integer rate outside the tensor cores; its float32 CUDA-core rate
 # stands in (an upper bound on the int32 rate, so the bound stays a bound).
 CUDA_CORE_OPS_PER_S = 67e12
+# Attention is bounded against the bf16 tensor-core rate: the least time
+# the card could take, whatever the kernel does its products on.
+TENSOR_BF16_FLOPS = 989e12
+# Kernel vs plain version on the card, max |kernel - plain| / max |plain|.
+# float32: both sum in float32, in other orders.  bfloat16: both compute
+# in float32 from the same bf16 inputs and round the output once; one
+# bf16 ulp of an output near its largest magnitude is ~4e-3.
+ATTN_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LSE_ABS_TOL = 1e-5
+# Card (kernels, cuBLAS) vs CPU (plain versions) on the same float32
+# weights: max |card - cpu| / max |cpu| over the logits.
+LOGIT_REL_TOL = 1e-4
+ARCH = "qwen3-0.6b"
+DEV = "cuda"                # the LM phases' device
+SERVE = dict(slots=8, max_seq=2048, requests=16, prompt=(64, 1500),
+             max_new=32, seed=0)
 # Full-size card run against the CPU (plain-version) lowering of the same
 # graph: max |card - cpu| / max |cpu|.  gemm sums its 4096-long dot
 # products in another order in cuBLAS than on the CPU; the other two run
@@ -81,6 +135,14 @@ REPLACES = {
     "ring_push": "src/repro/kernels/ring.py:141",
     "eval_guards": "src/repro/kernels/ring.py:200",
 }
+ATTN_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:45",
+    "decode_attention": "src/repro/kernels/decode_attention.py:35",
+}
+# device kernels of each attention op, as the profiler names them
+ATTN_KERNELS = {"flash_attention": ("flash_fwd_kernel",),
+                "decode_attention": ("decode_split_kernel",
+                                     "decode_combine_kernel")}
 
 
 def log(*a) -> None:
@@ -107,11 +169,12 @@ def time_ms(fn, reps: int = REPS, warm: int = WARM) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float = 0.0,
+             ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     """The larger of bytes over HBM bandwidth and operations over the
-    CUDA-core rate, and which of the two it is."""
+    given peak rate, and which of the two it is."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_o = ops / ops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -483,13 +546,516 @@ def breakdown() -> tuple[dict, dict]:
     return out, dev_ms
 
 
+# ---------------------------------------------------------------------------
+# phase 7: attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+ATTN_REPS, ATTN_WARM = 50, 5
+LAYERS = 28                 # distinct tensors the timed calls cycle through
+
+FLASH_CASES = [             # (B, S, nh, nkv, hd, causal, window)
+    (1, 8, 16, 8, 128, True, None), (8, 8, 16, 8, 128, True, None),
+    (1, 128, 16, 8, 128, True, None), (8, 128, 16, 8, 128, True, None),
+    (1, 200, 16, 8, 128, True, None), (8, 200, 16, 8, 128, True, None),
+    (1, 2048, 16, 8, 128, True, None), (8, 2048, 16, 8, 128, True, None),
+    (2, 300, 16, 8, 128, True, 100),        # sliding window
+    (2, 77, 8, 2, 64, False, None),         # head width 64, group 4
+]
+DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
+    (8, 2048, 16, 8, 128, [0, 1, 255, 256, 257, 2048, 1000, 37]),
+    (8, 2048, 16, 8, 128,
+     np.random.default_rng(1).integers(0, 2049, 8).tolist()),
+    (4, 512, 8, 2, 64, [0, 1, 255, 512]),   # head width 64, group 4
+]
+
+
+def _rand(gen, shape, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+def _errs(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, the same over max |want|)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return err, err / scale if scale else err
+
+
+def check_attention() -> tuple[list, dict]:
+    """Each attention kernel against its plain version on the card; raises
+    past a limit.  Returns the checked cases and each op's largest
+    absolute difference."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows, worst = [], {"flash_attention": 0.0, "decode_attention": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = ATTN_REL_TOL[dt]
+        for B, S, nh, nkv, hd, causal, window in FLASH_CASES:
+            q = _rand(gen, (B, S, nh, hd), dt)
+            k = _rand(gen, (B, S, nkv, hd), dt)
+            v = _rand(gen, (B, S, nkv, hd), dt)
+            out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window)
+            p_out, p_lse = flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+            torch.cuda.synchronize()
+            err, rel = _errs(out, p_out)
+            lse_err = float((lse - p_lse).abs().max())
+            rows.append(dict(op="flash_attention", dtype=str(dt), B=B, S=S,
+                             nh=nh, nkv=nkv, hd=hd, causal=causal,
+                             window=window, max_abs_err=err, rel_err=rel,
+                             lse_abs_err=lse_err))
+            log(f"attn flash  {str(dt):14s} B={B} S={S:4d} {nh}/{nkv}x{hd} "
+                f"causal={causal} window={window}: rel {rel:.2e} "
+                f"(limit {tol:g}), lse {lse_err:.2e} (limit {LSE_ABS_TOL:g})")
+            if not (rel <= tol and lse_err <= LSE_ABS_TOL):
+                raise AssertionError(f"flash_attention differs from plain: "
+                                     f"{rows[-1]}")
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            del q, k, v, out, lse, p_out, p_lse
+        for B, S, nh, nkv, hd, lens in DECODE_CASES:
+            q = _rand(gen, (B, nh, hd), dt)
+            k = _rand(gen, (B, S, nkv, hd), dt)
+            v = _rand(gen, (B, S, nkv, hd), dt)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
+            out = decode_attention_fwd(q, k, v, kv_len)
+            p_out = decode_attention_plain(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            err, rel = _errs(out, p_out)
+            zeros = bool((out[kv_len == 0] == 0).all())
+            rows.append(dict(op="decode_attention", dtype=str(dt), B=B,
+                             S_max=S, nh=nh, nkv=nkv, hd=hd, kv_len=lens,
+                             max_abs_err=err, rel_err=rel,
+                             exact_zeros=zeros))
+            log(f"attn decode {str(dt):14s} B={B} S_max={S} {nh}/{nkv}x{hd} "
+                f"kv_len={lens}: rel {rel:.2e} (limit {tol:g}), exact "
+                f"zeros at kv_len 0: {zeros}")
+            if not (rel <= tol and zeros):
+                raise AssertionError(f"decode_attention differs from plain: "
+                                     f"{rows[-1]}")
+            worst["decode_attention"] = max(worst["decode_attention"], err)
+            del q, k, v, out, p_out
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def time_attention() -> dict:
+    """CUDA-event times at the serving path's bf16 shapes.  Each call
+    reads another of ``LAYERS`` layers' tensors, as a forward pass does,
+    so no call finds its inputs in L2."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_plain)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    bf16, L = torch.bfloat16, LAYERS
+    nh, nkv, hd = 16, 8, 128
+    out = {"flash_attention": [], "decode_attention": []}
+
+    def timed(fn):
+        return time_ms(fn, reps=ATTN_REPS, warm=ATTN_WARM)
+
+    # flash: one prompt in the middle and the top prefill bucket, and a
+    # batch of eight short prompts
+    for B, S in ((1, 1024), (1, 2048), (8, 256)):
+        qs = _rand(gen, (L, B, S, nh, hd), bf16)
+        ks = _rand(gen, (L, B, S, nkv, hd), bf16)
+        vs = _rand(gen, (L, B, S, nkv, hd), bf16)
+        flops = 2 * B * nh * S * S * hd          # causal: half of 4 B nh S^2 hd
+        nbytes = (qs[0].numel() * 2 + ks[0].numel() * 2) * 2 + 4 * B * nh * S
+        bnd, by = bound_ms(nbytes, flops, TENSOR_BF16_FLOPS)
+        out["flash_attention"].append(dict(
+            shape=f"B={B} Sq=Sk={S} nh={nh} nkv={nkv} hd={hd} bf16 causal",
+            ms=timed(lambda i: flash_attention_fwd(
+                qs[i % L], ks[i % L], vs[i % L], causal=True)),
+            plain_ms=timed(lambda i: flash_attention_plain(
+                qs[i % L], ks[i % L], vs[i % L], causal=True, window=None)),
+            library_ms=timed(lambda i: F.scaled_dot_product_attention(
+                qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
+                vs[i % L].transpose(1, 2), is_causal=True,
+                enable_gqa=True)),
+            bound_ms=bnd, bound_by=by, flops=flops, bytes=nbytes))
+        del qs, ks, vs
+    # decode: the packed cache of the serving run, 8 slots of 2048 rows,
+    # at lengths such as that run's (prompt 64-1500 plus up to 32 new)
+    B, S = SERVE["slots"], SERVE["max_seq"]
+    lo, hi = SERVE["prompt"]
+    lens = np.random.default_rng(3).integers(lo, hi + SERVE["max_new"] + 1, B)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    qs = _rand(gen, (L, B, nh, hd), bf16)
+    ks = _rand(gen, (L, B, S, nkv, hd), bf16)
+    vs = _rand(gen, (L, B, S, nkv, hd), bf16)
+    mask = (torch.arange(S, device=DEV)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    n_tok = int(lens.sum())
+    nbytes = 2 * n_tok * nkv * hd * 2 + 2 * B * nh * hd * 2 + 4 * B
+    bnd, by = bound_ms(nbytes, 4 * nh * n_tok * hd, TENSOR_BF16_FLOPS)
+    out["decode_attention"].append(dict(
+        shape=f"B={B} S_max={S} nh={nh} nkv={nkv} hd={hd} bf16 "
+              f"kv_len={lens.tolist()}",
+        ms=timed(lambda i: decode_attention_fwd(qs[i % L], ks[i % L],
+                                                vs[i % L], kv_len)),
+        plain_ms=timed(lambda i: decode_attention_plain(
+            qs[i % L], ks[i % L], vs[i % L], kv_len)),
+        library_ms=timed(lambda i: F.scaled_dot_product_attention(
+            qs[i % L][:, :, None], ks[i % L].transpose(1, 2),
+            vs[i % L].transpose(1, 2), attn_mask=mask, enable_gqa=True)),
+        bound_ms=bnd, bound_by=by, bytes=nbytes))
+    del qs, ks, vs
+    torch.cuda.empty_cache()
+    for op, rows in out.items():
+        for r in rows:
+            log(f"time {op:16s} {r['shape']}: kernel {r['ms']*1e3:9.2f} us  "
+                f"plain {r['plain_ms']*1e3:9.2f} us  sdpa "
+                f"{r['library_ms']*1e3:9.2f} us  bound "
+                f"{r['bound_ms']*1e3:8.3f} us ({r['bound_by']})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 10: serving Qwen3-0.6B at full width, and its breakdown
+# ---------------------------------------------------------------------------
+
+class _CallStats:
+    """Calls and synchronised wall seconds of the adapter's prefill and
+    decode-step functions."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.n = {"prefill": 0, "decode": 0}
+        self.s = {"prefill": 0.0, "decode": 0.0}
+
+    def wrap(self, kind: str, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.n[kind] += 1
+            self.s[kind] += time.perf_counter() - t0
+            return out
+        return call
+
+
+def _watch_nan(lm):
+    """Route the model's prefill and decode step through a check that
+    ORs "any logit is NaN" into a device flag (no host sync); returns
+    the flag and a function that undoes the routing."""
+    flag = torch.zeros((), dtype=torch.bool, device=DEV)
+    prefill, decode_step = lm.prefill, lm.decode_step
+
+    def watched(fn):
+        def call(*args, **kw):
+            logits, cache = fn(*args, **kw)
+            flag.logical_or_(torch.isnan(logits).any())
+            return logits, cache
+        return call
+
+    lm.prefill, lm.decode_step = watched(prefill), watched(decode_step)
+
+    def restore():
+        lm.prefill, lm.decode_step = prefill, decode_step
+    return flag, restore
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def serving_phase():
+    """Phase 8.  Returns (report, engine, requests, call stats)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serve import (Request, ServeConfig, ServingEngine,
+                                   serve_requests)
+    cfg = dataclasses.replace(get_config(ARCH), attn_impl="kernel")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, SERVE["seed"])        # on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, config says "
+                             f"{cfg.param_count()}")
+    stats = _CallStats()
+    adapter = lm.serving_adapter(params, cfg, max_seq=SERVE["max_seq"])
+    adapter = dataclasses.replace(
+        adapter, prefill_fn=stats.wrap("prefill", adapter.prefill_fn),
+        step_fn=stats.wrap("decode", adapter.step_fn))
+    eng = ServingEngine(ServeConfig(batch_slots=SERVE["slots"],
+                                    max_seq=SERVE["max_seq"]),
+                        batched=adapter)
+    t0 = time.perf_counter()
+    info = eng.warmup(batch_sizes=(1, 2, 4, 8))
+    warm_s = time.perf_counter() - t0
+    if not info["ok"]:
+        raise AssertionError(f"serving warmup failed: {info}")
+    rng = np.random.default_rng(SERVE["seed"])
+    lo, hi = SERVE["prompt"]
+    plens = rng.integers(lo, hi + 1, SERVE["requests"])
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).tolist(),
+                    max_new=SERVE["max_new"]) for i, n in enumerate(plens)]
+
+    nan, restore = _watch_nan(lm)
+    stats.reset()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = serve_requests(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        restore()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = {r.rid: res.get(r.rid) for r in reqs
+           if not (isinstance(res.get(r.rid), list)
+                   and len(res[r.rid]) == SERVE["max_new"])}
+    if bad:
+        raise AssertionError(f"requests without {SERVE['max_new']} tokens: "
+                             f"{bad}")
+    if bool(nan):
+        raise AssertionError("a logit of the serving run is NaN")
+    n_prefill, n_decode = stats.n["prefill"], stats.n["decode"]
+    want = {"flash_attention": cfg.n_layers * n_prefill,
+            "decode_attention": cfg.n_layers * n_decode}
+    for op, n in want.items():
+        if n == 0 or counts.get(op, 0) != n:
+            raise AssertionError(f"{op}: {counts.get(op, 0)} launches in the "
+                                 f"serving run, expected {n} ({cfg.n_layers}"
+                                 f" layers x calls)")
+    n_tok = sum(len(v) for v in res.values())
+    report = dict(
+        arch=ARCH, params=n_params, dtype=cfg.dtype, attn_impl="kernel",
+        **SERVE, prompt_tokens=int(plens.sum()), init_s=init_s,
+        warmup_s=warm_s, wall_s=wall, tokens=n_tok, tok_per_s=n_tok / wall,
+        prefill_calls=n_prefill, prefill_s=stats.s["prefill"],
+        decode_steps=n_decode, decode_s=stats.s["decode"],
+        decode_ms_per_step=stats.s["decode"] / n_decode * 1e3,
+        launches=counts, peak_gb=peak_gb)
+    log(f"serve {ARCH}: {n_params} params {cfg.dtype}, init {init_s:.2f} s, warmup "
+        f"{warm_s:.2f} s; {len(reqs)} requests ({int(plens.sum())} prompt "
+        f"tokens) -> {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} "
+        f"tok/s); prefill {n_prefill} calls {stats.s['prefill']:.3f} s, "
+        f"decode {n_decode} steps {stats.s['decode']:.3f} s "
+        f"({report['decode_ms_per_step']:.2f} ms/step); launches {counts}; "
+        f"peak {peak_gb:.2f} GB")
+    return report, eng, reqs, stats
+
+
+def _device_times(prof) -> tuple[float, dict]:
+    """Total device microseconds in a profile, and per attention op
+    (launches, device us); one launch of an op is one launch of its first
+    kernel."""
+    total, per = 0.0, {}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        total += us
+        for op, names in ATTN_KERNELS.items():
+            for i, nm in enumerate(names):
+                if nm in e.key:
+                    n, t = per.get(op, (0, 0.0))
+                    per[op] = (n + (e.count if i == 0 else 0), t + us)
+    return total, per
+
+
+class _OpCount:
+    """Counts the aten operations dispatched inside a ``with`` block (views
+    included; each is a trip through PyTorch's dispatcher, most of the
+    rest a kernel launch)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n, self._mode = 0, _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _decode_loop(adapter, wave: list, steps: int = 32) -> dict:
+    """The adapter's decode step alone, ``steps`` times on a packed cache
+    whose slots hold ``wave``'s prompts, as the serving loop calls it (one
+    ``[slots]`` copy to the host per step), under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    n, bucket = len(wave), SERVE["max_seq"]
+    toks = np.zeros((n, bucket), np.int32)
+    lens = np.array([len(r.prompt) for r in wave], np.int32)
+    for i, r in enumerate(wave):
+        toks[i, :len(r.prompt)] = r.prompt
+    packed = adapter.init_slots(n)
+    first, cache = adapter.prefill_fn(toks, lens, 0)
+    for i in range(n):
+        packed = adapter.write_slot_fn(packed, cache, i, i)
+    del cache
+    tok = first.cpu().numpy()
+    for s in range(2):                       # warm
+        nxt, packed = adapter.step_fn(tok, packed, s)
+        tok = nxt.cpu().numpy()
+    with _OpCount() as ops:                  # what one step dispatches
+        nxt, packed = adapter.step_fn(tok, packed, 2)
+    tok = nxt.cpu().numpy()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(steps):
+            nxt, packed = adapter.step_fn(tok, packed, s)
+            tok = nxt.cpu().numpy()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, _ = _device_times(prof)
+    return dict(steps=steps, slots=n, kv_len_start=(lens + 3).tolist(),
+                aten_ops_per_step=ops.n,
+                host_ms_per_step=wall / steps * 1e3,
+                device_ms_per_step=busy_us / steps / 1e3,
+                busy_share=busy_us / 1e6 / wall if busy_us else None)
+
+
+def serving_breakdown(eng, reqs, stats) -> dict:
+    """Phase 10: the first wave of requests again under the profiler
+    (device activity only), then the decode step alone on that wave."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import serve_requests
+    wave = reqs[:SERVE["slots"]]
+    stats.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = serve_requests(eng, wave)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if any(len(res[r.rid]) != SERVE["max_new"] for r in wave):
+        raise AssertionError("profiled wave: a request is short of tokens")
+    busy_us, kern = _device_times(prof)
+    dev_ms = {op: t / n / 1e3 for op, (n, t) in kern.items() if n}
+    n_call, s_call = dict(stats.n), dict(stats.s)
+    loop = _decode_loop(eng.batched, wave)
+    out = dict(requests=len(wave), wall_s=wall,
+               prefill_calls=n_call["prefill"], prefill_s=s_call["prefill"],
+               decode_steps=n_call["decode"], decode_s=s_call["decode"],
+               device_busy_s=busy_us / 1e6,
+               busy_share=busy_us / 1e6 / wall if busy_us else None,
+               kernel_device_ms=dev_ms, kernel_launches={
+                   op: n for op, (n, _) in kern.items()},
+               decode_loop=loop)
+    share = out["busy_share"]
+    log(f"breakdown serve: wave of {len(wave)} in {wall:.3f} s (prefill "
+        f"{s_call['prefill']:.3f} s in {n_call['prefill']} calls, decode "
+        f"{s_call['decode']:.3f} s in {n_call['decode']} steps), device "
+        + (f"busy {busy_us / 1e6:.3f} s = {share:.1%}" if share is not None
+           else "time not measured (profiler saw none)")
+        + "; decode step alone: "
+        + (f"{loop['device_ms_per_step']:.3f} ms device of "
+           f"{loop['host_ms_per_step']:.3f} ms = {loop['busy_share']:.1%}"
+           if loop["busy_share"] is not None else "not measured")
+        + f", {loop['aten_ops_per_step']} aten ops a step"
+        + "; per launch: " + ", ".join(f"{k} {v * 1e3:.2f} us"
+                                       for k, v in dev_ms.items()))
+    return out
+
+
+def cli_phase() -> dict:
+    """``python -m repro_torch.launch.serve --full`` at its defaults, in
+    this process (its output goes to this script's)."""
+    from repro_torch.launch.serve import serve
+    t0 = time.perf_counter()
+    rc = serve(["--full", "--arch", ARCH])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"launch.serve --full returned {rc}")
+    log(f"cli: repro_torch.launch.serve --full --arch {ARCH} returned 0 in "
+        f"{wall:.1f} s")
+    return dict(rc=rc, wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the card against the CPU on the same weights
+# ---------------------------------------------------------------------------
+
+def card_vs_cpu() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32",
+                              attn_impl="kernel")
+    p_cpu = lm.init_params(cfg, 1, device="cpu")
+
+    def to_card(t):
+        return {k: to_card(v) for k, v in t.items()} \
+            if isinstance(t, dict) else t.to(DEV)
+    p_card = to_card(p_cpu)
+    rng = np.random.default_rng(1)
+    lens = np.array([37, 512, *rng.integers(38, 512, 2)], np.int32)
+    bucket, max_seq = 512, 1024
+    toks = np.zeros((len(lens), bucket), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab, n)
+    reset_launches()
+    logits, caches = {}, {}
+    for dev, p in (("cpu", p_cpu), (DEV, p_card)):
+        logits[dev], caches[dev] = lm.prefill(
+            p, cfg, torch.from_numpy(toks).to(dev), max_seq=max_seq,
+            true_len=torch.from_numpy(lens).to(dev))
+    steps = []
+
+    def compare(what: str) -> int:
+        want = logits["cpu"].double()
+        got = logits[DEV].cpu().double()
+        rel = float((got - want).abs().max() / want.abs().max())
+        tok_c, tok_g = want.argmax(-1), got.argmax(-1)
+        steps.append(dict(what=what, rel_err=rel,
+                          greedy_equal=bool(torch.equal(tok_c, tok_g))))
+        if rel > LOGIT_REL_TOL or not torch.equal(tok_c, tok_g):
+            raise AssertionError(f"card vs CPU at {what}: rel {rel:.3e} "
+                                 f"(limit {LOGIT_REL_TOL:g}), greedy "
+                                 f"{tok_g.tolist()} vs {tok_c.tolist()}")
+        return tok_c.to(torch.int32)
+
+    tok = compare("prefill")
+    for s in range(8):
+        for dev, p in (("cpu", p_cpu), (DEV, p_card)):
+            logits[dev], caches[dev] = lm.decode_step(
+                p, cfg, tok.to(dev), caches[dev])
+        tok = compare(f"decode {s}")
+    counts = launch_counts()
+    if counts.get("flash_attention", 0) != cfg.n_layers or \
+            counts.get("decode_attention", 0) != 8 * cfg.n_layers:
+        raise AssertionError(f"card side did not go through the kernels: "
+                             f"{counts}")
+    worst = max(s["rel_err"] for s in steps)
+    log(f"card vs cpu: {ARCH} at 2 layers, float32, prompts {lens.tolist()} "
+        f"in a {bucket} bucket + 8 ragged decode steps: logits within "
+        f"{worst:.2e} of max |logit| (limit {LOGIT_REL_TOL:g}), greedy "
+        f"tokens equal; launches {counts}")
+    return dict(layers=cfg.n_layers, prompt_lens=lens.tolist(),
+                bucket=bucket, steps=steps, max_rel_err=worst,
+                launches=counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    if not (ROOT / SOURCE).is_file():
-        print(f"chip_smoke: {SOURCE} not found next to this script; run it "
+    missing = [src for src in SOURCES.values() if not (ROOT / src).is_file()]
+    if missing:
+        print(f"chip_smoke: {missing} not found next to this script; run it "
               f"from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -506,19 +1072,32 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.load("ring")
-    log(f"build: {SOURCE} built and loaded in "
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
+        _build.load(name)
+    log(f"build: {', '.join(SOURCES.values())} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 3-5
+    # 3-6: the synthesis path
     timing, errs = kernel_phase()
     per_app, counts = main_path()
     full = full_size_vs_cpu()
     twin = twin_vs_compiled()
     brk, dev_ms = breakdown()
+
+    # 7-10: the LM serving path
+    attn_checks, attn_errs = check_attention()
+    attn_timing = time_attention()
+    serving, eng, reqs, stats = serving_phase()
+    serve_brk = serving_breakdown(eng, reqs, stats)
+    del eng, reqs, stats
+    torch.cuda.empty_cache()
+    cli = cli_phase()
+    vs_cpu = card_vs_cpu()
 
     kernels = []
     for name, rows in timing.items():
@@ -531,13 +1110,25 @@ def main() -> int:
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             device_ms=dev_ms.get(name),
             shape=head["shape"], by_shape=rows))
+    for name, rows in attn_timing.items():
+        head = rows[0]
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=ATTN_REPLACES[name],
+            launches=serving["launches"].get(name, 0),
+            max_abs_err=attn_errs[name], ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            device_ms=serve_brk["kernel_device_ms"].get(name),
+            shape=head["shape"], by_shape=rows))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
         kernels=kernels, main_path=per_app, full_size_vs_cpu=full,
-        twin_vs_compiled=twin, breakdown=brk),
-        indent=1))
+        twin_vs_compiled=twin, breakdown=brk, attention_checks=attn_checks,
+        serving=serving, serving_breakdown=serve_brk, serve_cli=cli,
+        card_vs_cpu=vs_cpu), indent=1))
     print(smi)
     line = json.dumps({"kernels": kernels})
     print(f"kernels {line}")

@@ -69,3 +69,27 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def bind(name: str, signatures: dict) -> ctypes.CDLL:
+    """:func:`load`, with ``argtypes`` set from ``{fn: [ctypes types]}``
+    (every entry returns an int error code) and ``<name>_error_string``
+    bound to turn a code into text."""
+    lib = load(name)
+    with _lock:
+        if not getattr(lib, "_bound", False):
+            for fn, args in signatures.items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            lib._bound = True
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, op: str, rc: int) -> None:
+    """Raise if a launch entry of ``csrc/<name>.cu`` returned non-zero."""
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{op} kernel launch failed: {msg} (code {rc})")

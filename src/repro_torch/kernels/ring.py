@@ -56,23 +56,8 @@ _ARGTYPES = {
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ring")
-    if not getattr(lib, "_argtypes_set", False):
-        for fn, args in _ARGTYPES.items():
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = _INT
-        lib.ring_error_string.argtypes = [_INT]
-        lib.ring_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
-    return lib
-
-
 def _launched(lib: ctypes.CDLL, op: str, rc: int) -> None:
-    if rc != 0:
-        msg = lib.ring_error_string(rc).decode()
-        raise RuntimeError(f"{op} kernel launch failed: {msg} (cuda error "
-                           f"{rc})")
+    _build.check(lib, "ring", op, rc)
     count_launch(op)
 
 
@@ -144,7 +129,7 @@ def ring_pop(buf: torch.Tensor, head: torch.Tensor, size: torch.Tensor,
     if n == 0:
         return out, head, size
     row_bytes = buf[0].numel() * buf.element_size()
-    lib = _lib()
+    lib = _build.bind("ring", _ARGTYPES)
     rc = lib.ring_pop(buf.data_ptr(), out.data_ptr(), head.data_ptr(),
                       size.data_ptr(), cap, n, row_bytes,
                       _word(row_bytes, buf, out), _stream(buf))
@@ -192,7 +177,7 @@ def ring_push(buf: torch.Tensor, head: torch.Tensor, size: torch.Tensor,
         return buf, head, size
     arr = arr.contiguous()
     row_bytes = buf[0].numel() * buf.element_size()
-    lib = _lib()
+    lib = _build.bind("ring", _ARGTYPES)
     rc = lib.ring_push(buf.data_ptr(), arr.data_ptr(), head.data_ptr(),
                        size.data_ptr(), cap, n, row_bytes,
                        _word(row_bytes, buf, arr), _stream(buf))
@@ -246,7 +231,7 @@ def eval_guards(sizes: torch.Tensor, caps: torch.Tensor,
         return live.clone()
     args = [x.contiguous() for x in (sizes, caps, need_r, need_w, live)]
     fire = torch.empty(t, dtype=torch.bool, device=live.device)
-    lib = _lib()
+    lib = _build.bind("ring", _ARGTYPES)
     rc = lib.eval_guards(*(x.data_ptr() for x in args), fire.data_ptr(),
                          t, c, _stream(live))
     _launched(lib, "eval_guards", rc)
