@@ -972,16 +972,28 @@ def serving_breakdown(eng, reqs, stats) -> dict:
 
 def cli_phase() -> dict:
     """``python -m repro_torch.launch.serve --full`` at its defaults, in
-    this process (its output goes to this script's)."""
+    this process (its output goes to this script's).  Its decode steps
+    must have gone through the flash-decode kernel, every layer of every
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
+    n_layers = get_config(ARCH).n_layers
+    reset_launches()
     t0 = time.perf_counter()
     rc = serve(["--full", "--arch", ARCH])
     wall = time.perf_counter() - t0
+    counts = launch_counts()
     if rc != 0:
         raise AssertionError(f"launch.serve --full returned {rc}")
+    dec = counts.get("decode_attention", 0)
+    if dec == 0 or dec % n_layers:
+        raise AssertionError(f"launch.serve --full did not decode through "
+                             f"the flash-decode kernel at every layer: "
+                             f"{counts}")
     log(f"cli: repro_torch.launch.serve --full --arch {ARCH} returned 0 in "
-        f"{wall:.1f} s")
-    return dict(rc=rc, wall_s=wall)
+        f"{wall:.1f} s; launches {counts}")
+    return dict(rc=rc, wall_s=wall, launches=counts)
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+_bound: dict = {}
 
 
 def _nvcc() -> str:
@@ -74,17 +75,21 @@ def load(name: str) -> ctypes.CDLL:
 def bind(name: str, signatures: dict) -> ctypes.CDLL:
     """:func:`load`, with ``argtypes`` set from ``{fn: [ctypes types]}``
     (every entry returns an int error code) and ``<name>_error_string``
-    bound to turn a code into text."""
+    bound to turn a code into text.  After the first call it is one
+    dict lookup: a launch takes no lock."""
+    lib = _bound.get(name)
+    if lib is not None:
+        return lib
     lib = load(name)
     with _lock:
-        if not getattr(lib, "_bound", False):
+        if name not in _bound:
             for fn, args in signatures.items():
                 getattr(lib, fn).argtypes = args
                 getattr(lib, fn).restype = ctypes.c_int
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            lib._bound = True
+            _bound[name] = lib
     return lib
 
 

@@ -46,18 +46,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len) -> torch.Tensor:
+                     kv_len: torch.Tensor) -> torch.Tensor:
     """One-token GQA decode against a cache (serving only).
 
-    q: [B, nh, hd] or [B, 1, nh, hd]; k/v: [B, S_max, nkv, hd]; kv_len:
-    an int, a 0-d or a [B] int32 tensor of valid lengths.  Returns
-    q-shaped output.
+    q: [B, nh, hd]; k/v: [B, S_max, nkv, hd]; kv_len: [B] int32 valid
+    lengths on q's device.  Returns [B, nh, hd].
     """
     _forward_only("decode_attention", q, k, v)
-    squeeze = q.dim() == 4
-    if squeeze:
-        q = q[:, 0]
-    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
-    lens = lens.expand(q.shape[0]).contiguous()
-    out = decode_attention_fwd(q, k, v, lens)
-    return out[:, None] if squeeze else out
+    return decode_attention_fwd(q, k, v, kv_len)

@@ -59,10 +59,7 @@ def _build_engine(cfg, params, scfg: ServeConfig, args,
     return ServingEngine(scfg, prefill_fn, decode_fn)
 
 
-def _print_warmup(engine: ServingEngine, info: dict) -> None:
-    if not info.get("ok"):
-        print(f"[serve] warmup: eager fallback ({info.get('reason')})")
-        return
+def _print_warmup(info: dict) -> None:
     if "buckets" in info:
         print(f"[serve] warmup: ran prefill buckets "
               f"{list(info['buckets'])}; decode step: {info['decode']}")
@@ -143,19 +140,14 @@ def serve(argv=None) -> int:
         sizes = tuple(sorted({min(2 ** k, args.slots)
                               for k in range(args.slots.bit_length())}
                              | {args.slots}))
+        # a kernel that does not build or launch raises here: the batched
+        # path never gives way to the per-slot one (--per-slot chooses it)
         info = engine.warmup(batch_sizes=sizes)
-        if not info.get("ok"):
-            # a batched adapter has no eager path — serve per-slot instead
-            print(f"[serve] batched warmup failed ({info.get('reason')}); "
-                  f"falling back to per-slot")
-            args.per_slot = True
-            engine = _build_engine(cfg, params, scfg, args, device)
-            info = engine.warmup()
     else:
         info = engine.warmup()
     warm = time.perf_counter() - t0
     mode = "batched" if engine.batched is not None else "per-slot"
-    _print_warmup(engine, info)
+    _print_warmup(info)
     print(f"[serve] warmup took {warm:.2f}s mode={mode}")
     n_warm_log = len(engine.compile_log)
 
@@ -228,9 +220,6 @@ def serve(argv=None) -> int:
     if lazy:
         print(f"[serve] shapes first run during serving: "
               f"{[(k, s) for k, s, _ in lazy]}")
-    if engine.degraded is not None:
-        print(f"[serve] degraded to {engine.degraded[0]}: "
-              f"{engine.degraded[1]}")
     if guard.requested:
         print(f"[serve] preempted: {len(ok)} completed, "
               f"{len(failed)} rejected")

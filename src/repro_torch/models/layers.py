@@ -228,8 +228,9 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     write_kv(cache_v, v, cache_len)
     if cfg.sliding_window is None and (ragged or cfg.attn_impl == "kernel"):
         from ..kernels import ops as kops
+        lens = cache_len + 1 if ragged else (cache_len + 1).expand(B)
         out = kops.decode_attention(q[:, 0], cache_k, cache_v,
-                                    cache_len + 1)[:, None]
+                                    lens)[:, None]
     else:
         out = sdpa(q, cache_k, cache_v, causal=False, q_offset=cache_len,
                    kv_len=cache_len + 1, window=cfg.sliding_window)

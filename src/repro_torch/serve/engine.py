@@ -31,7 +31,7 @@ Two decode paths share the scheduler:
   ``len``; sampling happens on device so the host fetches one
   ``[slots]`` int32 array per step.  ``warmup`` runs every shape once.
 
-* **Per-slot fallback** (``prefill_fn``/``decode_fn`` closures): the seed
+* **Per-slot path** (``prefill_fn``/``decode_fn`` closures): the seed
   path — one call per live slot per token, host argmax.  Kept for toy
   engines, recurrent families (whose prefill cannot pad), and as the
   baseline the fast path is measured against.
@@ -63,9 +63,9 @@ response to each, from least to most severe:
   inside it cannot be pinned on one request and may leave the cache
   torn: every live request gets a :class:`RequestError` and the packed
   cache is rebuilt from scratch.
-* **Batched path unavailable** — warmup or the pre-flight step
-  resolution fails: the scheduler degrades to the per-slot path when the
-  closures exist (the ladder is batched -> per-slot -> refuse).
+* **Batched path unavailable** — warmup raises (a kernel that does not
+  build or launch): the engine does not switch to the per-slot path on
+  its own; the per-slot path runs only when it is the one built.
 * **Preemption** — a ``stop_flag`` (wired to
   :class:`~repro_torch.ft.PreemptionGuard` by ``launch/serve.py``) makes the
   scheduler reject all queued/future admissions with ``"preempted"``
@@ -256,7 +256,6 @@ class ServingEngine:
             admission.clock = self.clock
         self.breaker = breaker             # admission.CircuitBreaker
         self.retry_log: list = []          # (site, attempt, error) tuples
-        self.degraded: Optional[tuple] = None   # ("per-slot", reason) or None
         # batched mode: step callables by shape key, and the shapes run
         # so far with where each came from ("eager": run once, at warmup
         # or at first use)
@@ -280,51 +279,38 @@ class ServingEngine:
         one slot write per batch size and one retire, on a scratch packed
         cache, and reports the source of each (``"eager"``; ``"pinned"``
         if this engine already ran it).  Per-slot mode runs a single
-        ``(1, prompt_len)`` prefill and one decode.  ``{"ok": False}``
-        reports a failure: a batched engine built with the per-slot
-        closures too degrades to them here; an adapter-only engine leaves
-        the choice to the caller.
+        ``(1, prompt_len)`` prefill and one decode.  A failure (a kernel
+        that does not build or launch) raises: the engine never switches
+        to another path on its own.
         """
         if self.batched is not None:
-            rep = self._warmup_batched(batch_sizes)
-            if rep.get("ok") or self.prefill_fn is None \
-                    or self.decode_fn is None:
-                return rep
-            # degradation ladder: batched -> per-slot
-            self.degraded = ("per-slot", rep.get("reason", ""))
-            self.batched = None
+            return self._warmup_batched(batch_sizes)
         toks = np.zeros((1, prompt_len), np.int32)
-        try:
-            _, kv = self.prefill_fn(toks)
-            self.decode_fn(np.zeros((1,), np.int32), kv)
-        except Exception as e:  # noqa: BLE001 - report, keep serving alive
-            return {"ok": False, "reason": repr(e)[:200]}
+        _, kv = self.prefill_fn(toks)
+        self.decode_fn(np.zeros((1,), np.int32), kv)
         return {"ok": True, "prefill": "eager", "decode": "eager"}
 
     def _warmup_batched(self, batch_sizes: tuple) -> dict:
         report: dict = {"ok": True, "buckets": {}, "decode": None}
         n = self.scfg.batch_slots
-        try:
-            scratch = self.batched.init_slots(n)
-            caches = {}
-            for L in self.buckets():
-                for bk in batch_sizes:
-                    fn, src = self._resolve_prefill(bk, L)
-                    _, caches[bk] = fn(np.zeros((bk, L), np.int32),
-                                       np.full((bk,), L, np.int32), 0)
-                    report["buckets"][f"{bk}x{L}"] = src
-            fn, src = self._resolve_step()
-            fn(np.zeros((n,), np.int32), scratch, 0)
-            report["decode"] = src
-            # the slot-maintenance steps, so the first admission wave runs
-            # nothing for the first time
+        scratch = self.batched.init_slots(n)
+        caches = {}
+        for L in self.buckets():
             for bk in batch_sizes:
-                self._resolve_write(bk)(scratch, caches[bk], 0, 0)
-            self._resolve_retire()(scratch, 0)
-            del scratch, caches
-            _synchronize()
-        except Exception as e:  # noqa: BLE001 - keep serving alive
-            return {"ok": False, "reason": repr(e)[:200]}
+                fn, src = self._resolve_prefill(bk, L)
+                _, caches[bk] = fn(np.zeros((bk, L), np.int32),
+                                   np.full((bk,), L, np.int32), 0)
+                report["buckets"][f"{bk}x{L}"] = src
+        fn, src = self._resolve_step()
+        fn(np.zeros((n,), np.int32), scratch, 0)
+        report["decode"] = src
+        # the slot-maintenance steps, so the first admission wave runs
+        # nothing for the first time
+        for bk in batch_sizes:
+            self._resolve_write(bk)(scratch, caches[bk], 0, 0)
+        self._resolve_retire()(scratch, 0)
+        del scratch, caches
+        _synchronize()
         return report
 
     # -- batched-mode step resolution ----------------------------------------
@@ -687,20 +673,7 @@ class ServingEngine:
 
     def scheduler(self, req_in, out_chan, tick_out=None) -> None:
         """Admission + continuous batch decode."""
-        batched = self.batched is not None
-        if batched:
-            # pre-flight: resolving the packed decode step is the batched
-            # path's single point of no return; if it fails and the
-            # per-slot closures exist, degrade instead of dying with the
-            # whole request queue unanswered
-            try:
-                self._resolve_step()
-            except Exception as e:  # noqa: BLE001 - degrade, don't crash
-                if self.prefill_fn is None or self.decode_fn is None:
-                    raise
-                self.degraded = ("per-slot", repr(e)[:200])
-                batched = False
-        if batched:
+        if self.batched is not None:
             self._scheduler_batched(req_in, out_chan, tick_out)
         else:
             self._scheduler_per_slot(req_in, out_chan, tick_out)

@@ -99,8 +99,9 @@ def test_decode_plain_matches_pallas_interpret(nh, nkv):
 
 def test_ops_match_reference_ops_model_layout():
     """The model-layout wrappers against the reference's ops/ref on the
-    path the model takes (causal prefill, ragged decode with kv_len >= 1),
-    4-d decode q included; and the model's naive attention (``sdpa``)
+    path the model takes (causal prefill, ragged decode with kv_len >= 1,
+    the reference's 4-d decode q against the port's [B, nh, hd] one); and
+    the model's naive attention (``sdpa``)
     against the reference's oracle with a query offset and a key length,
     the per-slot decode's masks."""
     q, k, v = _qkv(3, 2, 32, 32, 4, 2, 16)
@@ -112,10 +113,10 @@ def test_ops_match_reference_ops_model_layout():
     qd = q[:, :1]
     want = jax_ops.decode_attention(jnp.asarray(qd), jnp.asarray(k),
                                     jnp.asarray(v), jnp.asarray(lens))
-    got = ops.decode_attention(_t(qd), _t(k), _t(v), _t(lens))
-    assert got.shape == qd.shape
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
-                               rtol=0)
+    got = ops.decode_attention(_t(qd[:, 0]), _t(k), _t(v), _t(lens))
+    assert got.shape == qd[:, 0].shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, 0],
+                               atol=TOL, rtol=0)
     want = jax_ref.flash_attention_ref(
         jnp.asarray(q[:, :4]), jnp.asarray(k), jnp.asarray(v), causal=True,
         q_offset=20, kv_len=24)
@@ -129,10 +130,20 @@ def test_cpu_takes_plain_versions_without_loading_cuda():
     reset_launches()
     q, k, v = _qkv(4, 1, 8, 8, 2, 1, 16)
     ops.flash_attention(_t(q), _t(k), _t(v))
-    ops.decode_attention(_t(q[:, 0]), _t(k), _t(v), 3)
+    ops.decode_attention(_t(q[:, 0]), _t(k), _t(v),
+                         torch.full((1,), 3, dtype=torch.int32))
     assert launch_counts() == {}
     assert "flash_attention" not in _build._libs
     assert "decode_attention" not in _build._libs
+
+
+def test_bind_after_first_call_neither_loads_nor_rebinds(monkeypatch):
+    """A bound library is returned from the cache: no load, no lock."""
+    lib = object()
+    monkeypatch.setitem(_build._bound, "some_kernel", lib)
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("loaded"))
+    monkeypatch.setattr(_build, "_lock", None)   # taking it would raise
+    assert _build.bind("some_kernel", {"some_kernel": []}) is lib
 
 
 def test_forward_only():
@@ -140,7 +151,8 @@ def test_forward_only():
     with pytest.raises(NotImplementedError, match="training slice"):
         ops.flash_attention(q, k, v)
     with pytest.raises(NotImplementedError, match="training slice"):
-        ops.decode_attention(q[:, 0], k, v, 4)
+        ops.decode_attention(q[:, 0], k, v,
+                             torch.full((1,), 4, dtype=torch.int32))
     with torch.no_grad():
         assert ops.flash_attention(q, k, v).shape == q.shape
 

@@ -208,6 +208,24 @@ def test_warmup_runs_every_shape_once():
     assert {"write_slot", "retire"} <= set(kinds)
 
 
+def test_failed_batched_warmup_raises_and_never_serves_per_slot():
+    """A step that fails at warmup (a kernel that does not build or
+    launch) raises out of ``warmup``, even when the per-slot closures are
+    there to serve with: the engine never changes path on its own."""
+    adapter = toy_batched_adapter(32)
+
+    def broken(*args):
+        raise RuntimeError("decode_attention kernel launch failed")
+
+    adapter.step_fn = broken
+    eng = ServingEngine(ServeConfig(batch_slots=2, max_seq=32,
+                                    prefill_buckets=(8,)),
+                        toy_prefill, toy_decode, batched=adapter)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        eng.warmup()
+    assert eng.batched is adapter
+
+
 @pytest.mark.parametrize("variant", ["per_slot", "batched"])
 def test_poison_and_transients_quarantine_only_victims(variant):
     scfg = ServeConfig(batch_slots=2, max_seq=32, prefill_buckets=(8,))
