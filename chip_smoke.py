@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's synthesis and LM-serving paths on one CUDA card
-and check them.
+"""Drive the PyTorch port's synthesis, LM-serving and training paths on
+one CUDA card and check them.
 
 Run from the repository root with no arguments::
 
@@ -64,6 +64,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    live slots: host and device ms per step, the busy share, and the aten
    operations one step dispatches.
 
+11. SSD scan — ``ops.ssd_scan`` (the kernel) against its plain version
+   through the same wrapper and against a float64 evaluation, at the
+   training shape (B=8, S=2048, 24 heads of P=64, N=128, chunk 256), B=1,
+   S=1000 (the pad path), G=2, N=64 and the reduced 16x16, with the
+   model's decays and small ones (``SSD_REL_TOL``; at small decays the
+   inter-chunk term must be a visible part of y); CUDA-event times of
+   kernel and plain version at the training shape, the bound, and the
+   kernels' device time per call.
+12. training — ``repro_torch.launch.train`` on Mamba2-130M at full width
+   (bf16, 8 x 2048, 20 steps, ``--use-kernel``): rc 0 (the driver's own
+   loss-decrease check), exactly 2 x 24 x 20 SSD launches (remat runs each
+   layer's forward twice), finite losses and gradient norms, the step-20
+   checkpoint restorable, and the same command again runs no step.
+13. Qwen3-0.6B at full width, 3 ``make_train_step(use_kernel=True)``
+   steps at 4 x 1024: flash launched 2 x 28 x 3 times, all finite.
+14. card vs CPU — Mamba2-130M cut to 2 layers, float32, the same weights
+   and tokens: loss, every gradient leaf and one AdamW step
+   (``TRAIN_CPU_TOL``).
+15. training breakdown — one step of phase 12's configuration under the
+   profiler: the device's busy share, the SSD kernel's device time and
+   share, the top device operations; the backward's recompute alone.
+
+Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
 JSON object of per-kernel numbers after the word ``kernels``, the same
 object alone, and the result object ``{"ok": true, "device": {...}}``.
@@ -89,7 +112,8 @@ CSRC = "src/repro_torch/kernels/csrc"
 SOURCE = f"{CSRC}/ring.cu"
 SOURCES = {"ring": SOURCE,
            "flash_attention": f"{CSRC}/flash_attention.cu",
-           "decode_attention": f"{CSRC}/decode_attention.cu"}
+           "decode_attention": f"{CSRC}/decode_attention.cu",
+           "ssd_scan": f"{CSRC}/ssd_scan.cu"}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 # The guards' int32 compares run on the CUDA cores.  The data sheet gives
 # no integer rate outside the tensor cores; its float32 CUDA-core rate
@@ -1060,6 +1084,501 @@ def card_vs_cpu() -> dict:
                 launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# phases 11-15: training — Mamba2-130M through the SSD kernel, Qwen3-0.6B
+# through flash attention and its backward
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "mamba2-130m"
+TRAIN = dict(batch=8, seq=2048, steps=20)
+QWEN_TRAIN = dict(batch=4, seq=1024, steps=3)
+SSD_REPLACES = "src/repro/kernels/ssd_scan.py:43"
+SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
+# SSD cases of phase 11: (tag, B, S, H, G, P, N, chunk, decays, s0 scale).
+# "model" decays are Mamba2's own (A = -linspace(1, 16, H), dt =
+# softplus(N(0, 1))): the running sum of dt * A reaches ~-1e3 within a
+# chunk and exp(cum_end) underflows, so the state pass carries ~nothing;
+# "small" decays (dt in [1e-3, 1e-1], the published Mamba-2 dt range, A in
+# [-1, -0.1]) make the inter-chunk term a visible part of y.
+SSD_CASES = [
+    ("train", 8, 2048, 24, 1, 64, 128, 256, "model", 0.0),
+    ("train small", 8, 2048, 24, 1, 64, 128, 256, "small", 1.0),
+    ("B=1", 1, 2048, 24, 1, 64, 128, 256, "model", 1.0),
+    ("S=1000 pad", 2, 1000, 24, 1, 64, 128, 256, "small", 1.0),
+    ("G=2", 2, 1024, 24, 2, 64, 128, 256, "small", 1.0),
+    ("N=64 Q=128", 2, 1024, 8, 1, 64, 64, 128, "small", 1.0),
+    ("reduced 16x16 Q=16", 2, 64, 8, 1, 16, 16, 16, "small", 1.0),
+]
+# Kernel vs plain version, max |kernel - plain| / max |y64|, where y64 is
+# the plain version evaluated in float64 on the card from the same inputs;
+# the kernel against y64 is held to the same limit, and both errors
+# against y64 are printed.  The plain version forms the running sum of dA
+# in float32 (the kernel in double); at the model's decays (|cum| up to
+# ~3e3) that rounding reaches y only through the terms near the diagonal,
+# whose exponents are short differences: it measured 1.1e-5 of max |y|
+# against float64, the kernel 4.3e-7 (on an H100 80GB HBM3 at 700 W).  At
+# small decays both measured ~1e-6 (float32 summation order).  The limits
+# are 5x those.
+SSD_REL_TOL = {"model": 5e-5, "small": 5e-6}
+SSD_MIN_INTER = 1e-2        # small decays: inter-chunk share of max |y|
+# Card vs CPU (phase 14), same float32 weights and tokens: loss relative;
+# each gradient leaf relative to its largest magnitude; each parameter's
+# change after one AdamW step relative to its largest change.  Both sides
+# take the SSD's torch-ops recompute in the backward, in float32, summed in
+# other orders; the largest difference is A_log's gradient, a sum of
+# B * S * P * N terms of both signs (measured 4.1e-4, the step's 7.8e-4,
+# on the card above).  AdamW with eps 1e-5, so no gradient element
+# sits near eps (Adam's first step moves an element by lr * g / (|g| +
+# eps), which turns float32 differences of elements near eps into
+# differences of lr size).
+TRAIN_CPU_TOL = dict(loss=1e-5, grad=1e-3, step=5e-3)
+
+
+def _ssd_inputs(gen, B, S, H, G, P, N, decays, s0_scale) -> tuple:
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=DEV)
+    x, Bm, Cm = r(B, S, H, P), r(B, S, G, N), r(B, S, G, N)
+    if decays == "model":
+        dt = torch.nn.functional.softplus(r(B, S, H))
+        A = -torch.linspace(1.0, 16.0, H, device=DEV)
+    else:
+        dt, A = u(1e-3, 1e-1, B, S, H), -u(0.1, 1.0, H)
+    return x, dt, A, Bm, Cm, r(B, H, P, N) * s0_scale
+
+
+def _ssd_f64(x, dt, A, Bm, Cm, chunk, s0) -> tuple:
+    """The model-layout SSD (no D skip) through the plain version in
+    float64: padded with dt = 0 to a whole number of chunks, trimmed."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    S = x.shape[1]
+    pad = (-S) % chunk
+    x, dt, Bm, Cm = (t.double() for t in (x, dt, Bm, Cm))
+    if pad:
+        x, Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                     for t in (x, Bm, Cm))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    y, s = ssd_scan_plain(x * dt[..., None], dt * A.double(), Bm, Cm,
+                          s0.double(), chunk=chunk)
+    return y[:, :S], s
+
+
+def check_ssd() -> tuple[list, float]:
+    """Phase 11, checks: ``ops.ssd_scan`` (the kernel on the card) against
+    the plain version through the same wrapper, both against float64;
+    raises past a limit.  Returns the cases and the largest absolute
+    difference."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain, ssd_sequence
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    rows, worst = [], 0.0
+    for tag, B, S, H, G, P, N, Q, decays, s0s in SSD_CASES:
+        x, dt, A, Bm, Cm, s0 = _ssd_inputs(gen, B, S, H, G, P, N, decays,
+                                           s0s)
+        D = torch.zeros(H, device=DEV)       # y is the scan alone
+        y, s = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=Q, init_state=s0)
+        yp, sp = ssd_sequence(ssd_scan_plain, x, dt, A, Bm, Cm, D, Q, s0)
+        y64, s64 = _ssd_f64(x, dt, A, Bm, Cm, Q, s0)
+        torch.cuda.synchronize()
+        ys, ss = float(y64.abs().max()), float(s64.abs().max())
+
+        def rel(a, b, scale):
+            return float((a.double() - b.double()).abs().max()) / scale
+        row = dict(case=tag, B=B, S=S, H=H, G=G, P=P, N=N, chunk=Q,
+                   decays=decays, s0_scale=s0s, max_abs_y=ys,
+                   y_kernel_vs_plain=rel(y, yp, ys),
+                   y_kernel_vs_f64=rel(y, y64, ys),
+                   y_plain_vs_f64=rel(yp, y64, ys),
+                   state_kernel_vs_plain=rel(s, sp, ss),
+                   state_kernel_vs_f64=rel(s, s64, ss),
+                   state_plain_vs_f64=rel(sp, s64, ss),
+                   max_abs_err=max(float((y - yp).abs().max()),
+                                   float((s - sp).abs().max())))
+        if decays == "small" and S % Q == 0:
+            # the same chunks with the state pass cut: each chunk alone
+            nb = B * S // Q
+            yi, _ = ssd_scan_plain(
+                (x * dt[..., None]).reshape(nb, Q, H, P),
+                (dt * A).reshape(nb, Q, H), Bm.reshape(nb, Q, G, N),
+                Cm.reshape(nb, Q, G, N),
+                torch.zeros((nb, H, P, N), device=DEV), chunk=Q)
+            row["inter_share"] = rel(yp, yi.reshape(B, S, H, P), ys)
+        tol = SSD_REL_TOL[decays]
+        log(f"ssd {tag:20s} B={B} S={S} H={H} G={G} P={P} N={N} Q={Q} "
+            f"{decays:5s}: y kernel-plain {row['y_kernel_vs_plain']:.2e} "
+            f"kernel-f64 {row['y_kernel_vs_f64']:.2e} plain-f64 "
+            f"{row['y_plain_vs_f64']:.2e}; state {row['state_kernel_vs_plain']:.2e}"
+            f" / {row['state_kernel_vs_f64']:.2e} / "
+            f"{row['state_plain_vs_f64']:.2e} (limit {tol:g})"
+            + (f"; inter-chunk share {row['inter_share']:.3e}"
+               if "inter_share" in row else ""))
+        rows.append(row)
+        bad = [k for k in ("y_kernel_vs_plain", "y_kernel_vs_f64",
+                           "state_kernel_vs_plain", "state_kernel_vs_f64")
+               if not row[k] <= tol]
+        if bad or not (np.isfinite(ys) and np.isfinite(ss)):
+            raise AssertionError(f"ssd_scan differs from plain: {bad} {row}")
+        if row.get("inter_share", 1.0) < SSD_MIN_INTER:
+            raise AssertionError(f"ssd {tag}: the inter-chunk term is not "
+                                 f"visible ({row['inter_share']:.2e})")
+        worst = max(worst, row["max_abs_err"])
+        del x, dt, Bm, Cm, s0, y, s, yp, sp, y64, s64
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def _ssd_work(B, S, H, G, P, N, Q) -> tuple[int, int]:
+    """(bytes, flops) the SSD scan needs at a shape: inputs read once,
+    outputs written once; the causal half of C B^T and of its product
+    with xdt, the state read, each chunk's own state and the state
+    pass."""
+    nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N
+                  + 2 * B * H * P * N)
+    tri = Q * (Q + 1) // 2
+    per_chunk = tri * 2 * (N + P) + 2 * Q * 2 * P * N + 2 * P * N
+    return nbytes, B * H * (S // Q) * per_chunk
+
+
+def time_ssd() -> dict:
+    """Phase 11, times at the training shape: kernel, plain version and
+    bound by CUDA events, and the kernels' device time per call from the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
+    tag, B, S, H, G, P, N, Q, decays, _ = SSD_CASES[0]
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(gen, B, S, H, G, P, N, decays, 0.0)
+    xdt, dA = x * dt[..., None], dt * A
+    del x
+    nbytes, flops = _ssd_work(B, S, H, G, P, N, Q)
+    bnd, by = bound_ms(nbytes, flops, CUDA_CORE_OPS_PER_S)
+
+    def kern(i):
+        return ssd_scan_fwd(xdt, dA, Bm, Cm, s0, chunk=Q)
+    ms = time_ms(kern, reps=10, warm=2)
+    plain_ms = time_ms(lambda i: ssd_scan_plain(xdt, dA, Bm, Cm, s0,
+                                                chunk=Q), reps=3, warm=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(5):
+            kern(i)
+        torch.cuda.synchronize()
+    # each kernel's mean over the launches the profiler kept (it may keep
+    # more of one kernel's than of another's in a short window)
+    tot = {}
+    for e in prof.key_averages():
+        for nm in SSD_KERNELS:
+            if nm in e.key and e.count:
+                t, n = tot.get(nm, (0.0, 0))
+                tot[nm] = (t + float(getattr(e, "self_device_time_total",
+                                             0.0) or 0.0), n + e.count)
+    per = {k: t / n for k, (t, n) in tot.items()}
+    dev_ms = sum(per.values()) / 1e3 if len(per) == len(SSD_KERNELS) \
+        else None
+    out = dict(shape=f"B={B} S={S} H={H} G={G} P={P} N={N} chunk={Q} f32",
+               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
+               bound_by=by, bound_peak="float32 CUDA cores, 67 TFLOP/s",
+               bound_tf32_ms=max(nbytes / HBM_BYTES_PER_S, flops / 495e12)
+               * 1e3, bytes=nbytes, flops=flops, device_ms=dev_ms,
+               device_us_by_kernel=per, tflops=flops / ms / 1e9)
+    log(f"time ssd_scan {out['shape']}: kernel {ms * 1e3:9.2f} us "
+        f"({out['tflops']:.1f} TFLOP/s), device "
+        + (f"{dev_ms * 1e3:.2f} us (" + ", ".join(
+            f"{k} {v:.2f}" for k, v in per.items()) + " us)"
+           if dev_ms is not None else "not measured")
+        + f"; plain {plain_ms * 1e3:9.2f} us; library none; bound "
+        f"{bnd * 1e3:.3f} us ({by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32; TF32 tensor cores "
+        f"{out['bound_tf32_ms'] * 1e3:.3f} us)")
+    del xdt, dA, Bm, Cm, s0
+    torch.cuda.empty_cache()
+    return out
+
+
+def _finite_tree(tree) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in _leaves(tree)
+               if t.is_floating_point())
+
+
+def train_phase() -> dict:
+    """Phase 12: ``repro_torch.launch.train`` at full width, then the same
+    command again, which must resume at the last step and run none."""
+    import tempfile
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_config(TRAIN_ARCH)
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, mpath = str(Path(tmp) / "ckpt"), Path(tmp) / "metrics.jsonl"
+        args = ["--arch", TRAIN_ARCH, "--use-kernel", "--batch", str(B),
+                "--seq", str(S), "--steps", str(steps), "--ckpt-dir", ck,
+                "--metrics", str(mpath), "--log-every", "5"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [json.loads(x) for x in mpath.read_text().splitlines()]
+        want = {"ssd_scan": 2 * cfg.n_layers * steps}
+        if rc != 0 or counts != want:
+            raise AssertionError(f"train returned {rc}; launches {counts}, "
+                                 f"expected {want} (2 x {cfg.n_layers} "
+                                 f"layers x {steps} steps: remat runs each "
+                                 f"layer's forward twice)")
+        if len(rows) != steps or not all(
+                np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                for r in rows):
+            raise AssertionError(f"metrics: {rows}")
+        like = lm.init_params(cfg, device="meta")
+        got = CheckpointManager(ck).restore_latest(
+            like, adamw_init(like, AdamWConfig()), device=DEV)
+        if got is None or got[0] != steps or not (
+                _finite_tree(got[1]) and _finite_tree(got[2])):
+            raise AssertionError(f"checkpoint at step {steps} not restorable"
+                                 f" ({None if got is None else got[0]})")
+        n_params = sum(t.numel() for t in _leaves(got[1]))
+        del got
+        reset_launches()
+        rc2 = train(args)
+        again = launch_counts()
+        n_rows = len(mpath.read_text().splitlines())
+        if rc2 != 0 or again or n_rows != steps:
+            raise AssertionError(f"rerun: rc {rc2}, launches {again}, "
+                                 f"{n_rows} metric rows (expected 0 steps)")
+    dts = [r["dt"] for r in rows]
+    step_ms = float(np.median(dts[1:])) * 1e3
+    out = dict(arch=TRAIN_ARCH, params=n_params, dtype=cfg.dtype, **TRAIN,
+               use_kernel=True, remat=True, rc=rc, wall_s=wall,
+               launches=counts, loss_first=rows[0]["loss"],
+               loss_last=rows[-1]["loss"],
+               losses=[r["loss"] for r in rows],
+               grad_norms=[r["grad_norm"] for r in rows],
+               first_step_ms=dts[0] * 1e3, median_step_ms=step_ms,
+               mean_step_ms=float(np.mean(dts[1:])) * 1e3,
+               tok_per_s=B * S / (step_ms / 1e3), peak_gb=peak_gb,
+               rerun_rc=rc2)
+    log(f"train {TRAIN_ARCH}: {n_params} params {cfg.dtype}, batch {B} x "
+        f"seq {S}, {steps} steps in {wall:.1f} s (final save and checks "
+        f"included); step 1 {dts[0] * 1e3:.0f} ms, then median "
+        f"{step_ms:.1f} ms ({out['tok_per_s']:,.0f} tokens/s); loss "
+        f"{rows[0]['loss']:.4f} -> {rows[-1]['loss']:.4f}; launches "
+        f"{counts}; peak {peak_gb:.2f} GB; checkpoint {steps} restored; "
+        f"rerun ran 0 steps")
+    return out
+
+
+def qwen_train_phase() -> dict:
+    """Phase 13: Qwen3-0.6B at full width, ``make_train_step`` with the
+    flash kernel forward and its autograd backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_config(ARCH)
+    B, S, steps = QWEN_TRAIN["batch"], QWEN_TRAIN["seq"], QWEN_TRAIN["steps"]
+    params = lm.init_params(cfg, 0)
+    opt = AdamWConfig(total_steps=steps, warmup_steps=1)
+    state = adamw_init(params, opt)
+    step_fn = make_train_step(cfg, opt, use_kernel=True)
+    data = make_pipeline(cfg.vocab, S, B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, gnorms, dts = [], [], []
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in data.next_batch().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": 2 * cfg.n_layers * steps}
+    if counts != want:
+        raise AssertionError(f"qwen train: launches {counts}, expected "
+                             f"{want}")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()
+            and _finite_tree(params)):
+        raise AssertionError(f"qwen train: losses {losses}, grad norms "
+                             f"{gnorms}")
+    del params, state
+    torch.cuda.empty_cache()
+    out = dict(arch=ARCH, dtype=cfg.dtype, **QWEN_TRAIN, losses=losses,
+               grad_norms=gnorms, step_ms=[d * 1e3 for d in dts],
+               launches=counts, peak_gb=peak_gb)
+    log(f"train {ARCH}: batch {B} x seq {S}, {steps} steps of "
+        f"make_train_step(use_kernel=True): "
+        + ", ".join(f"{d * 1e3:.0f}" for d in dts) + " ms; losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; grad norms "
+        + ", ".join(f"{v:.3f}" for v in gnorms)
+        + f"; launches {counts}; peak {peak_gb:.2f} GB")
+    return out
+
+
+def train_vs_cpu() -> dict:
+    """Phase 14: Mamba2-130M at full width cut to 2 layers, float32, the
+    same weights and tokens on the card (kernel) and the CPU (plain
+    versions): loss, every gradient leaf, and one AdamW step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import leaves, named_leaves, tree_map
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                              dtype="float32")
+    p_cpu = lm.init_params(cfg, 1, device="cpu")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-5)
+    batch = make_pipeline(cfg.vocab, 512, 2, seed=1).next_batch()
+    res = {}
+    reset_launches()
+    for dev in ("cpu", DEV):
+        p = tree_map(lambda t: t.to(dev), p_cpu)
+        live = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss = lm.loss_fn(live, cfg, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in batch.items()},
+                          remat=True, use_kernel=True)
+        grads = torch.autograd.grad(loss, leaves(live))
+        it = iter(grads)
+        g_tree = tree_map(lambda _: next(it), p)
+        new_p, _, _ = adamw_update(g_tree, adamw_init(p, opt), p, opt)
+        res[dev] = dict(loss=float(loss.detach()),
+                        grads=dict(named_leaves(g_tree)),
+                        step=dict(named_leaves(tree_map(
+                            lambda a, b: (a - b).cpu().double(), new_p, p))))
+    counts = launch_counts()
+    if counts != {"ssd_scan": 2 * cfg.n_layers}:
+        raise AssertionError(f"card vs cpu (train): launches {counts}")
+    loss_rel = abs(res[DEV]["loss"] - res["cpu"]["loss"]) / \
+        abs(res["cpu"]["loss"])
+
+    def worst(key):
+        out = {}
+        for name, want in res["cpu"][key].items():
+            want = want.cpu().double()
+            got = res[DEV][key][name].cpu().double()
+            out[name] = float((got - want).abs().max()) / \
+                max(float(want.abs().max()), 1e-30)
+        return out
+    grad_rel, step_rel = worst("grads"), worst("step")
+    g_name = max(grad_rel, key=grad_rel.get)
+    s_name = max(step_rel, key=step_rel.get)
+    tol = TRAIN_CPU_TOL
+    log(f"card vs cpu (train): {TRAIN_ARCH} at 2 layers, float32, B=2 S=512"
+        f" (2 chunks): loss {res['cpu']['loss']:.6f}, rel {loss_rel:.2e} "
+        f"(limit {tol['loss']:g}); gradients worst {grad_rel[g_name]:.2e} "
+        f"({g_name}; limit {tol['grad']:g}); AdamW step worst "
+        f"{step_rel[s_name]:.2e} ({s_name}; limit {tol['step']:g}); "
+        f"launches {counts}")
+    if not (loss_rel <= tol["loss"] and grad_rel[g_name] <= tol["grad"]
+            and step_rel[s_name] <= tol["step"]):
+        raise AssertionError("card vs cpu (train) past a limit")
+    return dict(layers=cfg.n_layers, batch=2, seq=512, loss=res["cpu"]["loss"],
+                loss_rel=loss_rel, grad_rel=grad_rel, step_rel=step_rel,
+                launches=counts)
+
+
+def train_breakdown() -> dict:
+    """Phase 15: one step of phase 12's configuration under the profiler:
+    the device's busy share of the unprofiled step, the SSD kernel's
+    device time per launch and share, the top device operations; then the
+    backward's recompute (``ssd_chunked`` in torch ops, forward and
+    backward) alone at one layer's shape, times the layers."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.layers import ssd_chunked
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    params = lm.init_params(cfg, 0)
+    opt = AdamWConfig(total_steps=TRAIN["steps"], warmup_steps=1)
+    state = adamw_init(params, opt)
+    step_fn = make_train_step(cfg, opt, use_kernel=True)
+    data = make_pipeline(cfg.vocab, S, B, seed=0)
+    batches = [{k: torch.from_numpy(v).to(DEV)
+                for k, v in data.next_batch().items()} for _ in range(4)]
+    params, state, _ = step_fn(params, state, batches[0])     # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:3]:
+        params, state, _ = step_fn(params, state, b)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step_fn(params, state, batches[3])
+        torch.cuda.synchronize()
+    total, ssd_us, ssd_n, ops = 0.0, 0.0, 0, []
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        total += us
+        if any(nm in e.key for nm in SSD_KERNELS):
+            ssd_us += us
+            if SSD_KERNELS[0] in e.key:
+                ssd_n += e.count
+        if us:
+            ops.append((us, e.key, e.count))
+    ops.sort(reverse=True)
+    del params, state, batches
+    torch.cuda.empty_cache()
+
+    # the backward's recompute alone, at one layer's shapes
+    s = cfg.ssm
+    H, P, N = s.n_heads(cfg.d_model), s.head_dim, s.d_state
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(gen, B, S, H, s.n_groups, P, N,
+                                      "model", 0.0)
+    x = x.to(torch.bfloat16)
+    ins = [t.requires_grad_() for t in (x, dt, A, Bm.to(torch.bfloat16),
+                                        Cm.to(torch.bfloat16),
+                                        torch.ones(H, device=DEV))]
+
+    def recompute(i):
+        y, fin = ssd_chunked(*ins, s.chunk)
+        torch.autograd.grad((y, fin), ins, (torch.ones_like(y),
+                                            torch.zeros_like(fin)))
+    rec_ms = time_ms(recompute, reps=3, warm=1)
+    del x, dt, A, Bm, Cm, ins
+    torch.cuda.empty_cache()
+    busy = total / 1e6 / step_s if total else None
+    out = dict(step_s=step_s, device_busy_s=total / 1e6, busy_share=busy,
+               ssd_launches=ssd_n,
+               ssd_device_ms_per_launch=ssd_us / ssd_n / 1e3 if ssd_n else
+               None, ssd_share_of_step=ssd_us / 1e6 / step_s,
+               recompute_ms_per_layer=rec_ms,
+               recompute_s_per_step=rec_ms * cfg.n_layers / 1e3,
+               top_device_ops=[dict(name=k[:80], us=us, count=n)
+                               for us, k, n in ops[:12]])
+    log(f"breakdown train {TRAIN_ARCH}: step {step_s * 1e3:.1f} ms, device "
+        + (f"busy {total / 1e3:.1f} ms = {busy:.1%}" if busy is not None
+           else "time not measured (profiler saw none)")
+        + f"; ssd_scan {ssd_n} launches, "
+        + (f"{out['ssd_device_ms_per_launch'] * 1e3:.1f} us each, "
+           f"{out['ssd_share_of_step']:.1%} of the step"
+           if ssd_n else "device time not measured")
+        + f"; backward recompute (ssd_chunked fwd+bwd) {rec_ms:.2f} ms a "
+        f"layer, {out['recompute_s_per_step'] * 1e3:.0f} ms a step; top "
+        "device ops: " + "; ".join(f"{k[:48]} {us / 1e3:.1f} ms x{n}"
+                                   for us, k, n in ops[:6]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1094,22 +1613,40 @@ def main() -> int:
     log(f"build: {', '.join(SOURCES.values())} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    seconds = {}
+
+    def phase(name: str, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
     # 3-6: the synthesis path
-    timing, errs = kernel_phase()
-    per_app, counts = main_path()
-    full = full_size_vs_cpu()
-    twin = twin_vs_compiled()
-    brk, dev_ms = breakdown()
+    timing, errs = phase("3 kernels", kernel_phase)
+    per_app, counts = phase("4 main path", main_path)
+    full = phase("4 full size vs cpu", full_size_vs_cpu)
+    twin = phase("5 twin vs compiled", twin_vs_compiled)
+    brk, dev_ms = phase("6 breakdown", breakdown)
 
     # 7-10: the LM serving path
-    attn_checks, attn_errs = check_attention()
-    attn_timing = time_attention()
-    serving, eng, reqs, stats = serving_phase()
-    serve_brk = serving_breakdown(eng, reqs, stats)
+    attn_checks, attn_errs = phase("7 attention checks", check_attention)
+    attn_timing = phase("7 attention times", time_attention)
+    serving, eng, reqs, stats = phase("8 serving", serving_phase)
+    serve_brk = phase("10 serving breakdown", serving_breakdown, eng, reqs,
+                      stats)
     del eng, reqs, stats
     torch.cuda.empty_cache()
-    cli = cli_phase()
-    vs_cpu = card_vs_cpu()
+    cli = phase("8 serve cli", cli_phase)
+    vs_cpu = phase("9 card vs cpu", card_vs_cpu)
+
+    # 11-15: the training path
+    ssd_checks, ssd_err = phase("11 ssd checks", check_ssd)
+    ssd_time = phase("11 ssd times", time_ssd)
+    training = phase("12 train mamba2", train_phase)
+    qwen = phase("13 train qwen3", qwen_train_phase)
+    train_cpu = phase("14 train card vs cpu", train_vs_cpu)
+    train_brk = phase("15 train breakdown", train_breakdown)
 
     kernels = []
     for name, rows in timing.items():
@@ -1132,7 +1669,16 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             device_ms=serve_brk["kernel_device_ms"].get(name),
-            shape=head["shape"], by_shape=rows))
+            shape=head["shape"], by_shape=rows,
+            train_launches=qwen["launches"].get(name, 0)))
+    kernels.append(dict(
+        name="ssd_scan", route="cuda", source=SOURCES["ssd_scan"],
+        replaces=SSD_REPLACES, launches=training["launches"]["ssd_scan"],
+        max_abs_err=ssd_err, ms=ssd_time["ms"],
+        plain_ms=ssd_time["plain_ms"], bound_ms=ssd_time["bound_ms"],
+        bound_by=ssd_time["bound_by"], library_ms=None,
+        device_ms=ssd_time["device_ms"], shape=ssd_time["shape"],
+        timing=ssd_time))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -1140,7 +1686,9 @@ def main() -> int:
         kernels=kernels, main_path=per_app, full_size_vs_cpu=full,
         twin_vs_compiled=twin, breakdown=brk, attention_checks=attn_checks,
         serving=serving, serving_breakdown=serve_brk, serve_cli=cli,
-        card_vs_cpu=vs_cpu), indent=1))
+        card_vs_cpu=vs_cpu, ssd_checks=ssd_checks, training=training,
+        qwen_training=qwen, train_card_vs_cpu=train_cpu,
+        train_breakdown=train_brk, phase_seconds=seconds), indent=1))
     print(smi)
     line = json.dumps({"kernels": kernels})
     print(f"kernels {line}")

@@ -72,12 +72,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when its rows are contiguous and 16-byte aligned (the
-    kernel's loads), else a contiguous copy."""
+    kernel's loads), else a fresh contiguous copy (a fresh allocation is
+    aligned; ``contiguous()`` of a contiguous view at an odd offset is
+    the view itself)."""
     vec = 16 // x.element_size()
     if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and \
             all(st % vec == 0 for st in x.stride()[:-1]):
         return x
-    return x.contiguous()
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -167,10 +167,13 @@ class ModelConfig:
         s = self.ssm
         di = s.d_inner(d)
         nh = s.n_heads(d)
+        conv_ch = di + 2 * s.n_groups * s.d_state
         n = d * (2 * di + 2 * s.n_groups * s.d_state + nh)  # in_proj (zxbcdt)
-        n += s.conv_width * (di + 2 * s.n_groups * s.d_state)  # conv1d
-        n += nh * 2                                # A_log, D
-        n += di                                    # dt_bias ~ nh, norm di
+        # conv1d weight and bias (the reference counts no conv_b, and
+        # counts dt_bias and the gate norm as di together: it is nh + di)
+        n += (s.conv_width + 1) * conv_ch
+        n += nh * 3                                # A_log, D, dt_bias
+        n += di                                    # gate norm
         n += di * d                                # out_proj
         n += d                                     # pre-norm
         return n

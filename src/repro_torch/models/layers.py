@@ -1,13 +1,14 @@
-"""Neural-net building blocks of the dense LM, as plain functions on
-tensors.
+"""Neural-net building blocks of the dense and SSM LMs, as plain
+functions on tensors.
 
-The port's counterpart of the dense subset of the reference's
+The port's counterpart of the dense and Mamba2 subsets of the reference's
 ``models/layers.py``: RMSNorm, rotary embedding, grouped-query attention
 with optional qk-norm and sliding window (full-sequence and one-token
-decode against a KV cache), and the SwiGLU MLP.  Parameters are plain
-nested dicts of tensors with the reference's names and layouts — a
-matrix is ``[in, out]`` and applied as ``x @ W`` — so the reference's
-parameter pytree carries over leaf for leaf
+decode against a KV cache), the SwiGLU MLP, the Mamba2 block (causal
+conv, chunked SSD) for training and prefill, and the cross-entropy
+loss.  Parameters are plain nested dicts of tensors with the reference's
+names and layouts — a matrix is ``[in, out]`` and applied as ``x @ W`` —
+so the reference's parameter pytree carries over leaf for leaf
 (:func:`repro_torch.models.weights.from_jax_params`).
 
 Compute runs in the parameters' dtype with fp32 norms, rotary angles and
@@ -249,3 +250,161 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD (state-space duality)
+# ---------------------------------------------------------------------------
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype,
+                device) -> dict:
+    """One Mamba2 block's parameters.  ``A_log``, ``D`` and ``dt_bias``
+    stay float32 whatever ``dtype`` is, as in the reference."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di, nh = s.d_inner(d), s.n_heads(d)
+    G, N = s.n_groups, s.d_state
+    conv_ch = di + 2 * G * N
+    f32 = torch.float32
+    conv_w = torch.randn((s.conv_width, conv_ch), generator=gen,
+                         device=device) * 0.1
+    return {
+        # fused input projection: [z | x | B | C | dt], widths di, di,
+        # G*N, G*N, nh
+        "in_proj": _dense_init(gen, d, 2 * di + 2 * G * N + nh, dtype,
+                               device),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32,
+                                          device=device)),
+        "D": torch.ones((nh,), dtype=f32, device=device),
+        "dt_bias": torch.zeros((nh,), dtype=f32, device=device),
+        "norm": init_rmsnorm(di, dtype, device),
+        "out_proj": _dense_init(gen, di, d, dtype, device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None) -> tuple:
+    """Depthwise causal conv1d + SiLU.  x: [B, S, C]; w: [W, C].  Returns
+    (y, new conv state = the last W-1 inputs)."""
+    W, S = w.shape[0], x.shape[1]
+    pad = state if state is not None else x.new_zeros(
+        (x.shape[0], W - 1, x.shape[2]))
+    xp = torch.cat([pad, x], dim=1)                 # [B, S+W-1, C]
+    y = sum(xp[:, i:i + S] * w[i] for i in range(W)) + b
+    return F.silu(y), (xp[:, -(W - 1):] if W > 1 else pad)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+                chunk: int, init_state: Optional[torch.Tensor] = None,
+                use_kernel: bool = False) -> tuple:
+    """SSD (Mamba-2) sequence mixing.
+
+    x: [B, S, H, P]; dt: [B, S, H] (softplus-ed); A: [H] (negative);
+    Bm/Cm: [B, S, G, N] (G groups broadcast to H); D: [H].  Returns
+    (y [B, S, H, P] in x's dtype, final_state [B, H, P, N] float32).
+
+    ``use_kernel`` goes through :func:`repro_torch.kernels.ops.ssd_scan`
+    (the CUDA kernel on a card tensor).  Otherwise the chunked algorithm
+    (arXiv:2405.21060 section 6) runs in differentiable torch ops, fp32
+    state math: intra-chunk quadratic attention with a decay mask plus
+    the inter-chunk state recurrence.  This is also what the kernel op's
+    backward differentiates.
+    """
+    if use_kernel:
+        from ..kernels import ops as kops
+        return kops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk,
+                             init_state=init_state)
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    pad = (-S) % chunk
+    if pad:
+        # dt = 0 on padded steps: exp(0 * A) = 1 decay and zero input, so
+        # padding is state-neutral and trimming y afterwards is exact
+        y, final = ssd_chunked(
+            F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
+            F.pad(Bm, (0, 0, 0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, 0, 0, pad)),
+            D, chunk, init_state)
+        return y[:, :S], final
+    nc, rep = S // chunk, H // G
+    xf = x.float().reshape(B, nc, chunk, H, P)
+    dtf = dt.float().reshape(B, nc, chunk, H)
+    Bf = Bm.float().repeat_interleave(rep, dim=2) \
+        .reshape(B, nc, chunk, H, N)
+    Cf = Cm.float().repeat_interleave(rep, dim=2) \
+        .reshape(B, nc, chunk, H, N)
+
+    cum = (dtf * A).cumsum(dim=2)                  # [B,nc,Q,H], inclusive
+    # decay from step j (exclusive) to step i (inclusive), i >= j; the
+    # exponent is masked, not the exp, so masked entries never produce
+    # inf forward or NaN backward
+    tril = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    decay = torch.exp(torch.where(tril, diff, float("-inf")))
+
+    xdt = xf * dtf[..., None]
+    # intra-chunk: y[i] = sum_{j<=i} C_i . B_j decay(i, j) x_j dt_j
+    cb = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", cb * decay, xdt)
+    # chunk summary states: sum_j decay(end..j) B_j x_j dt_j
+    tail = torch.exp(cum[:, :, -1:, :] - cum)
+    chunk_state = torch.einsum("bcjhn,bcjhp->bchpn", Bf,
+                               xdt * tail[..., None])
+    # inter-chunk recurrence over the chunk states
+    total = torch.exp(cum[:, :, -1, :])            # [B, nc, H]
+    state = init_state.float() if init_state is not None else \
+        torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)                     # state entering chunk c
+        state = state * total[:, c, :, None, None] + chunk_state[:, c]
+    # inter-chunk contribution: y[i] += C_i . (decay(start..i) * state_in)
+    y_inter = torch.einsum("bcihn,bchpn->bcihp",
+                           Cf * torch.exp(cum)[..., None],
+                           torch.stack(entering, dim=1))
+    y = (y_intra + y_inter).reshape(B, S, H, P)
+    y = y + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def mamba2_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 use_kernel: bool = False) -> torch.Tensor:
+    """Full Mamba2 block (train/prefill): in_proj -> conv -> SSD -> gate
+    -> out_proj.  x: [B, S, d]."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di, nh = s.d_inner(d), s.n_heads(d)
+    G, N = s.n_groups, s.d_state
+    B, S, _ = x.shape
+    zxbcdt = x @ p["in_proj"]
+    z, xin, Bc, Cc, dt = torch.split(zxbcdt, [di, di, G * N, G * N, nh],
+                                     dim=-1)
+    conv_out, _ = _causal_conv(torch.cat([xin, Bc, Cc], dim=-1),
+                               p["conv_w"], p["conv_b"])
+    xin, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+    dtv = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, _ = ssd_chunked(xin.reshape(B, S, nh, s.head_dim), dtv, A,
+                       Bc.reshape(B, S, G, N), Cc.reshape(B, S, G, N),
+                       p["D"], chunk=min(s.chunk, S), use_kernel=use_kernel)
+    y = rms_norm(p["norm"], y.reshape(B, S, di) * F.silu(z), cfg.norm_eps)
+    return y @ p["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean cross entropy with optional z-loss, fp32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * lse.square().mean()
+    return loss

@@ -1,12 +1,16 @@
-"""Dense LM assembly: init, prefill, decode and packed-slot serving.
+"""LM assembly: init, forward and loss (dense and ssm families), and
+prefill, decode and packed-slot serving (dense family).
 
-The port's counterpart of the dense family of the reference's
-``models/lm.py``.  Parameters keep the reference's nested-dict layout with
-per-layer leaves stacked along a leading ``[L, ...]`` axis; the forward
-passes loop over layers in Python (PyTorch runs eagerly; the reference's
-``lax.scan`` has nothing to save here).  ``cfg.attn_impl`` keeps
-``naive`` and ``kernel``; the ``moe``/``vlm``/``ssm``/``hybrid``/
-``audio`` families come with later slices.
+The port's counterpart of the reference's ``models/lm.py``.  Parameters
+keep the reference's nested-dict layout with per-layer leaves stacked
+along a leading ``[L, ...]`` axis; the forward passes loop over layers in
+Python (PyTorch runs eagerly; the reference's ``lax.scan`` has nothing to
+save here), and ``remat`` checkpoints each layer
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+``cfg.attn_impl`` keeps ``naive`` and ``kernel``.  Training runs the
+dense and ssm families; serving runs the dense family; the other
+families, and serving the ssm family (per-slot recurrent decode), come
+with later slices and raise ``NotImplementedError`` here.
 
 In-place updates (the reference's arrays are immutable; it donates
 buffers instead): :func:`decode_step` writes each new token's K/V into
@@ -24,6 +28,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.synth import resolve_device
 from . import layers as L
@@ -38,12 +43,17 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _dense_only(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+TRAIN_FAMILIES = ("dense", "ssm")      # init_params, forward, loss_fn
+SERVE_FAMILIES = ("dense",)            # prefill, decode, serving
+
+
+def _require(cfg: ModelConfig, what: str, families: tuple) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"{what}: the {cfg.family!r} family is not ported yet (this "
-            f"slice ports the dense family; moe/vlm come with a later "
-            f"serving slice, ssm/hybrid with the training slice)")
+            f"{what}: the {cfg.family!r} family is not ported to this entry "
+            f"point yet (it takes {', '.join(families)}; the rest follow "
+            f"in ROADMAP queue A: moe/vlm/hybrid/audio and the per-slot "
+            f"serving of ssm)")
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -63,10 +73,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default: the card; raises without one).  Same distributions as the
     reference's ``init_params`` (normal / sqrt(fan_in) matrices, 0.02
-    embedding, unit norms) but not the same numbers: parity tests carry
+    embedding, unit norms; Mamba2's float32 ``A_log``/``D``/``dt_bias``)
+    but not the same numbers: parity tests carry
     the reference's parameters over with
     :func:`repro_torch.models.weights.from_jax_params`."""
-    _dense_only(cfg, "init_params")
+    _require(cfg, "init_params", TRAIN_FAMILIES)
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
     # a meta tensor has no values to draw, nor a generator to draw them
@@ -77,11 +88,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
                "final_norm": L.init_rmsnorm(d, dt, dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L._dense_init(gen, d, cfg.vocab, dt, dev)
-    layers = [{"attn_norm": L.init_rmsnorm(d, dt, dev),
-               "attn": L.init_attention(gen, cfg, dt, dev),
-               "mlp_norm": L.init_rmsnorm(d, dt, dev),
-               "mlp": L.init_mlp(gen, d, cfg.d_ff, dt, dev)}
-              for _ in range(n)]
+    if cfg.family == "dense":
+        layers = [{"attn_norm": L.init_rmsnorm(d, dt, dev),
+                   "attn": L.init_attention(gen, cfg, dt, dev),
+                   "mlp_norm": L.init_rmsnorm(d, dt, dev),
+                   "mlp": L.init_mlp(gen, d, cfg.d_ff, dt, dev)}
+                  for _ in range(n)]
+    else:
+        layers = [{"norm": L.init_rmsnorm(d, dt, dev),
+                   "mamba": L.init_mamba2(gen, cfg, dt, dev)}
+                  for _ in range(n)]
 
     def stack(*xs):
         if isinstance(xs[0], dict):
@@ -93,6 +109,58 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
 
 def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# forward (train) and loss
+# ---------------------------------------------------------------------------
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            remat: bool = False, use_kernel: bool = False) -> tuple:
+    """Token logits for a full sequence (training).
+
+    tokens: [B, S] int.  Returns ``(logits [B, S, vocab], aux)``; ``aux``
+    is the auxiliary loss, zero for the dense and ssm families (the
+    reference's MoE load-balancing term is not ported).  ``remat``
+    recomputes each layer's activations in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); ``use_kernel`` routes
+    attention through the flash kernel and the SSD scan through its
+    kernel (on a card tensor).
+    """
+    _require(cfg, "forward", TRAIN_FAMILIES)
+    B, S = tokens.shape
+    eps = cfg.norm_eps
+    h = params["embed"][tokens.long()]
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+
+    if cfg.family == "dense":
+        def block(hh, lp):
+            hh = hh + L.attention(lp["attn"], cfg,
+                                  L.rms_norm(lp["attn_norm"], hh, eps),
+                                  positions, use_kernel=use_kernel)
+            return hh + L.mlp(lp["mlp"], L.rms_norm(lp["mlp_norm"], hh, eps))
+    else:
+        def block(hh, lp):
+            return hh + L.mamba2_layer(lp["mamba"], cfg,
+                                       L.rms_norm(lp["norm"], hh, eps),
+                                       use_kernel=use_kernel)
+
+    for i in range(cfg.n_layers):
+        if remat:
+            h = checkpoint(lambda hh, i=i: block(hh, layer_params(params, i)),
+                           h, use_reentrant=False)
+        else:
+            h = block(h, layer_params(params, i))
+    h = L.rms_norm(params["final_norm"], h, eps)
+    return h @ _head(params, cfg), h.new_zeros((), dtype=torch.float32)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False, use_kernel: bool = False) -> torch.Tensor:
+    """Token-mean cross entropy (z-loss 1e-4) plus the auxiliary loss."""
+    logits, aux = forward(params, cfg, batch["tokens"], remat=remat,
+                          use_kernel=use_kernel)
+    return L.softmax_xent(logits, batch["labels"], z_loss=1e-4) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +180,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     (position 0 for an empty row, which the caller discards), and
     ``cache["len"]`` becomes the per-row vector.
     """
-    _dense_only(cfg, "prefill")
+    _require(cfg, "prefill", SERVE_FAMILIES)
     B, S = tokens.shape
     max_seq = max_seq or S
     dt = torch_dtype(cfg)
@@ -150,7 +218,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> dict:
     """Zero cache for :func:`decode_step`: scalar ``len``, K/V
     ``[L, batch, max_seq, nkv, hd]``."""
-    _dense_only(cfg, "init_decode_cache")
+    _require(cfg, "init_decode_cache", SERVE_FAMILIES)
     if cfg.kv_quant:
         raise NotImplementedError("the int8 KV cache (kv_quant) is not "
                                   "ported yet")
@@ -170,7 +238,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     are updated in place (each row's new K/V written at its length) and
     ``cache'`` is a new dict sharing them, with ``len + 1``.
     """
-    _dense_only(cfg, "decode_step")
+    _require(cfg, "decode_step", SERVE_FAMILIES)
     h = params["embed"][token.long()][:, None, :]         # [B, 1, d]
     clen = cache["len"]
     for i in range(cfg.n_layers):
@@ -285,7 +353,7 @@ def serving_adapter(params: dict, cfg: ModelConfig, *, max_seq: int,
         raise ValueError(
             f"batched serving in the port supports the dense family, not "
             f"{cfg.family!r}; moe/vlm come with a later serving slice and "
-            f"ssm/hybrid with the training slice (the per-slot path)")
+            f"ssm/hybrid with per-slot recurrent serving (ROADMAP queue A)")
     dev = resolve_device(device)
     if params["embed"].device != dev and not (
             dev.type == "cuda" and params["embed"].is_cuda):

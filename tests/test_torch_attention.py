@@ -147,14 +147,18 @@ def test_bind_after_first_call_neither_loads_nor_rebinds(monkeypatch):
 
 
 def test_forward_only():
+    """Flash-decode is serving only (no backward, as in the reference);
+    flash attention has one (``tests/test_torch_ssd.py`` checks it)."""
     q, k, v = (_t(x).requires_grad_() for x in _qkv(5, 1, 8, 8, 2, 1, 16))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="serving only"):
         ops.decode_attention(q[:, 0], k, v,
                              torch.full((1,), 4, dtype=torch.int32))
     with torch.no_grad():
-        assert ops.flash_attention(q, k, v).shape == q.shape
+        assert ops.decode_attention(
+            q[:, 0], k, v, torch.full((1,), 4, dtype=torch.int32)).shape \
+            == q[:, 0].shape
+    out = ops.flash_attention(q, k, v)
+    assert out.shape == q.shape and out.grad_fn is not None
 
 
 def test_bad_shapes_raise():

@@ -34,6 +34,19 @@ print(json.dumps({"rc": rc, "mods": mods}))
 """
 
 
+TRAIN = """
+import json, sys, tempfile
+from repro_torch.launch.train import train
+with tempfile.TemporaryDirectory() as d:
+    rc = train(["--device", "cpu", "--arch", "mamba2-130m", "--reduced",
+                "--use-kernel", "--steps", "2", "--batch", "2", "--seq",
+                "32", "--ckpt-dir", d])
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"rc": rc, "mods": mods}))
+"""
+
+
 def _run(prog: str) -> dict:
     out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
                          text=True, timeout=120, cwd=SRC,
@@ -50,6 +63,23 @@ def test_serving_on_cpu_imports_neither_jax_nor_reference():
     """``repro_torch.launch.serve --device cpu`` on the reduced config
     serves every request and never imports jax, jaxlib or repro."""
     assert _run(SERVE) == {"rc": 0, "mods": []}
+
+
+def test_training_on_cpu_imports_neither_jax_nor_reference():
+    """``repro_torch.launch.train --device cpu`` trains the reduced Mamba2
+    through the kernels' path and never imports jax, jaxlib or repro."""
+    assert _run(TRAIN) == {"rc": 0, "mods": []}
+
+
+def test_train_defaults_to_cuda(monkeypatch, tmp_path):
+    """With no ``--device``, the train driver goes to the card, and raises
+    where there is none; it does not train on the CPU instead."""
+    from repro_torch.launch.train import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train(["--arch", "mamba2-130m", "--reduced", "--steps", "1",
+               "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
 
 
 def test_serving_entry_points_default_to_cuda(monkeypatch):

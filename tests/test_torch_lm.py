@@ -34,7 +34,7 @@ def model():
     cfg_j = jax_get_config("qwen3-0.6b").with_reduced(dtype="float32")
     cfg_t = get_config("qwen3-0.6b").with_reduced(dtype="float32")
     params_j = jlm.init_params(cfg_j, jax.random.key(0))
-    params_t = from_jax_params(jax.tree.map(np.asarray, params_j), cfg_t,
+    params_t = from_jax_params(jax.tree.map(np.asarray, params_j),
                                device="cpu")
     return cfg_j, cfg_t, params_j, params_t
 
@@ -87,6 +87,51 @@ def test_init_params_matches_param_count(reduced):
     if not reduced:
         assert n == 596_049_920
         assert p["embed"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+def test_mamba2_init_params_matches_param_count(reduced):
+    """Mamba2's tree, shapes and dtypes are the reference's (``A_log``,
+    ``D`` and ``dt_bias`` float32 in a bf16 model).  The port's
+    ``param_count`` counts ``conv_b`` and ``dt_bias`` ([nh], not [di]);
+    the reference's leaves out ``conv_b`` and counts ``dt_bias`` and the
+    gate norm as ``di`` together (ROADMAP queue C): 128,983,488 against
+    128,939,904 at full width."""
+    cfg_t, cfg_j = get_config("mamba2-130m"), jax_get_config("mamba2-130m")
+    if reduced:
+        cfg_t, cfg_j = cfg_t.with_reduced(), cfg_j.with_reduced()
+    p = lm.init_params(cfg_t, device="cpu" if reduced else "meta")
+    want = jlm.abstract_params(cfg_j)
+    assert jax.tree_util.tree_map(lambda t: (tuple(t.shape), str(t.dtype)
+                                             .split(".")[-1]), p) == \
+        jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), want)
+    n = sum(t.numel() for t in jax.tree_util.tree_leaves(p))
+    assert n == cfg_t.param_count()
+    s = cfg_j.ssm
+    conv_ch = s.d_inner(cfg_j.d_model) + 2 * s.n_groups * s.d_state
+    assert cfg_j.param_count() == n - cfg_j.n_layers * (
+        conv_ch + s.n_heads(cfg_j.d_model))
+    if not reduced:
+        assert (n, cfg_j.param_count()) == (128_983_488, 128_939_904)
+
+
+def test_from_jax_params_keeps_each_leaf_dtype():
+    """A bf16 Mamba2 carried over: the matrices arrive as bf16 with the
+    reference's bits, ``A_log``, ``D`` and ``dt_bias`` as float32."""
+    cfg_j = jax_get_config("mamba2-130m").with_reduced()     # bf16
+    params_j = jlm.init_params(cfg_j, jax.random.key(1))
+    p = from_jax_params(jax.tree.map(np.asarray, params_j), device="cpu")
+    m = p["layers"]["mamba"]
+    for k in ("A_log", "D", "dt_bias"):
+        assert m[k].dtype == torch.float32, k
+        np.testing.assert_array_equal(
+            m[k].numpy(), np.asarray(params_j["layers"]["mamba"][k]))
+    for k in ("in_proj", "conv_w", "out_proj"):
+        assert m[k].dtype == torch.bfloat16, k
+    assert p["embed"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        m["in_proj"].float().numpy(),
+        np.asarray(params_j["layers"]["mamba"]["in_proj"], np.float32))
 
 
 def test_init_params_is_seeded():
@@ -197,13 +242,27 @@ def test_sample_tokens_greedy_and_topk1():
 
 
 def test_non_dense_families_not_ported():
-    cfg = get_config("mamba2-130m").with_reduced()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    cfg = get_config("granite-moe-1b-a400m").with_reduced()
+    with pytest.raises(NotImplementedError, match="not ported"):
         lm.init_params(cfg, device="cpu")
     dense = lm.init_params(get_config("qwen3-0.6b").with_reduced(),
                            device="cpu")
     with pytest.raises(ValueError, match="dense"):
         lm.serving_adapter(dense, cfg, max_seq=16, device="cpu")
+
+
+def test_mamba2_serving_not_ported():
+    """Mamba2 trains in the port, but its serving (per-slot recurrent
+    decode) is not ported: prefill, decode and the adapter refuse it."""
+    cfg = get_config("mamba2-130m").with_reduced()
+    p = lm.init_params(cfg, device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="dense"):
+        lm.serving_adapter(p, cfg, max_seq=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="'ssm' family"):
+        lm.prefill(p, cfg, tok)
+    with pytest.raises(NotImplementedError, match="'ssm' family"):
+        lm.init_decode_cache(cfg, 1, 16, "cpu")
 
 
 @pytest.mark.parametrize("attn_impl,causal", [("naive", True),

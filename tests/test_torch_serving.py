@@ -355,7 +355,7 @@ def qwen():
     cfg_j = jax_get_config("qwen3-0.6b").with_reduced(dtype="float32")
     cfg_t = get_config("qwen3-0.6b").with_reduced(dtype="float32")
     params_j = jlm.init_params(cfg_j, jax.random.key(0))
-    params_t = from_jax_params(jax.tree.map(np.asarray, params_j), cfg_t,
+    params_t = from_jax_params(jax.tree.map(np.asarray, params_j),
                                device="cpu")
     return cfg_j, cfg_t, params_j, params_t
 
