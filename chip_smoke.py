@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. device — the card's name and power limit (``nvidia-smi``), CUDA
    version; TF32 matmuls off.
 2. build — every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` into
-   ``build/kernels/``, one compiler process per source, all at once.
+   ``build/kernels/``, one compiler process per source, all at once; each
+   kernel's registers, shared memory (static, and the dynamic share a
+   flash block asks for) and spills as ``ptxas -v`` reported them.
 3. kernels — each ring kernel against its plain PyTorch version on the
    card, exactly, at the main path's shapes and at the edge cases
    (wraparound, ``n == cap``, ``cap == 1``, int32 and bool elements);
@@ -36,12 +38,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. attention kernels — flash attention forward and flash-decode against
    their plain versions on the card, in float32 and bfloat16, at the
    serving path's shapes (Qwen3-0.6B: 16 query heads, 8 KV heads of
-   width 128; prefill buckets 8-2048, batch 1 and 8, causal, one
-   windowed and one head-width-64 case; decode at 8 slots of a 2048-row
-   cache with ragged lengths, 0 and 2048 included).  Limits, relative to
-   the plain output's largest magnitude: ``ATTN_REL_TOL``; flash's
-   ``lse`` within ``LSE_ABS_TOL``; exact zeros where ``kv_len == 0``.
-   CUDA-event times of kernel, plain version and
+   width 128; prefill buckets 8-2048, batch 1 and 8, causal, windowed
+   and head-width-64 cases; the bf16 kernel's tile edges: Sq < Sk and
+   Sq > Sk, a 1,500-token prompt, window 0 (every row hidden: exact
+   zeros, lse -1e30), S=2048 with window 100, hd 64 with group 4; decode
+   at 8 slots of a 2048-row cache with ragged lengths, 0 and 2048
+   included).  Limits, relative to the plain output's largest magnitude:
+   ``ATTN_REL_TOL``; flash's ``lse`` within ``LSE_ABS_TOL``; exact zeros
+   where ``kv_len == 0``.  CUDA-event times (B=1 S=1024 and 2048, B=8
+   S=256, B=4 S=1024 for flash) of kernel, plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
    port), reading a different layer's tensors on each call as the model
    does, so the 50 MB L2 holds none of them.
@@ -60,7 +65,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 10. serving breakdown — the first wave of phase 8 again under
    ``torch.profiler`` (device activity): its prefill and decode seconds,
    the device's busy share and each attention kernel's mean device time
-   per launch; then the decode step alone, 32 times over that wave's 8
+   per launch; every bf16 flash launch of the wave must show in the
+   profile as the tensor-core kernel and none as the float32 one (by
+   kernel name); then the decode step alone, 32 times over that wave's 8
    live slots: host and device ms per step, the busy share, and the aten
    operations one step dispatches.
 
@@ -78,7 +85,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layer's forward twice), finite losses and gradient norms, the step-20
    checkpoint restorable, and the same command again runs no step.
 13. Qwen3-0.6B at full width, 3 ``make_train_step(use_kernel=True)``
-   steps at 4 x 1024: flash launched 2 x 28 x 3 times, all finite.
+   steps at 4 x 1024: flash launched 2 x 28 x 3 times, all finite; then
+   a fourth step under the profiler, whose 56 flash launches must all be
+   the tensor-core kernel (flash's device time per launch and per step).
 14. card vs CPU — Mamba2-130M cut to 2 layers, float32, the same weights
    and tokens: loss, every gradient leaf and one AdamW step
    (``TRAIN_CPU_TOL``).
@@ -164,7 +173,11 @@ ATTN_REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:35",
 }
 # device kernels of each attention op, as the profiler names them
-ATTN_KERNELS = {"flash_attention": ("flash_fwd_kernel",),
+# device kernels of each attention op, as the profiler names them; a bf16
+# flash launch runs the tensor-core kernel, and the float32 one (the
+# checks' dtype) must never appear on the bf16 serving or training paths
+ATTN_KERNELS = {"flash_attention": ("flash_wgmma_kernel",),
+                "flash_attention_fp32": ("flash_fwd_kernel",),
                 "decode_attention": ("decode_split_kernel",
                                      "decode_combine_kernel")}
 
@@ -577,13 +590,23 @@ def breakdown() -> tuple[dict, dict]:
 ATTN_REPS, ATTN_WARM = 50, 5
 LAYERS = 28                 # distinct tensors the timed calls cycle through
 
-FLASH_CASES = [             # (B, S, nh, nkv, hd, causal, window)
-    (1, 8, 16, 8, 128, True, None), (8, 8, 16, 8, 128, True, None),
-    (1, 128, 16, 8, 128, True, None), (8, 128, 16, 8, 128, True, None),
-    (1, 200, 16, 8, 128, True, None), (8, 200, 16, 8, 128, True, None),
-    (1, 2048, 16, 8, 128, True, None), (8, 2048, 16, 8, 128, True, None),
-    (2, 300, 16, 8, 128, True, 100),        # sliding window
-    (2, 77, 8, 2, 64, False, None),         # head width 64, group 4
+FLASH_CASES = [             # (B, Sq, Sk, nh, nkv, hd, causal, window)
+    (1, 8, 8, 16, 8, 128, True, None), (8, 8, 8, 16, 8, 128, True, None),
+    (1, 128, 128, 16, 8, 128, True, None),
+    (8, 128, 128, 16, 8, 128, True, None),
+    (1, 200, 200, 16, 8, 128, True, None),
+    (8, 200, 200, 16, 8, 128, True, None),
+    (1, 2048, 2048, 16, 8, 128, True, None),
+    (8, 2048, 2048, 16, 8, 128, True, None),
+    (2, 300, 300, 16, 8, 128, True, 100),   # sliding window
+    (2, 77, 77, 8, 2, 64, False, None),     # head width 64, group 4
+    # the edges of the bf16 kernel's 128-row and 128-key tiles
+    (1, 100, 300, 16, 8, 128, True, None),  # Sq < Sk (top-left causal)
+    (1, 300, 100, 16, 8, 128, True, None),  # Sq > Sk: rows past Sk
+    (1, 1500, 1500, 16, 8, 128, True, None),   # not a tile multiple
+    (1, 64, 64, 16, 8, 128, True, 0),       # window 0: every row hidden
+    (1, 2048, 2048, 16, 8, 128, True, 100),    # tiles skipped both sides
+    (2, 333, 333, 8, 2, 64, True, 100),     # hd 64, group 4, window
 ]
 DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
     (8, 2048, 16, 8, 128, [0, 1, 255, 256, 257, 2048, 1000, 37]),
@@ -611,15 +634,15 @@ def check_attention() -> tuple[list, dict]:
     from repro_torch.kernels.decode_attention import (
         decode_attention_fwd, decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
-        flash_attention_fwd, flash_attention_plain)
+        NEG_INF, flash_attention_fwd, flash_attention_plain)
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows, worst = [], {"flash_attention": 0.0, "decode_attention": 0.0}
     for dt in (torch.float32, torch.bfloat16):
         tol = ATTN_REL_TOL[dt]
-        for B, S, nh, nkv, hd, causal, window in FLASH_CASES:
-            q = _rand(gen, (B, S, nh, hd), dt)
-            k = _rand(gen, (B, S, nkv, hd), dt)
-            v = _rand(gen, (B, S, nkv, hd), dt)
+        for B, Sq, Sk, nh, nkv, hd, causal, window in FLASH_CASES:
+            q = _rand(gen, (B, Sq, nh, hd), dt)
+            k = _rand(gen, (B, Sk, nkv, hd), dt)
+            v = _rand(gen, (B, Sk, nkv, hd), dt)
             out, lse = flash_attention_fwd(q, k, v, causal=causal,
                                            window=window)
             p_out, p_lse = flash_attention_plain(q, k, v, causal=causal,
@@ -627,14 +650,20 @@ def check_attention() -> tuple[list, dict]:
             torch.cuda.synchronize()
             err, rel = _errs(out, p_out)
             lse_err = float((lse - p_lse).abs().max())
-            rows.append(dict(op="flash_attention", dtype=str(dt), B=B, S=S,
-                             nh=nh, nkv=nkv, hd=hd, causal=causal,
+            # window 0 hides every key: exact zeros and lse -1e30
+            zeros_missing = window == 0 and not (
+                bool((out == 0).all()) and bool((lse == NEG_INF).all()))
+            rows.append(dict(op="flash_attention", dtype=str(dt), B=B, Sq=Sq,
+                             Sk=Sk, nh=nh, nkv=nkv, hd=hd, causal=causal,
                              window=window, max_abs_err=err, rel_err=rel,
                              lse_abs_err=lse_err))
-            log(f"attn flash  {str(dt):14s} B={B} S={S:4d} {nh}/{nkv}x{hd} "
-                f"causal={causal} window={window}: rel {rel:.2e} "
-                f"(limit {tol:g}), lse {lse_err:.2e} (limit {LSE_ABS_TOL:g})")
-            if not (rel <= tol and lse_err <= LSE_ABS_TOL):
+            log(f"attn flash  {str(dt):14s} B={B} Sq={Sq:4d} Sk={Sk:4d} "
+                f"{nh}/{nkv}x{hd} causal={causal} window={window}: rel "
+                f"{rel:.2e} (limit {tol:g}), lse {lse_err:.2e} (limit "
+                f"{LSE_ABS_TOL:g})" + ("; exact zeros, lse -1e30"
+                                        if window == 0 and not
+                                        zeros_missing else ""))
+            if not (rel <= tol and lse_err <= LSE_ABS_TOL) or zeros_missing:
                 raise AssertionError(f"flash_attention differs from plain: "
                                      f"{rows[-1]}")
             worst["flash_attention"] = max(worst["flash_attention"], err)
@@ -682,19 +711,23 @@ def time_attention() -> dict:
     def timed(fn):
         return time_ms(fn, reps=ATTN_REPS, warm=ATTN_WARM)
 
-    # flash: one prompt in the middle and the top prefill bucket, and a
-    # batch of eight short prompts
-    for B, S in ((1, 1024), (1, 2048), (8, 256)):
+    # flash: one prompt in the middle and the top prefill bucket, a batch
+    # of eight short prompts, and the Qwen3 training shape (phase 13)
+    for B, S in ((1, 1024), (1, 2048), (8, 256), (4, 1024)):
         qs = _rand(gen, (L, B, S, nh, hd), bf16)
         ks = _rand(gen, (L, B, S, nkv, hd), bf16)
         vs = _rand(gen, (L, B, S, nkv, hd), bf16)
         flops = 2 * B * nh * S * S * hd          # causal: half of 4 B nh S^2 hd
         nbytes = (qs[0].numel() * 2 + ks[0].numel() * 2) * 2 + 4 * B * nh * S
         bnd, by = bound_ms(nbytes, flops, TENSOR_BF16_FLOPS)
+
+        def flash(i):
+            return flash_attention_fwd(qs[i % L], ks[i % L], vs[i % L],
+                                       causal=True)
         out["flash_attention"].append(dict(
             shape=f"B={B} Sq=Sk={S} nh={nh} nkv={nkv} hd={hd} bf16 causal",
-            ms=timed(lambda i: flash_attention_fwd(
-                qs[i % L], ks[i % L], vs[i % L], causal=True)),
+            ms=timed(flash), device_ms=_kernel_device_ms(
+                flash, ATTN_KERNELS["flash_attention"][0]),
             plain_ms=timed(lambda i: flash_attention_plain(
                 qs[i % L], ks[i % L], vs[i % L], causal=True, window=None)),
             library_ms=timed(lambda i: F.scaled_dot_product_attention(
@@ -733,10 +766,27 @@ def time_attention() -> dict:
     for op, rows in out.items():
         for r in rows:
             log(f"time {op:16s} {r['shape']}: kernel {r['ms']*1e3:9.2f} us  "
-                f"plain {r['plain_ms']*1e3:9.2f} us  sdpa "
+                + (f"(device {r['device_ms']*1e3:.2f} us)  "
+                   if r.get("device_ms") else "")
+                + f"plain {r['plain_ms']*1e3:9.2f} us  sdpa "
                 f"{r['library_ms']*1e3:9.2f} us  bound "
                 f"{r['bound_ms']*1e3:8.3f} us ({r['bound_by']})")
     return out
+
+
+def _kernel_device_ms(fn, kernel: str, n: int = 2 * LAYERS) -> float:
+    """Mean device ms of ``kernel`` over ``n`` calls of ``fn`` (the
+    profiler's kernel time: no host path)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    if not hits:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    return sum(e.self_device_time_total for e in hits) / \
+        sum(e.count for e in hits) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -892,6 +942,20 @@ def _device_times(prof) -> tuple[float, dict]:
     return total, per
 
 
+def _check_flash_route(kern: dict, launches: int, where: str) -> None:
+    """Raise unless the profile shows every one of ``launches`` bf16 flash
+    launches as the tensor-core kernel and no float32 FMA kernel."""
+    tc = kern.get("flash_attention", (0, 0.0))[0]
+    fma = kern.get("flash_attention_fp32", (0, 0.0))[0]
+    if launches == 0 or tc != launches or fma:
+        raise AssertionError(
+            f"{where}: {launches} flash launches, the profiler saw "
+            f"{tc} {ATTN_KERNELS['flash_attention'][0]} and {fma} "
+            f"{ATTN_KERNELS['flash_attention_fp32'][0]}")
+    log(f"{where}: all {launches} flash launches ran "
+        f"{ATTN_KERNELS['flash_attention'][0]}, none the float32 kernel")
+
+
 class _OpCount:
     """Counts the aten operations dispatched inside a ``with`` block (views
     included; each is a trip through PyTorch's dispatcher, most of the
@@ -956,17 +1020,22 @@ def serving_breakdown(eng, reqs, stats) -> dict:
     """Phase 10: the first wave of requests again under the profiler
     (device activity only), then the decode step alone on that wave."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.serve import serve_requests
     wave = reqs[:SERVE["slots"]]
     stats.reset()
+    reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = serve_requests(eng, wave)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counts = launch_counts()
     if any(len(res[r.rid]) != SERVE["max_new"] for r in wave):
         raise AssertionError("profiled wave: a request is short of tokens")
     busy_us, kern = _device_times(prof)
+    _check_flash_route(kern, counts.get("flash_attention", 0),
+                       "breakdown serve")
     dev_ms = {op: t / n / 1e3 for op, (n, t) in kern.items() if n}
     n_call, s_call = dict(stats.n), dict(stats.s)
     loop = _decode_loop(eng.batched, wave)
@@ -1378,7 +1447,9 @@ def train_phase() -> dict:
 
 def qwen_train_phase() -> dict:
     """Phase 13: Qwen3-0.6B at full width, ``make_train_step`` with the
-    flash kernel forward and its autograd backward."""
+    flash kernel forward and its autograd backward; then one step under
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
@@ -1415,17 +1486,39 @@ def qwen_train_phase() -> dict:
             and _finite_tree(params)):
         raise AssertionError(f"qwen train: losses {losses}, grad norms "
                              f"{gnorms}")
+    # one more step, under the profiler and outside the counted run: every
+    # flash launch must be the tensor-core kernel; flash's device time
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.next_batch().items()}
+    reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    busy_us, kern = _device_times(prof)
+    _check_flash_route(kern, launch_counts().get("flash_attention", 0),
+                       f"train {ARCH}")
+    n_flash, flash_us = kern["flash_attention"]
     del params, state
     torch.cuda.empty_cache()
     out = dict(arch=ARCH, dtype=cfg.dtype, **QWEN_TRAIN, losses=losses,
                grad_norms=gnorms, step_ms=[d * 1e3 for d in dts],
-               launches=counts, peak_gb=peak_gb)
+               launches=counts, peak_gb=peak_gb,
+               profiled_step=dict(
+                   wall_ms=prof_s * 1e3, device_busy_ms=busy_us / 1e3,
+                   flash_launches=n_flash, flash_device_ms=flash_us / 1e3,
+                   flash_device_us_per_launch=flash_us / n_flash))
     log(f"train {ARCH}: batch {B} x seq {S}, {steps} steps of "
         f"make_train_step(use_kernel=True): "
         + ", ".join(f"{d * 1e3:.0f}" for d in dts) + " ms; losses "
         + ", ".join(f"{v:.4f}" for v in losses) + f"; grad norms "
         + ", ".join(f"{v:.3f}" for v in gnorms)
-        + f"; launches {counts}; peak {peak_gb:.2f} GB")
+        + f"; launches {counts}; peak {peak_gb:.2f} GB; a profiled step: "
+        f"{prof_s * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms, flash "
+        f"{n_flash} launches {flash_us / 1e3:.2f} ms "
+        f"({flash_us / n_flash:.2f} us each)")
     return out
 
 
@@ -1579,6 +1672,29 @@ def train_breakdown() -> dict:
     return out
 
 
+def kernel_resources() -> list:
+    """Phase 2: each kernel's registers, shared memory and spills as
+    ``ptxas -v`` reported them, and the dynamic shared memory a flash
+    block asks for (``flash_attention_smem_bytes``)."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import _SIGNATURES
+    flash = _build.bind("flash_attention", _SIGNATURES)
+    rows = []
+    for name in SOURCES:
+        for r in _build.resources(name):
+            m = re.search(r"flash_(wgmma|fwd)_kernelIf?Li(\d+)E", r["kernel"])
+            dyn = flash.flash_attention_smem_bytes(
+                int(m.group(1) == "wgmma"), int(m.group(2))) if m else None
+            rows.append(dict(source=name, **r, smem_dynamic=dyn))
+            log(f"build: {r['kernel']}: {r['registers']} registers, smem "
+                f"{r['smem_static']} B static"
+                + (f" + {dyn} B dynamic" if dyn is not None else "")
+                + f", stack {r['stack']} B, spills {r['spill_stores']} B "
+                f"stored / {r['spill_loads']} B loaded")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1612,6 +1728,7 @@ def main() -> int:
         _build.load(name)
     log(f"build: {', '.join(SOURCES.values())} built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    resources = kernel_resources()
 
     seconds = {}
 
@@ -1688,7 +1805,8 @@ def main() -> int:
         serving=serving, serving_breakdown=serve_brk, serve_cli=cli,
         card_vs_cpu=vs_cpu, ssd_checks=ssd_checks, training=training,
         qwen_training=qwen, train_card_vs_cpu=train_cpu,
-        train_breakdown=train_brk, phase_seconds=seconds), indent=1))
+        train_breakdown=train_brk, kernel_resources=resources,
+        phase_seconds=seconds), indent=1))
     print(smi)
     line = json.dumps({"kernels": kernels})
     print(f"kernels {line}")

@@ -16,15 +16,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -46,7 +49,9 @@ def _nvcc() -> str:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source
-    hash exists; returns the library's path."""
+    hash exists; returns the library's path.  ``ptxas``'s report
+    (``-Xptxas -v``: registers, shared memory and spills of each kernel)
+    is kept beside it for :func:`resources`."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -59,8 +64,32 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+    lib.with_suffix(".ptxas").write_text(proc.stderr)
     os.replace(tmp, lib)        # atomic: a concurrent loader sees all or none
     return lib
+
+
+_NUM = {"registers": r"Used (\d+) registers",
+        "smem_static": r"(\d+) bytes smem",
+        "stack": r"(\d+) bytes stack frame",
+        "spill_stores": r"(\d+) bytes spill stores",
+        "spill_loads": r"(\d+) bytes spill loads"}
+
+
+def resources(name: str) -> list:
+    """Each kernel of ``csrc/<name>.cu`` as ``ptxas`` reported it when the
+    library was built: ``{kernel, registers, smem_static, stack,
+    spill_stores, spill_loads}`` (dynamic shared memory is the launch's,
+    not in the report)."""
+    report = build(name).with_suffix(".ptxas").read_text()
+    out = []
+    for part in report.split("Compiling entry function '")[1:]:
+        row = {"kernel": part.split("'")[0]}
+        for key, pat in _NUM.items():
+            m = re.search(pat, part)
+            row[key] = int(m.group(1)) if m else 0
+        out.append(row)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -91,6 +120,13 @@ def bind(name: str, signatures: dict) -> ctypes.CDLL:
             err.restype = ctypes.c_char_p
             _bound[name] = lib
     return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device as the raw pointer a
+    launch entry takes (the same value as ``torch.cuda.current_stream(
+    t.device).cuda_stream``, for a fraction of its host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(lib: ctypes.CDLL, name: str, op: str, rc: int) -> None:

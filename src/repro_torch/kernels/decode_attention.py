@@ -100,8 +100,7 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.data_ptr(), part.data_ptr(), part[n_stat:].data_ptr(),
         part[2 * n_stat:].data_ptr(), q.stride(0), q.stride(1),
         *k.stride()[:3], *v.stride()[:3], B, S, nkv, group, hd,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype], 1.0 / math.sqrt(hd), _build.stream(q))
     _build.check(lib, "decode_attention", "decode_attention", rc)
     count_launch("decode_attention")
     return out

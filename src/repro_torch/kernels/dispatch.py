@@ -24,6 +24,9 @@ def uses_kernel(op: str, *tensors: torch.Tensor) -> bool:
     """True when ``op`` must launch its CUDA kernel on ``tensors``, False
     when it takes its plain version (CPU or meta).  Raises on mixed
     devices or any other device type."""
+    if all(t.is_cuda for t in tensors) and \
+            len({t.get_device() for t in tensors}) == 1:
+        return True             # the hot path: no device objects built
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{op}: tensors on several devices "

@@ -61,10 +61,6 @@ def _launched(lib: ctypes.CDLL, op: str, rc: int) -> None:
     count_launch(op)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _word(row_bytes: int, *tensors: torch.Tensor) -> int:
     """Widest copy word (16, 4 or 1 bytes) that divides the row and every
     pointer."""
@@ -132,7 +128,7 @@ def ring_pop(buf: torch.Tensor, head: torch.Tensor, size: torch.Tensor,
     lib = _build.bind("ring", _ARGTYPES)
     rc = lib.ring_pop(buf.data_ptr(), out.data_ptr(), head.data_ptr(),
                       size.data_ptr(), cap, n, row_bytes,
-                      _word(row_bytes, buf, out), _stream(buf))
+                      _word(row_bytes, buf, out), _build.stream(buf))
     _launched(lib, "ring_pop", rc)
     return out, head, size
 
@@ -180,7 +176,7 @@ def ring_push(buf: torch.Tensor, head: torch.Tensor, size: torch.Tensor,
     lib = _build.bind("ring", _ARGTYPES)
     rc = lib.ring_push(buf.data_ptr(), arr.data_ptr(), head.data_ptr(),
                        size.data_ptr(), cap, n, row_bytes,
-                       _word(row_bytes, buf, arr), _stream(buf))
+                       _word(row_bytes, buf, arr), _build.stream(buf))
     _launched(lib, "ring_push", rc)
     return buf, head, size
 
@@ -233,6 +229,6 @@ def eval_guards(sizes: torch.Tensor, caps: torch.Tensor,
     fire = torch.empty(t, dtype=torch.bool, device=live.device)
     lib = _build.bind("ring", _ARGTYPES)
     rc = lib.eval_guards(*(x.data_ptr() for x in args), fire.data_ptr(),
-                         t, c, _stream(live))
+                         t, c, _build.stream(live))
     _launched(lib, "eval_guards", rc)
     return fire

@@ -134,8 +134,7 @@ def ssd_scan_fwd(xdt: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
         xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         s0.data_ptr(), y.data_ptr(), s_out.data_ptr(), states.data_ptr(),
         decay.data_ptr(), *xdt.stride()[:3], *dA.stride(), *Bm.stride()[:3],
-        *Cm.stride()[:3], B, S, H, G, P, N, chunk,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *Cm.stride()[:3], B, S, H, G, P, N, chunk, _build.stream(xdt))
     _build.check(lib, "ssd_scan", "ssd_scan", rc)
     count_launch("ssd_scan")
     return y, s_out
