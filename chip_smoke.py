@@ -172,7 +172,6 @@ ATTN_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:45",
     "decode_attention": "src/repro/kernels/decode_attention.py:35",
 }
-# device kernels of each attention op, as the profiler names them
 # device kernels of each attention op, as the profiler names them; a bf16
 # flash launch runs the tensor-core kernel, and the float32 one (the
 # checks' dtype) must never appear on the bf16 serving or training paths
@@ -607,6 +606,7 @@ FLASH_CASES = [             # (B, Sq, Sk, nh, nkv, hd, causal, window)
     (1, 64, 64, 16, 8, 128, True, 0),       # window 0: every row hidden
     (1, 2048, 2048, 16, 8, 128, True, 100),    # tiles skipped both sides
     (2, 333, 333, 8, 2, 64, True, 100),     # hd 64, group 4, window
+    (4, 1024, 1024, 16, 8, 128, True, None),   # Qwen3 training shape
 ]
 DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
     (8, 2048, 16, 8, 128, [0, 1, 255, 256, 257, 2048, 1000, 37]),

@@ -32,8 +32,6 @@ def uses_kernel(op: str, *tensors: torch.Tensor) -> bool:
         raise ValueError(f"{op}: tensors on several devices "
                          f"{sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type == "cuda":
-        return True
     if dev.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{op}: no kernel or plain version for device {dev}")

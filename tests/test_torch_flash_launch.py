@@ -97,9 +97,11 @@ def test_size_one_dimensions_get_the_span_inside_them():
     """A dimension of size 1 is never stepped along; whatever stride it
     reports, the launch passes the span of the dimensions inside it."""
     q = torch.empty(1, 5, 4, 64, dtype=BF16)
-    k = torch.empty(1, 5, 1, 64, dtype=BF16).as_strided(
-        (1, 5, 1, 64), (7, 64, 8, 1))
+    # aligned strides that are not the natural ones on the size-1 dims
+    k = torch.empty(2048, dtype=BF16).as_strided(
+        (1, 5, 1, 64), (4096, 64, 1024, 1))
     a = launch_args(q, k, k, causal=True, window=None)
+    assert a.k is k and a.v is k            # aligned: not copied
     assert a.strides == (5 * 4 * 64, 4 * 64, 64, 5 * 64, 64, 64,
                          5 * 64, 64, 64)
 
