@@ -16,9 +16,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    flash block asks for) and spills as ``ptxas -v`` reported them.
 3. kernels — each ring kernel against its plain PyTorch version on the
    card, exactly, at the main path's shapes and at the edge cases
-   (wraparound, ``n == cap``, ``cap == 1``, int32 and bool elements);
-   CUDA-event times of kernel, plain version and one library call, each
-   timed call starting from a head/size inside the op's contract.
+   (wraparound, ``n == cap``, ``cap == 1``, int32 and bool elements; the
+   bursts that spread over a cluster of blocks: a wrap of 2 MiB rows, odd
+   row bytes, ``n == cap`` of 256 KiB rows); two chained sequences of
+   ``CHAINED_OPS`` pops and pushes on one ring with no sync between
+   them, against the same sequence through the plain versions; CUDA-event
+   times of the kernel through a prepared ``RingHandle`` that has run
+   the op once (the sweep loop's path) in ``TIMING_TURNS`` turns with one
+   library call (the median of each), through ``ring_pop``/``ring_push``
+   (a handle built a call) and of the plain version, each timed call
+   starting from a head/size inside the op's contract.
 4. main path — gemm, gaussian and page_rank through
    ``run_step(engine="compiled")`` at full size, with launch counts
    read just before and just after each app: every ring kernel must have
@@ -221,10 +228,25 @@ class _Counters:
     size`` for a pop) with no reset launched between calls."""
 
     def __init__(self, head: int, size: int, k: int = WARM + REPS):
+        self.head, self.size = head, size
         self.heads = torch.full((k,), head, dtype=torch.int32, device="cuda")
         self.sizes = torch.full((k,), size, dtype=torch.int32, device="cuda")
         self.h = self.heads.unbind()
         self.s = self.sizes.unbind()
+
+    def handles(self, buf: torch.Tensor, prime) -> list:
+        """One prepared ring handle per timed call, over ``buf`` and that
+        call's (head, size): what the sweep loop's stream views call.
+        Each has run ``prime`` (the timed op) once, as a view's handle has
+        after its ring's first firing (a handle keeps per-burst-size
+        launch arguments and outputs); the counters are then reset."""
+        from repro_torch.kernels.ring import RingHandle
+        hs = [RingHandle(buf, h, s) for h, s in zip(self.h, self.s)]
+        for h in hs:
+            prime(h)
+        self.heads.fill_(self.head)
+        self.sizes.fill_(self.size)
+        return hs
 
     def expect(self, op: str, head: int, size: int) -> None:
         """Raise unless every call left the state the op's contract
@@ -295,6 +317,64 @@ def check_pop_push(case: dict, gen) -> tuple[float, float]:
     return pop_err, push_err
 
 
+CHAINED_OPS = 1200
+TIMING_TURNS = 3
+
+
+def check_chained(cap: int, elem: tuple, dtype, seed: int) -> dict:
+    """A seeded sequence of ``CHAINED_OPS`` pops and pushes of mixed sizes
+    back to back on ONE ring (the same head/size tensors, no sync in
+    between) through the kernels, and the same sequence through the plain
+    versions on a copy; tokens, buffer, head and size must be equal.  A
+    block of one launch reading a head that another block (or the launch
+    before) had not yet settled would show here, and only here: the timed
+    calls give every call fresh counters.  Half the pushes read rows at a
+    4-byte offset, so the kernel narrows its copy word by the pointer."""
+    from repro_torch.kernels import ring
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    buf, h, s = _ring(cap, elem, dtype, 0, 0, gen)
+    pb, ph, ps = buf.clone(), h.clone(), s.clone()
+    handle = ring.RingHandle(buf, h, s)
+    row = handle.row_bytes
+    # pushed rows come from a pool, whole or through a view one element
+    # (4 bytes at most) past the pool's start
+    pool = _ring(2 * cap + 1, elem, dtype, 0, 0, gen)[0]
+    flat = pool.reshape(-1)
+    row_elems = flat.numel() // pool.shape[0]
+    size, got, want, blocks, narrowed = 0, [], [], set(), 0
+    for _ in range(CHAINED_OPS):
+        free = cap - size
+        if size and (free == 0 or rng.random() < 0.5):
+            n = int(rng.integers(1, size + 1))
+            got.append(handle.pop(n))
+            want.append(ring.ring_pop_plain(pb, ph, ps, n)[0])
+            size -= n
+        else:
+            n = int(rng.integers(1, free + 1))
+            j = int(rng.integers(0, cap + 1))
+            if rng.random() < 0.5:
+                arr = pool[j:j + n]
+            else:
+                arr = flat[j * row_elems + 1:(j + n) * row_elems + 1] \
+                    .view((n,) + tuple(elem))
+                narrowed += ring.copy_word(row, buf.data_ptr(),
+                                           arr.data_ptr()) < \
+                    ring.copy_word(row, buf.data_ptr())
+            handle.push(arr)
+            ring.ring_push_plain(pb, ph, ps, arr)
+            size += n
+        blocks.add(ring.cluster_blocks(n * row))
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) + [(buf, pb), (h, ph), (s, ps)]
+    if not all(torch.equal(a, b) for a, b in pairs) or int(s) != size:
+        raise AssertionError(f"chained ring ops differ from plain: cap={cap} "
+                             f"elem={elem} {dtype}")
+    return dict(cap=cap, elem=list(elem), dtype=str(dtype), ops=CHAINED_OPS,
+                pops=len(got), row_bytes=row, cluster_sizes=sorted(blocks),
+                narrowed_pushes=narrowed, max_abs_err=_max_err(*pairs))
+
+
 def check_guards(T: int, C: int, gen) -> float:
     from repro_torch.kernels import ring
     caps = torch.randint(1, 9, (C,), generator=gen, dtype=torch.int32)
@@ -315,7 +395,7 @@ def check_guards(T: int, C: int, gen) -> float:
     return _max_err((kf, pf))
 
 
-def kernel_phase() -> tuple[dict, dict]:
+def kernel_phase() -> tuple[dict, dict, list]:
     from repro_torch.kernels import ring
     gen = torch.Generator().manual_seed(0)
     f32, i32, b = torch.float32, torch.int32, torch.bool
@@ -343,6 +423,15 @@ def kernel_phase() -> tuple[dict, dict]:
              push_n=1),
         dict(tag="bool scalar", cap=9, elem=(), dtype=b, head=4, size=9,
              n=9, push_n=9),
+        # bursts that make the blocks of a cluster share the copy: a wrap
+        # of 2 MiB rows (8 blocks, many passes), odd row bytes (byte
+        # words over 5 blocks), n == cap with 256 KiB rows
+        dict(tag="wrap wide", cap=3, elem=(512, 1024), dtype=f32, head=2,
+             size=3, n=3, push_n=3),
+        dict(tag="odd rows", cap=5, elem=(3, 13001), dtype=b, head=3,
+             size=5, n=4, push_n=4),
+        dict(tag="n=cap 256K", cap=4, elem=(256, 256), dtype=f32, head=3,
+             size=4, n=4, push_n=4),
     ]
     errs = {"ring_pop": 0.0, "ring_push": 0.0, "eval_guards": 0.0}
     for c in cases:
@@ -351,6 +440,16 @@ def kernel_phase() -> tuple[dict, dict]:
         errs["ring_push"] = max(errs["ring_push"], e_push)
     log(f"kernels: ring_pop/ring_push exact on {len(cases)} cases "
         f"({', '.join(c['tag'] for c in cases)})")
+    chained = [check_chained(8, (64, 256), f32, seed=3),   # 64 KiB rows
+               check_chained(6, (7, 1111), b, seed=4)]     # 7,777-byte rows
+    for r in chained:
+        for op in ("ring_pop", "ring_push"):
+            errs[op] = max(errs[op], r["max_abs_err"])
+        log(f"kernels: {r['ops']} chained ring ops ({r['pops']} pops) on one "
+            f"ring, cap {r['cap']} x {r['elem']} {r['dtype']} "
+            f"({r['row_bytes']} B rows; clusters of {r['cluster_sizes']} "
+            f"blocks; {r['narrowed_pushes']} pushes at a narrower word): "
+            f"exact")
     n_tasks, n_chans = 8 + 8 + 64 + 8, 3 * 64     # gemm P=8
     for T, C in [(n_tasks, n_chans), (6, 5), (1, 1), (33, 70), (4, 0)]:
         errs["eval_guards"] = max(errs["eval_guards"],
@@ -370,27 +469,46 @@ def kernel_phase() -> tuple[dict, dict]:
         arr = buf[:n].clone()
         nb = 2 * n * row + 16           # rows in + out, head/size r+w
         bnd, by = bound_ms(nb)
-        times = {}
-        for op, fn in (("ring_pop", ring.ring_pop),
+        # ring_pop / ring_push: a prepared handle per timed call, as the
+        # sweep loop calls them, in turns with the library call (the host's
+        # clock drifts within a run: the median of TIMING_TURNS each);
+        # *_public: the functions, a handle built a call
+        turns = {k: [] for k in ("ring_pop", "index_select", "ring_push",
+                                 "index_copy_")}
+        for _ in range(TIMING_TURNS):
+            st = _Counters(head, size)
+            hs = st.handles(buf, lambda h: h.pop(n))
+            turns["ring_pop"].append(time_ms(lambda i: hs[i].pop(n)))
+            st.expect("ring_pop", (head + n) % cap, size - n)
+            turns["index_select"].append(
+                time_ms(lambda i: buf.index_select(0, idx)))
+            st = _Counters(head, cap - n)
+            hs = st.handles(buf, lambda h: h.push(arr))
+            turns["ring_push"].append(time_ms(lambda i: hs[i].push(arr)))
+            st.expect("ring_push", head, cap)
+            turns["index_copy_"].append(
+                time_ms(lambda i: buf.index_copy_(0, idx, arr)))
+            del hs
+        times = {k: float(np.median(v)) for k, v in turns.items()}
+        for op, fn in (("ring_pop_public", ring.ring_pop),
                        ("ring_pop_plain", ring.ring_pop_plain)):
             st = _Counters(head, size)
             times[op] = time_ms(lambda i: fn(buf, st.h[i], st.s[i], n))
             st.expect(op, (head + n) % cap, size - n)
-        for op, fn in (("ring_push", ring.ring_push),
+        for op, fn in (("ring_push_public", ring.ring_push),
                        ("ring_push_plain", ring.ring_push_plain)):
             st = _Counters(head, cap - n)
             times[op] = time_ms(lambda i: fn(buf, st.h[i], st.s[i], arr))
             st.expect(op, head, cap)
-        timing["ring_pop"].append(dict(
-            shape=c["tag"], n=n, cap=cap, row_bytes=row,
-            ms=times["ring_pop"], plain_ms=times["ring_pop_plain"],
-            library_ms=time_ms(lambda i: buf.index_select(0, idx)),
-            bound_ms=bnd, bound_by=by))
-        timing["ring_push"].append(dict(
-            shape=c["tag"], n=n, cap=cap, row_bytes=row,
-            ms=times["ring_push"], plain_ms=times["ring_push_plain"],
-            library_ms=time_ms(lambda i: buf.index_copy_(0, idx, arr)),
-            bound_ms=bnd, bound_by=by))
+        blocks = ring.cluster_blocks(n * row)
+        for op, lib in (("ring_pop", "index_select"),
+                        ("ring_push", "index_copy_")):
+            timing[op].append(dict(
+                shape=c["tag"], n=n, cap=cap, row_bytes=row, blocks=blocks,
+                ms=times[op], public_ms=times[f"{op}_public"],
+                plain_ms=times[f"{op}_plain"], library_ms=times[lib],
+                turns_ms=turns[op], library_turns_ms=turns[lib],
+                bound_ms=bnd, bound_by=by))
     T, C = n_tasks, n_chans
     g = torch.Generator().manual_seed(1)
     caps = torch.full((C,), 2, dtype=torch.int32)
@@ -412,8 +530,10 @@ def kernel_phase() -> tuple[dict, dict]:
                 f"  plain {r['plain_ms']*1e3:8.2f} us  library "
                 + (f"{r['library_ms']*1e3:8.2f} us" if r["library_ms"]
                    is not None else "    none")
-                + f"  bound {r['bound_ms']*1e3:7.3f} us ({r['bound_by']})")
-    return timing, errs
+                + f"  bound {r['bound_ms']*1e3:7.3f} us ({r['bound_by']})"
+                + (f"  public fn {r['public_ms']*1e3:8.2f} us, "
+                   f"{r['blocks']} block(s)" if "public_ms" in r else ""))
+    return timing, errs, chained
 
 
 # ---------------------------------------------------------------------------
@@ -1740,7 +1860,7 @@ def main() -> int:
         return out
 
     # 3-6: the synthesis path
-    timing, errs = phase("3 kernels", kernel_phase)
+    timing, errs, chained = phase("3 kernels", kernel_phase)
     per_app, counts = phase("4 main path", main_path)
     full = phase("4 full size vs cpu", full_size_vs_cpu)
     twin = phase("5 twin vs compiled", twin_vs_compiled)
@@ -1800,7 +1920,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        kernels=kernels, main_path=per_app, full_size_vs_cpu=full,
+        kernels=kernels, chained_ring_ops=chained, main_path=per_app, full_size_vs_cpu=full,
         twin_vs_compiled=twin, breakdown=brk, attention_checks=attn_checks,
         serving=serving, serving_breakdown=serve_brk, serve_cli=cli,
         card_vs_cpu=vs_cpu, ssd_checks=ssd_checks, training=training,

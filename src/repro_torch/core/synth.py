@@ -60,7 +60,7 @@ from .graph import extract_graph
 from .interface import AsyncMMap, MMap
 from .task import (AutoStream, TaskInstance, bind_streams,
                    builder_stack_depth, join_pending_builders)
-from ..kernels.ring import eval_guards, ring_pop, ring_push
+from ..kernels.ring import RingHandle, eval_guards
 
 # JAX's canonicalization with 64-bit mode off, which the reference
 # package's rings, mmaps and states carry
@@ -305,7 +305,7 @@ def _twin_view(v: Any, streams: Optional[list] = None) -> Any:
 
 class _Ctx:
     """The device (or meta) state a firing reads and updates in place:
-    ``chans`` maps a channel index to its ring ``(buf, head, size)``,
+    ``chans`` maps a channel index to its ring's :class:`RingHandle`,
     ``mmaps`` an mmap index to its tensor."""
 
     __slots__ = ("chans", "mmaps")
@@ -333,9 +333,15 @@ class _Recorder:
 
 class _SynthStream:
     """Stream view over a ring buffer; every op updates the ring in
-    place."""
+    place through the ring's :class:`RingHandle`.
 
-    __slots__ = ("_ring", "_ci", "_chan", "_inst", "_rec")
+    The counting pass (``_rec`` set) checks every op: static burst sizes,
+    element shape and dtype, rates within capacity.  The sweep loop runs
+    the same Python on the same specs (the counting pass also pins the
+    state spec), so there it only moves tokens; the handle still checks
+    what the kernel's memory safety needs."""
+
+    __slots__ = ("_ring", "_ci", "_chan", "_inst", "_rec", "_dev")
 
     def __init__(self, ctx: _Ctx, ci: int, chan: Channel,
                  inst: TaskInstance, rec: Optional[_Recorder]):
@@ -344,34 +350,36 @@ class _SynthStream:
         self._chan = chan
         self._inst = inst
         self._rec = rec
+        self._dev = self._ring.buf.get_device()
 
     # -- reads ---------------------------------------------------------------
     def read(self):
-        self._account("read", 1)
-        toks, _, _ = ring_pop(*self._ring, 1)
-        return toks[0]
+        if self._rec is not None:
+            self._account("read", 1)
+        return self._ring.pop_one()
 
     def read_burst(self, n: int):
-        n = self._static(n, "read_burst")
-        self._account("read", n)
-        toks, _, _ = ring_pop(*self._ring, n)
-        return toks
+        if self._rec is not None:
+            n = self._static(n, "read_burst")
+            self._account("read", n)
+        return self._ring.pop(n)
 
     # -- writes --------------------------------------------------------------
     def write(self, tok) -> None:
-        tok = _as_canon(tok) if not isinstance(tok, torch.Tensor) else tok
-        self._check_elem(tok, burst=False)
-        self._account("write", 1)
-        ring_push(*self._ring, tok.to(self._ring[0].device)[None])
+        tok = self._on_ring(tok)
+        if self._rec is not None:
+            self._check_elem(tok, burst=False)
+            self._account("write", 1)
+        self._ring.push(tok)
 
     def write_burst(self, arr) -> None:
         if isinstance(arr, (list, tuple)):
             arr = torch.stack([_as_canon(t) for t in arr])
-        elif not isinstance(arr, torch.Tensor):
-            arr = _as_canon(arr)
-        self._check_elem(arr, burst=True)
-        self._account("write", int(arr.shape[0]))
-        ring_push(*self._ring, arr.to(self._ring[0].device))
+        arr = self._on_ring(arr)
+        if self._rec is not None:
+            self._check_elem(arr, burst=True)
+            self._account("write", int(arr.shape[0]))
+        self._ring.push(arr)
 
     # -- everything else is outside the synthesizable subset -----------------
     def _unsupported(self, op: str):
@@ -406,6 +414,15 @@ class _SynthStream:
         self._unsupported("try_write")
 
     # -- helpers -------------------------------------------------------------
+    def _on_ring(self, x: Any) -> torch.Tensor:
+        """``x`` as a tensor on the ring's device (a number or array is
+        canonicalized first)."""
+        if not isinstance(x, torch.Tensor):
+            x = _as_canon(x)
+        if x.get_device() != self._dev or self._rec is not None:
+            x = x.to(self._ring.buf.device)     # the counting pass: meta
+        return x
+
     def _static(self, n: Any, op: str) -> int:
         if not isinstance(n, (int, np.integer)):
             raise SynthesisError(
@@ -431,8 +448,6 @@ class _SynthStream:
 
     def _account(self, op: str, n: int) -> None:
         rec = self._rec
-        if rec is None:
-            return
         c = self._chan
         if op == "read":
             c._bind("consumer", self._inst)
@@ -655,10 +670,11 @@ def _meta_ctx(plan: _Plan, tp: _TaskPlan) -> _Ctx:
     chans = {}
     for ci in tp.chan_ids:
         c = plan.channels[ci]
-        chans[ci] = (torch.empty((c.capacity,) + c.shape,
-                                 dtype=_torch_dtype(c.dtype), device="meta"),
-                     torch.zeros((), dtype=torch.int32, device="meta"),
-                     torch.zeros((), dtype=torch.int32, device="meta"))
+        chans[ci] = RingHandle(
+            torch.empty((c.capacity,) + c.shape, dtype=_torch_dtype(c.dtype),
+                        device="meta"),
+            torch.zeros((), dtype=torch.int32, device="meta"),
+            torch.zeros((), dtype=torch.int32, device="meta"))
     mmaps = {mi: torch.empty(tuple(plan.mmaps[mi].shape),
                              dtype=_torch_dtype(plan.mmaps[mi].dtype),
                              device="meta")
@@ -739,7 +755,8 @@ def _build_program(plan: _Plan, device: torch.device) -> Callable:
     3. the fire vector comes back to the host — one synchronisation per
        sweep;
     4. each fired task runs its phase eagerly, in task order; its stream
-       views launch ``ring_pop``/``ring_push`` on the device rings;
+       views launch ``ring_pop``/``ring_push`` on the device rings, each
+       ring's launch path prepared once (:class:`RingHandle`);
     5. the occupancy highwater marks are sampled after every firing (a
        sweep-boundary sample would always see drained FIFOs).
 
@@ -764,9 +781,10 @@ def _build_program(plan: _Plan, device: torch.device) -> Callable:
         sizes = torch.zeros(n_chans, dtype=torch.int32, device=dev)
         maxocc = torch.zeros(n_chans, dtype=torch.int32, device=dev)
         caps_t = torch.tensor(caps, dtype=torch.int32, device=dev)
-        chans = {ci: (torch.zeros((c.capacity,) + c.shape,
-                                  dtype=_torch_dtype(c.dtype), device=dev),
-                      heads[ci], sizes[ci])
+        chans = {ci: RingHandle(torch.zeros((c.capacity,) + c.shape,
+                                            dtype=_torch_dtype(c.dtype),
+                                            device=dev),
+                                heads[ci], sizes[ci])
                  for ci, c in enumerate(plan.channels)}
         mmaps = list(mmaps0)
         ctx = _Ctx(chans, dict(enumerate(mmaps)))
