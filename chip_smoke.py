@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build — every ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc`` into
    ``build/kernels/``, one compiler process per source, all at once; each
    kernel's registers, shared memory (static, and the dynamic share a
-   flash block asks for) and spills as ``ptxas -v`` reported them.
+   flash, SSD or flash-decode block asks for; the last two must equal what
+   their wrappers' ``launch_args`` compute on the host) and spills as
+   ``ptxas -v`` reported them.
 3. kernels — each ring kernel against its plain PyTorch version on the
    card, exactly, at the main path's shapes and at the edge cases
    (wraparound, ``n == cap``, ``cap == 1``, int32 and bool elements; the
@@ -50,13 +52,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Sq > Sk, a 1,500-token prompt, window 0 (every row hidden: exact
    zeros, lse -1e30), S=2048 with window 100, hd 64 with group 4; decode
    at 8 slots of a 2048-row cache with ragged lengths, 0 and 2048
-   included).  Limits, relative to the plain output's largest magnitude:
-   ``ATTN_REL_TOL``; flash's ``lse`` within ``LSE_ABS_TOL``; exact zeros
-   where ``kv_len == 0``.  CUDA-event times (B=1 S=1024 and 2048, B=8
-   S=256, B=4 S=1024 for flash) of kernel, plain version and
+   included, the edges of its 64-row splits (kv_len and S_max at 63, 64
+   and 65) and groups 1, 4 and 8).  Limits, relative to the plain
+   output's largest magnitude: ``ATTN_REL_TOL``; flash's ``lse`` within
+   ``LSE_ABS_TOL``; exact zeros where ``kv_len == 0``.  CUDA-event times
+   (B=1 S=1024 and 2048, B=8 S=256, B=4 S=1024 for flash) of kernel, plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
-   port), reading a different layer's tensors on each call as the model
-   does, so the 50 MB L2 holds none of them.
+   port), each kernel's device time a call, reading a different layer's
+   tensors on each call as the model does, so the 50 MB L2 holds none of them.
 8. serving — Qwen3-0.6B at full width (28 layers, bf16, random weights
    from a seed) through ``ServingEngine`` + ``lm.serving_adapter`` +
    ``serve_requests`` with ``attn_impl="kernel"``: 8 slots of 2048
@@ -73,8 +76,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``torch.profiler`` (device activity): its prefill and decode seconds,
    the device's busy share and each attention kernel's mean device time
    per launch; every bf16 flash launch of the wave must show in the
-   profile as the tensor-core kernel and none as the float32 one (by
-   kernel name); then the decode step alone, 32 times over that wave's 8
+   profile as the tensor-core kernel and none as the float32 one, and
+   every flash-decode launch as ``decode_partial_kernel`` (by kernel
+   name); then the decode step alone, 32 times over that wave's 8
    live slots: host and device ms per step, the busy share, and the aten
    operations one step dispatches.
 
@@ -84,8 +88,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    S=1000 (the pad path), G=2, N=64 and the reduced 16x16, with the
    model's decays and small ones (``SSD_REL_TOL``; at small decays the
    inter-chunk term must be a visible part of y); CUDA-event times of
-   kernel and plain version at the training shape, the bound, and the
-   kernels' device time per call.
+   kernel and plain version at the training shape, the bound (3xTF32 on
+   the tensor cores; the float32 CUDA cores' beside it), and each of the
+   three kernels' device time per call.
 12. training — ``repro_torch.launch.train`` on Mamba2-130M at full width
    (bf16, 8 x 2048, 20 steps, ``--use-kernel``): rc 0 (the driver's own
    loss-decrease check), exactly 2 x 24 x 20 SSD launches (remat runs each
@@ -100,7 +105,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``TRAIN_CPU_TOL``).
 15. training breakdown — one step of phase 12's configuration under the
    profiler: the device's busy share, the SSD kernel's device time and
-   share, the top device operations; the backward's recompute alone.
+   share (every SSD launch of the step must show as ``ssd_state_mma``, by
+   kernel name), the top device operations; the backward's recompute
+   alone.
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -184,8 +191,8 @@ ATTN_REPLACES = {
 # checks' dtype) must never appear on the bf16 serving or training paths
 ATTN_KERNELS = {"flash_attention": ("flash_wgmma_kernel",),
                 "flash_attention_fp32": ("flash_fwd_kernel",),
-                "decode_attention": ("decode_split_kernel",
-                                     "decode_combine_kernel")}
+                "decode_attention": ("decode_partial_kernel",
+                                     "decode_merge_kernel")}
 
 
 def log(*a) -> None:
@@ -733,6 +740,13 @@ DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
     (8, 2048, 16, 8, 128,
      np.random.default_rng(1).integers(0, 2049, 8).tolist()),
     (4, 512, 8, 2, 64, [0, 1, 255, 512]),   # head width 64, group 4
+    # the edges of the kernel's 64-row splits: kv_len and S_max at split
+    # - 1, split and split + 1
+    (8, 2048, 16, 8, 128, [0, 63, 64, 65, 127, 128, 129, 2047]),
+    (4, 65, 16, 8, 128, [0, 63, 64, 65]),
+    (3, 63, 16, 8, 128, [1, 62, 63]),
+    (2, 300, 16, 2, 64, [65, 300]),         # group 8
+    (2, 200, 8, 8, 128, [64, 200]),         # group 1
 ]
 
 
@@ -870,11 +884,13 @@ def time_attention() -> dict:
     n_tok = int(lens.sum())
     nbytes = 2 * n_tok * nkv * hd * 2 + 2 * B * nh * hd * 2 + 4 * B
     bnd, by = bound_ms(nbytes, 4 * nh * n_tok * hd, TENSOR_BF16_FLOPS)
+    def decode(i):
+        return decode_attention_fwd(qs[i % L], ks[i % L], vs[i % L], kv_len)
     out["decode_attention"].append(dict(
         shape=f"B={B} S_max={S} nh={nh} nkv={nkv} hd={hd} bf16 "
               f"kv_len={lens.tolist()}",
-        ms=timed(lambda i: decode_attention_fwd(qs[i % L], ks[i % L],
-                                                vs[i % L], kv_len)),
+        ms=timed(decode), device_ms=_kernel_device_ms(
+            decode, ATTN_KERNELS["decode_attention"]),
         plain_ms=timed(lambda i: decode_attention_plain(
             qs[i % L], ks[i % L], vs[i % L], kv_len)),
         library_ms=timed(lambda i: F.scaled_dot_product_attention(
@@ -894,19 +910,25 @@ def time_attention() -> dict:
     return out
 
 
-def _kernel_device_ms(fn, kernel: str, n: int = 2 * LAYERS) -> float:
-    """Mean device ms of ``kernel`` over ``n`` calls of ``fn`` (the
-    profiler's kernel time: no host path)."""
+def _kernel_device_ms(fn, kernels, n: int = 2 * LAYERS) -> float:
+    """Mean device ms a call of the kernels named in ``kernels`` (one name,
+    or a tuple whose first kernel runs once a call) over ``n`` calls of
+    ``fn`` (the profiler's kernel time: no host path)."""
     from torch.profiler import ProfilerActivity, profile
+    names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(n):
             fn(i)
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    if not hits:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
-    return sum(e.self_device_time_total for e in hits) / \
-        sum(e.count for e in hits) / 1e3
+    total, calls = 0.0, 0
+    for e in prof.key_averages():
+        for j, nm in enumerate(names):
+            if nm in e.key:
+                total += e.self_device_time_total
+                calls += e.count if j == 0 else 0
+    if not calls:
+        raise AssertionError(f"the profiler saw no {names[0]} launch")
+    return total / calls / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1076,6 +1098,19 @@ def _check_flash_route(kern: dict, launches: int, where: str) -> None:
         f"{ATTN_KERNELS['flash_attention'][0]}, none the float32 kernel")
 
 
+def _check_decode_route(kern: dict, launches: int, where: str) -> None:
+    """Raise unless the profile shows each of ``launches`` flash-decode
+    launches as one ``decode_partial_kernel`` and one
+    ``decode_merge_kernel``."""
+    names = ATTN_KERNELS["decode_attention"]
+    seen = kern.get("decode_attention", (0, 0.0))[0]
+    if launches == 0 or seen != launches:
+        raise AssertionError(f"{where}: {launches} flash-decode launches, the "
+                             f"profiler saw {seen} {names[0]}")
+    log(f"{where}: all {launches} flash-decode launches ran {names[0]} + "
+        f"{names[1]}")
+
+
 class _OpCount:
     """Counts the aten operations dispatched inside a ``with`` block (views
     included; each is a trip through PyTorch's dispatcher, most of the
@@ -1156,6 +1191,8 @@ def serving_breakdown(eng, reqs, stats) -> dict:
     busy_us, kern = _device_times(prof)
     _check_flash_route(kern, counts.get("flash_attention", 0),
                        "breakdown serve")
+    _check_decode_route(kern, counts.get("decode_attention", 0),
+                        "breakdown serve")
     dev_ms = {op: t / n / 1e3 for op, (n, t) in kern.items() if n}
     n_call, s_call = dict(stats.n), dict(stats.s)
     loop = _decode_loop(eng.batched, wave)
@@ -1282,7 +1319,9 @@ TRAIN_ARCH = "mamba2-130m"
 TRAIN = dict(batch=8, seq=2048, steps=20)
 QWEN_TRAIN = dict(batch=4, seq=1024, steps=3)
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:43"
-SSD_KERNELS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
+# the SSD's device kernels, as the profiler names them; the first is
+# launched once a call (phase 15 counts calls by it)
+SSD_KERNELS = ("ssd_state_mma", "ssd_state_pass", "ssd_scan_mma")
 # SSD cases of phase 11: (tag, B, S, H, G, P, N, chunk, decays, s0 scale).
 # "model" decays are Mamba2's own (A = -linspace(1, 16, H), dt =
 # softplus(N(0, 1))): the running sum of dt * A reaches ~-1e3 within a
@@ -1420,14 +1459,21 @@ def check_ssd() -> tuple[list, float]:
 
 def _ssd_work(B, S, H, G, P, N, Q) -> tuple[int, int]:
     """(bytes, flops) the SSD scan needs at a shape: inputs read once,
-    outputs written once; the causal half of C B^T and of its product
-    with xdt, the state read, each chunk's own state and the state
-    pass."""
+    outputs written once; the causal half of C B^T once per (batch row,
+    chunk, group), which the heads of the group share, and per head the
+    causal half of its decayed product with xdt, the state read, the
+    chunk's own state and the state pass."""
     nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N
                   + 2 * B * H * P * N)
     tri = Q * (Q + 1) // 2
-    per_chunk = tri * 2 * (N + P) + 2 * Q * 2 * P * N + 2 * P * N
-    return nbytes, B * H * (S // Q) * per_chunk
+    per_group = tri * 2 * N
+    per_head = tri * 2 * P + 2 * Q * 2 * P * N + 2 * P * N
+    return nbytes, B * (S // Q) * (G * per_group + H * per_head)
+
+
+# the tensor cores' TF32 rate; 3xTF32 (float32 accuracy) takes a third
+TF32_FLOPS = 495e12
+SSD_3XTF32_FLOPS = TF32_FLOPS / 3
 
 
 def time_ssd() -> dict:
@@ -1442,7 +1488,10 @@ def time_ssd() -> dict:
     xdt, dA = x * dt[..., None], dt * A
     del x
     nbytes, flops = _ssd_work(B, S, H, G, P, N, Q)
-    bnd, by = bound_ms(nbytes, flops, CUDA_CORE_OPS_PER_S)
+    # the kernel's products run in 3xTF32 (float32 accuracy): its bound;
+    # the float32 CUDA cores' bound beside it
+    bnd, by = bound_ms(nbytes, flops, SSD_3XTF32_FLOPS)
+    bnd_fp32, _ = bound_ms(nbytes, flops, CUDA_CORE_OPS_PER_S)
 
     def kern(i):
         return ssd_scan_fwd(xdt, dA, Bm, Cm, s0, chunk=Q)
@@ -1467,8 +1516,9 @@ def time_ssd() -> dict:
         else None
     out = dict(shape=f"B={B} S={S} H={H} G={G} P={P} N={N} chunk={Q} f32",
                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
-               bound_by=by, bound_peak="float32 CUDA cores, 67 TFLOP/s",
-               bound_tf32_ms=max(nbytes / HBM_BYTES_PER_S, flops / 495e12)
+               bound_by=by, bound_peak="3xTF32 tensor cores, 495 / 3 "
+               "TFLOP/s", bound_fp32_ms=bnd_fp32,
+               bound_tf32_ms=max(nbytes / HBM_BYTES_PER_S, flops / TF32_FLOPS)
                * 1e3, bytes=nbytes, flops=flops, device_ms=dev_ms,
                device_us_by_kernel=per, tflops=flops / ms / 1e9)
     log(f"time ssd_scan {out['shape']}: kernel {ms * 1e3:9.2f} us "
@@ -1478,7 +1528,8 @@ def time_ssd() -> dict:
            if dev_ms is not None else "not measured")
         + f"; plain {plain_ms * 1e3:9.2f} us; library none; bound "
         f"{bnd * 1e3:.3f} us ({by}: {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP at 67 TFLOP/s fp32; TF32 tensor cores "
+        f"{flops / 1e9:.2f} GFLOP at 495 / 3 TFLOP/s 3xTF32; fp32 CUDA "
+        f"cores {bnd_fp32 * 1e3:.3f} us; single TF32 "
         f"{out['bound_tf32_ms'] * 1e3:.3f} us)")
     del xdt, dA, Bm, Cm, s0
     torch.cuda.empty_cache()
@@ -1714,6 +1765,7 @@ def train_breakdown() -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.models.layers import ssd_chunked
@@ -1734,9 +1786,11 @@ def train_breakdown() -> dict:
         params, state, _ = step_fn(params, state, b)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / 2
+    reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         params, state, _ = step_fn(params, state, batches[3])
         torch.cuda.synchronize()
+    launches = launch_counts().get("ssd_scan", 0)
     total, ssd_us, ssd_n, ops = 0.0, 0.0, 0, []
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
@@ -1748,6 +1802,9 @@ def train_breakdown() -> dict:
         if us:
             ops.append((us, e.key, e.count))
     ops.sort(reverse=True)
+    if launches == 0 or ssd_n != launches:
+        raise AssertionError(f"breakdown train: {launches} SSD launches, the "
+                             f"profiler saw {ssd_n} {SSD_KERNELS[0]}")
     del params, state, batches
     torch.cuda.empty_cache()
 
@@ -1794,20 +1851,54 @@ def train_breakdown() -> dict:
 
 def kernel_resources() -> list:
     """Phase 2: each kernel's registers, shared memory and spills as
-    ``ptxas -v`` reported them, and the dynamic shared memory a flash
-    block asks for (``flash_attention_smem_bytes``)."""
+    ``ptxas -v`` reported them, and the dynamic shared memory a block asks
+    for: a flash block's (``flash_attention_smem_bytes``), an SSD block's
+    at the training shape's chunk and heads a block, a flash-decode
+    partial block's; the last two must equal what the wrappers'
+    ``launch_args`` compute on the host."""
     import re
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.flash_attention import _SIGNATURES
     flash = _build.bind("flash_attention", _SIGNATURES)
+    ssd_lib = _build.bind("ssd_scan", ssd._SIGNATURES)
+    dec_lib = _build.bind("decode_attention", dec._SIGNATURES)
+    _, B, S, H, G, _, _, Q, _, _ = SSD_CASES[0]
+    nc = S // Q
+    heads = {"ssd_state_mma": ssd.heads_per_block(H // G, H, nc * B,
+                                                  ssd.MAX_STATE_HEADS),
+             "ssd_scan_mma": ssd.heads_per_block(
+                 H // G, H, nc * -(-Q // ssd.ROWS) * B)}
+    dtypes = {"f": (0, torch.float32), "13__nv_bfloat16": (1, torch.bfloat16)}
     rows = []
     for name in SOURCES:
         for r in _build.resources(name):
-            m = re.search(r"flash_(wgmma|fwd)_kernelIf?Li(\d+)E", r["kernel"])
-            dyn = flash.flash_attention_smem_bytes(
-                int(m.group(1) == "wgmma"), int(m.group(2))) if m else None
+            k = r["kernel"]
+            dyn, host = None, None
+            m = re.search(r"flash_(wgmma|fwd)_kernelIf?Li(\d+)E", k)
+            if m:
+                dyn = flash.flash_attention_smem_bytes(
+                    int(m.group(1) == "wgmma"), int(m.group(2)))
+            m = re.search(r"(ssd_state_mma|ssd_scan_mma)ILi(\d+)ELi(\d+)E", k)
+            if m:
+                P, N, hb = int(m.group(2)), int(m.group(3)), heads[m.group(1)]
+                which = int(m.group(1) == "ssd_scan_mma")
+                dyn = ssd_lib.ssd_scan_smem_bytes(which, P, N, Q, hb)
+                host = ssd.smem_bytes(P, N, Q, hb)[which]
+            m = re.search(r"decode_partial_kernelI(f|13__nv_bfloat16)Li(\d+)"
+                          r"ELi(\d+)E", k)
+            if m:
+                code, dt = dtypes[m.group(1)]
+                hd, grp = int(m.group(2)), int(m.group(3))
+                dyn = dec_lib.decode_attention_smem_bytes(code, hd, grp)
+                host = dec.smem_bytes(dt, hd, grp)
+            if host is not None and host != dyn:
+                raise AssertionError(f"{k}: the host computes {host} B of "
+                                     f"dynamic shared memory, the kernel "
+                                     f"asks {dyn}")
             rows.append(dict(source=name, **r, smem_dynamic=dyn))
-            log(f"build: {r['kernel']}: {r['registers']} registers, smem "
+            log(f"build: {k}: {r['registers']} registers, smem "
                 f"{r['smem_static']} B static"
                 + (f" + {dyn} B dynamic" if dyn is not None else "")
                 + f", stack {r['stack']} B, spills {r['spill_stores']} B "

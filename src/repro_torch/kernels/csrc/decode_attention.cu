@@ -11,32 +11,44 @@
 // What bounds it on this card: bytes.  Every valid K and V row is read
 // once (2 * kv_len * nkv * hd elements per sequence) for ~4 flops per
 // element, far below the ~295 flops/byte at which the tensor cores would
-// be the limit.  So the design is about reading the cache once, in wide
-// coalesced rows, from enough blocks to keep the memory system busy.
+// be the limit.  So the design is about keeping many bytes in flight:
+// many live blocks, each with its whole K and V tiles on the way at once.
 //
 // Design.
 // * The TPU kernel carries (m, l, acc) across a sequential grid over KV
 //   blocks.  On Hopper the KV axis is split across blocks instead
-//   (FlashDecoding): grid = (S_max / kSplit, nkv, B).  Each block owns
-//   kSplit cache positions of one (b, kv_head), handles all `group` query
-//   heads that share that KV head (so each K/V row is read once), and
-//   writes an unnormalised partial (m, l, acc).  A second kernel combines
-//   the partials of the splits that hold data.  8 slots x 8 KV heads is
-//   64 (b, kv_head) pairs; with 8 splits of a 2048-row cache that is 512
-//   blocks for 132 SMs.
+//   (FlashDecoding): grid = (S_max / 64, nkv, B).  Each block owns 64
+//   cache positions of one (b, kv_head), handles all `group` query heads
+//   that share that KV head (so each K/V row is read once), and writes an
+//   unnormalised partial (m, l, acc).  At the serving shape (8 slots of a
+//   2048-row cache, 8 KV heads, 6,013 live rows) that is ~784 live blocks
+//   for 132 SMs, where 256-row splits gave 216.
+// * decode_partial_kernel issues its K tile and then its V tile into
+//   shared memory by cp.async, 16 bytes a thread, as two groups: the V
+//   tile lands while the scores are formed from K.
+// * Scores: 8 elements a lane (one 16-byte bf16 load from shared memory),
+//   hd / 8 lanes a row, a 4-shuffle (hd 128) or 3-shuffle (hd 64)
+//   reduction, every query head of the group from q held in registers.
+//   The kernel is instantiated for groups of up to 2, 4 and 8 heads, so a
+//   small group (Qwen3's 2) holds no registers for heads it does not have:
+//   7 blocks fit an SM, and the serving shape's live blocks fit in one
+//   wave.
+// * P . V: each thread holds 8 adjacent output columns for every query
+//   head and walks its share of the V rows, 16 bytes a row from shared
+//   memory; the shares are summed by shuffles and once through shared
+//   memory (the K tile's space).
+// * decode_merge_kernel combines the partials of the splits that hold
+//   data: a warp a query head turns the splits' maxima into weights, then
+//   the splits' partials of each 4 output columns are summed by several
+//   threads at once (group * hd / 4 outputs over 256 threads).
 // * kv_len is read from device memory by both kernels (no host sync).  A
 //   split at or past kv_len returns before reading anything, so the
 //   unfilled tail of the cache costs no traffic; the ragged last split
-//   masks its rows.
+//   copies and reads only its valid rows.
 // * The cache is read in the model's layout [B, S_max, nkv, hd] through
 //   its strides: no transposed copy.
-// * Inside a block: phase 1 gives each warp runs of keys, each lane hd/32
-//   elements of a K row (one 4-16 byte load), and reduces the dot
-//   products with shuffles into a score row in shared memory; phase 2
-//   takes max and exp per query head; phase 3 gives each thread one
-//   output column and streams the V rows once for all query heads.
-// * fp32 throughout, as the plain version computes it; the output is
-//   rounded to the input type once, at the end.
+// * fp32 accumulation throughout, as the plain version computes; the
+//   output is rounded to the input type once, at the end.
 // * kv_len == 0 (a dead serving slot) gives exact zeros, as
 //   decode_attention.py:79-82 does.
 
@@ -46,11 +58,12 @@
 
 namespace {
 
-constexpr int kSplit = 256;     // cache positions per block
+constexpr int kSplit = 64;      // cache positions per block
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;    // query heads per KV head
-constexpr int kKeysPerIter = 4; // keys a warp has in flight in phase 1
+constexpr int kElem = 8;        // elements a lane owns in a row
+constexpr int kMergeThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -61,27 +74,35 @@ __device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
 }
 
-// Loads N consecutive elements (N * sizeof(T) in {4, 8, 16} bytes, aligned)
-// into floats.
-template <typename T, int N>
-__device__ __forceinline__ void load_row(const T* p, float* out) {
-  constexpr int kBytes = N * sizeof(T);
-  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "load width");
-  union {
-    uint4 u4;
-    uint2 u2;
-    uint32_t u1;
-    T t[16 / sizeof(T)];
-  } buf;
-  if constexpr (kBytes == 16) {
-    buf.u4 = *reinterpret_cast<const uint4*>(p);
-  } else if constexpr (kBytes == 8) {
-    buf.u2 = *reinterpret_cast<const uint2*>(p);
-  } else {
-    buf.u1 = *reinterpret_cast<const uint32_t*>(p);
-  }
+// 8 consecutive elements at p (16-byte aligned) from shared or global
+// memory, as floats: one 16-byte load for bf16, two for fp32.
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float* out) {
+  constexpr int kLoads = kElem * sizeof(T) / 16;
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(buf.t[i]);
+  for (int l = 0; l < kLoads; ++l) {
+    union {
+      uint4 u;
+      T t[16 / sizeof(T)];
+    } buf;
+    buf.u = reinterpret_cast<const uint4*>(p)[l];
+#pragma unroll
+    for (int i = 0; i < 16 / (int)sizeof(T); ++i)
+      out[l * (16 / sizeof(T)) + i] = to_f(buf.t[i]);
+  }
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -110,7 +131,7 @@ struct DecodeArgs {
   const void* v;
   const int* kv_len;   // [B]
   void* out;           // [B, nh, hd], contiguous
-  float* part_m;       // [B, nkv, n_split, group]
+  float* part_m;       // [B, nkv, n_split, group]; the merge's weights
   float* part_l;
   float* part_acc;     // [B, nkv, n_split, group, hd]
   long long q_sb, q_sh;
@@ -120,11 +141,36 @@ struct DecodeArgs {
   float scale;
 };
 
+// Copies rows [0, n) of a [rows, HD] tile with row stride `stride` into a
+// contiguous shared tile, 16 bytes a thread.
 template <typename T, int HD>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src,
+                                          long long stride, int n) {
+  constexpr int kChunks = HD * sizeof(T) / 16;
+  constexpr int kPer = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * kPer;
+    cp16(dst + r * HD + c, src + (long long)r * stride + c);
+  }
+}
+
+// G: the most query heads a KV head this instantiation takes (2, 4 or 8),
+// so that q and the accumulators of a smaller group take no registers.
+template <typename T, int HD, int G>
+size_t partial_smem() {
+  return 2 * sizeof(T) * kSplit * HD + sizeof(float) * G * kSplit;
+}
+
+template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(DecodeArgs a) {
-  constexpr int kPerLane = HD / 32;
-  constexpr int kRowsPar = kThreads / HD;   // phase-3 key subsets
+decode_partial_kernel(DecodeArgs a) {
+  constexpr int kLanes = HD / kElem;              // lanes a row: 16 or 8
+  constexpr int kRowsWarp = 32 / kLanes;          // rows a warp a step
+  constexpr int kRowStep = kRowsWarp * kWarps;
+  constexpr int kSubsets = kThreads / kLanes;     // P.V row shares
+  static_assert(G <= kMaxGroup &&
+                    kWarps * G * HD * 4 <= kSplit * HD * (int)sizeof(T),
+                "the P.V reduction reuses the K tile's space");
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int len = valid_len(a.kv_len, b, a.s_max);
   const int s0 = split * kSplit;
@@ -133,59 +179,74 @@ decode_split_kernel(DecodeArgs a) {
   const int group = a.group;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  __shared__ float q_s[kMaxGroup][HD];
-  __shared__ float p_s[kMaxGroup][kSplit];
-  __shared__ float acc_s[kRowsPar > 1 ? kRowsPar - 1 : 1][kMaxGroup][HD];
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);                       // [kSplit][HD]
+  T* vs = ks + kSplit * HD;                                 // [kSplit][HD]
+  float* p_s = reinterpret_cast<float*>(vs + kSplit * HD);  // [group][kSplit]
+  float* red = reinterpret_cast<float*>(ks);  // [kWarps][group][HD], later
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb;
-  for (int i = tid; i < group * HD; i += kThreads) {
-    const int g = i / HD, d = i % HD;
-    q_s[g][d] = to_f(q[(long long)(kvh * group + g) * a.q_sh + d]) * a.scale;
-  }
-  __syncthreads();
+  copy_rows<T, HD>(ks, static_cast<const T*>(a.k) + b * a.k_sb +
+                           kvh * a.k_sh + (long long)s0 * a.k_ss,
+                   a.k_ss, n);
+  cp_commit();
+  copy_rows<T, HD>(vs, static_cast<const T*>(a.v) + b * a.v_sb +
+                           kvh * a.v_sh + (long long)s0 * a.v_ss,
+                   a.v_ss, n);
+  cp_commit();
 
-  // phase 1: scores s[g][j] = q_g . k_j (scaled), for the n valid keys
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh +
-                (long long)s0 * a.k_ss + lane * kPerLane;
-  for (int j0 = warp * kKeysPerIter; j0 < n; j0 += kWarps * kKeysPerIter) {
-    float kr[kKeysPerIter][kPerLane];
+  // q of every head of the group: this lane's 8 columns, scaled
+  const int col = (lane % kLanes) * kElem;
+  float qr[G][kElem];
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + col;
 #pragma unroll
-    for (int u = 0; u < kKeysPerIter; ++u) {
-      if (j0 + u < n) {
-        load_row<T, kPerLane>(kb + (long long)(j0 + u) * a.k_ss, kr[u]);
-      } else {
+  for (int g = 0; g < G; ++g) {
+    if (g < group) {
+      load8<T>(q + (long long)(kvh * group + g) * a.q_sh, qr[g]);
 #pragma unroll
-        for (int e = 0; e < kPerLane; ++e) kr[u][e] = 0.f;
-      }
+      for (int e = 0; e < kElem; ++e) qr[g][e] *= a.scale;
     }
-    for (int g = 0; g < group; ++g) {
-      float qv[kPerLane];
+  }
+
+  // scores s[g][j] = q_g . k_j for the n valid keys
+  cp_wait<1>();
+  __syncthreads();
+  for (int j0 = 0; j0 < n; j0 += kRowStep) {
+    const int j = j0 + warp * kRowsWarp + lane / kLanes;
+    float kr[kElem];
+    if (j < n) {
+      load8<T>(ks + j * HD + col, kr);
+    } else {
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) qv[e] = q_s[g][lane * kPerLane + e];
+      for (int e = 0; e < kElem; ++e) kr[e] = 0.f;
+    }
 #pragma unroll
-      for (int u = 0; u < kKeysPerIter; ++u) {
+    for (int g = 0; g < G; ++g) {
+      if (g < group) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < kPerLane; ++e) dot = fmaf(qv[e], kr[u][e], dot);
-        dot = warp_sum(dot);
-        if (lane == 0 && j0 + u < n) p_s[g][j0 + u] = dot;
+        for (int e = 0; e < kElem; ++e) dot = fmaf(qr[g][e], kr[e], dot);
+#pragma unroll
+        for (int o = kLanes / 2; o > 0; o >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        if (lane % kLanes == 0 && j < n) p_s[g * kSplit + j] = dot;
       }
     }
   }
+  cp_wait<0>();
   __syncthreads();
 
-  // phase 2: per query head, max and exp over the split's valid keys
+  // per query head, max and exp over the split's valid keys
   float* m_out = a.part_m + (((long long)b * a.nkv + kvh) * a.n_split +
                              split) * group;
   float* l_out = a.part_l + (m_out - a.part_m);
   for (int g = warp; g < group; g += kWarps) {
     float m = -INFINITY;
-    for (int j = lane; j < n; j += 32) m = fmaxf(m, p_s[g][j]);
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, p_s[g * kSplit + j]);
     m = warp_max(m);
     float l = 0.f;
     for (int j = lane; j < n; j += 32) {
-      const float p = expf(p_s[g][j] - m);
-      p_s[g][j] = p;
+      const float p = expf(p_s[g * kSplit + j] - m);
+      p_s[g * kSplit + j] = p;
       l += p;
     }
     l = warp_sum(l);
@@ -196,90 +257,187 @@ decode_split_kernel(DecodeArgs a) {
   }
   __syncthreads();
 
-  // phase 3: acc[g][d] = sum_j p[g][j] * v[j][d]; thread = (key subset, d)
-  const int d = tid % HD, r = tid / HD;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh +
-                (long long)s0 * a.v_ss + d;
-  float acc[kMaxGroup];
+  // acc[g][col .. col + 8] = sum_j p[g][j] v[j][col ..]; thread = (row
+  // share, 8 columns)
+  const int c8 = (tid % kLanes) * kElem, sub = tid / kLanes;
+  float acc[G][kElem];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
-#pragma unroll 4
-  for (int j = r; j < n; j += kRowsPar) {
-    const float vj = to_f(vb[(long long)j * a.v_ss]);
+  for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < group) acc[g] = fmaf(p_s[g][j], vj, acc[g]);
+    for (int e = 0; e < kElem; ++e) acc[g][e] = 0.f;
+#pragma unroll 2
+  for (int j = sub; j < n; j += kSubsets) {
+    float vr[kElem];
+    load8<T>(vs + j * HD + c8, vr);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < group) {
+        const float p = p_s[g * kSplit + j];
+#pragma unroll
+        for (int e = 0; e < kElem; ++e) acc[g][e] = fmaf(p, vr[e], acc[g][e]);
+      }
+    }
   }
-  if (kRowsPar > 1) {
-    if (r > 0)
-      for (int g = 0; g < group; ++g) acc_s[r - 1][g][d] = acc[g];
-    __syncthreads();
-    if (r == 0)
-      for (int rr = 1; rr < kRowsPar; ++rr)
-        for (int g = 0; g < group; ++g) acc[g] += acc_s[rr - 1][g][d];
+  // the row shares of a warp by shuffles, then the warps through smem
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    if (g < group)
+#pragma unroll
+      for (int e = 0; e < kElem; ++e)
+#pragma unroll
+        for (int o = kLanes; o < 32; o <<= 1)
+          acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+  if (lane < kLanes) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < group) {
+        float4* r = reinterpret_cast<float4*>(
+            red + (warp * G + g) * HD + c8);
+        r[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        r[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+      }
+    }
   }
-  if (r == 0) {
-    float* acc_out = a.part_acc + (m_out - a.part_m) * HD;
-    for (int g = 0; g < group; ++g) acc_out[g * HD + d] = acc[g];
+  __syncthreads();
+  float4* acc_out = reinterpret_cast<float4*>(a.part_acc +
+                                              (m_out - a.part_m) * HD);
+  for (int i = tid; i < group * HD / 4; i += kThreads) {
+    const int g = i / (HD / 4), d = (i % (HD / 4)) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float4 r =
+          *reinterpret_cast<const float4*>(red + (w * G + g) * HD + d);
+      s.x += r.x;
+      s.y += r.y;
+      s.z += r.z;
+      s.w += r.w;
+    }
+    acc_out[i] = s;
   }
 }
 
 // Combines the partials of the splits that hold data; one block per
-// (kv_head, b), one thread per output column.
+// (kv_head, b).  Each split's max becomes its weight exp(m_s - M) / L in
+// place (part_m); then each output float4 is summed over the splits by
+// kMergeThreads / (group * HD / 4) threads at once, whose shares meet in
+// shared memory.
 template <typename T, int HD>
-__global__ void __launch_bounds__(HD) decode_combine_kernel(DecodeArgs a) {
-  const int kvh = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+__global__ void __launch_bounds__(kMergeThreads)
+decode_merge_kernel(DecodeArgs a) {
+  __shared__ float4 share[kMergeThreads];
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = valid_len(a.kv_len, b, a.s_max);
   const int group = a.group;
   const int used = (len + kSplit - 1) / kSplit;
   T* out = static_cast<T*>(a.out) +
            ((long long)b * a.nkv * group + kvh * group) * HD;
   const long long base = ((long long)b * a.nkv + kvh) * a.n_split;
-  for (int g = 0; g < group; ++g) {
+  for (int g = warp; g < group; g += kMergeThreads / 32) {
     float m = -INFINITY;
-    for (int s = 0; s < used; ++s)
+    for (int s = lane; s < used; s += 32)
       m = fmaxf(m, a.part_m[(base + s) * group + g]);
-    float l = 0.f, o = 0.f;
-    for (int s = 0; s < used; ++s) {
+    m = warp_max(m);
+    float l = 0.f;
+    for (int s = lane; s < used; s += 32) {
       const long long i = (base + s) * group + g;
-      const float w = expf(a.part_m[i] - m);
-      l = fmaf(a.part_l[i], w, l);
-      o = fmaf(a.part_acc[i * HD + d], w, o);
+      l = fmaf(a.part_l[i], expf(a.part_m[i] - m), l);
     }
-    from_f(used == 0 ? 0.f : o / l, out + g * HD + d);
+    l = warp_sum(l);            // >= 1: the split holding the max has p = 1
+    for (int s = lane; s < used; s += 32) {
+      const long long i = (base + s) * group + g;
+      a.part_m[i] = expf(a.part_m[i] - m) / l;
+    }
   }
+  __syncthreads();
+  const int n_out = group * HD / 4;              // float4 outputs
+  const int per = max(1, kMergeThreads / n_out);  // threads an output
+  const int o = tid % n_out, k = tid / n_out;
+  const int g = o / (HD / 4), d = (o % (HD / 4)) * 4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (k < per) {
+    for (int s = k; s < used; s += per) {
+      const long long i = (base + s) * group + g;
+      const float w = a.part_m[i];
+      const float4 v = *reinterpret_cast<const float4*>(a.part_acc + i * HD
+                                                        + d);
+      acc.x = fmaf(v.x, w, acc.x);
+      acc.y = fmaf(v.y, w, acc.y);
+      acc.z = fmaf(v.z, w, acc.z);
+      acc.w = fmaf(v.w, w, acc.w);
+    }
+  }
+  share[tid] = acc;
+  __syncthreads();
+  if (k == 0) {
+    for (int kk = 1; kk < per; ++kk) {
+      const float4 v = share[kk * n_out + o];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    T* po = out + g * HD + d;      // used == 0: exact zeros
+    from_f(acc.x, po);
+    from_f(acc.y, po + 1);
+    from_f(acc.z, po + 2);
+    from_f(acc.w, po + 3);
+  }
+}
+
+template <typename T, int HD, int G>
+int launch_g(const DecodeArgs& a, int batch, cudaStream_t stream) {
+  const size_t smem = partial_smem<T, HD, G>();
+  cudaError_t e = cudaFuncSetAttribute(
+      decode_partial_kernel<T, HD, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(a.n_split, a.nkv, batch);
+  decode_partial_kernel<T, HD, G><<<grid, kThreads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decode_merge_kernel<T, HD><<<dim3(a.nkv, batch), kMergeThreads, 0,
+                               stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int launch(const DecodeArgs& a, int batch, cudaStream_t stream) {
-  dim3 grid(a.n_split, a.nkv, batch);
-  decode_split_kernel<T, HD><<<grid, kThreads, 0, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  decode_combine_kernel<T, HD><<<dim3(a.nkv, batch), HD, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (a.group <= 2) return launch_g<T, HD, 2>(a, batch, stream);
+  if (a.group <= 4) return launch_g<T, HD, 4>(a, batch, stream);
+  return launch_g<T, HD, 8>(a, batch, stream);
+}
+
+template <typename T, int HD>
+long long smem_of(int group) {
+  if (group <= 2) return partial_smem<T, HD, 2>();
+  if (group <= 4) return partial_smem<T, HD, 4>();
+  return partial_smem<T, HD, 8>();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the split and combine kernels on `stream` without
-// synchronising; returns cudaGetLastError() (0 on success), or -1 for a
-// (dtype, hd, group) this file was not built for.  dtype: 0 = float32,
-// 1 = bfloat16.  part_* are scratch of n_split = ceil(s_max / 256) splits.
+// Launches the partial and merge kernels on `stream` without
+// synchronising; returns cudaGetLastError() (0 on success), -1 for a
+// (dtype, hd, group) this file was not built for, -2 for a split size
+// other than 64 or a split count other than ceil(s_max / 64).  dtype: 0 =
+// float32, 1 = bfloat16.  part_* are scratch of n_split splits.
 int decode_attention(const void* q, const void* k, const void* v,
                      const int* kv_len, void* out, float* part_m,
                      float* part_l, float* part_acc, long long q_sb,
                      long long q_sh, long long k_sb, long long k_ss,
                      long long k_sh, long long v_sb, long long v_ss,
                      long long v_sh, int batch, int s_max, int nkv,
-                     int group, int hd, int dtype, float scale,
-                     void* stream) {
+                     int group, int hd, int dtype, int split, int n_split,
+                     float scale, void* stream) {
   if (group < 1 || group > kMaxGroup) return -1;
+  if (split != kSplit || n_split != (s_max + kSplit - 1) / kSplit) return -2;
   DecodeArgs a{q, k, v, kv_len, out, part_m, part_l, part_acc,
                q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-               s_max, nkv, group, (s_max + kSplit - 1) / kSplit, scale};
+               s_max, nkv, group, n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) return launch<float, 64>(a, batch, st);
   if (dtype == 0 && hd == 128) return launch<float, 128>(a, batch, st);
@@ -289,11 +447,21 @@ int decode_attention(const void* q, const void* k, const void* v,
   return -1;
 }
 
-int decode_attention_split() { return kSplit; }
+// Dynamic shared memory of a decode_partial_kernel block (dtype, hd as
+// above, group); 0 for a pair not built.
+long long decode_attention_smem_bytes(int dtype, int hd, int group) {
+  if (dtype == 0 && hd == 64) return smem_of<float, 64>(group);
+  if (dtype == 0 && hd == 128) return smem_of<float, 128>(group);
+  if (dtype == 1 && hd == 64) return smem_of<__nv_bfloat16, 64>(group);
+  if (dtype == 1 && hd == 128) return smem_of<__nv_bfloat16, 128>(group);
+  return 0;
+}
 
 const char* decode_attention_error_string(int code) {
-  return code == -1 ? "unsupported dtype, head_dim or group"
-                    : cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code == -1) return "unsupported dtype, head_dim or group";
+  if (code == -2)
+    return "split size or split count the kernel was not built for";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

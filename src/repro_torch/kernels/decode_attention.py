@@ -10,10 +10,13 @@ gives exact zeros.  It is the function of the reference's
 Pallas body ``_decode_kernel`` at ``:35``), whose layout is head-major.
 
 A CUDA tensor launches ``csrc/decode_attention.cu`` — a split-KV pass
-and a combine pass in one call, counted as one launch — which reads
-``kv_len`` on the device (no host sync) and skips every cache block at or
-past it (``hd`` 64 or 128, float32 or bfloat16, at most 8 query heads per
-KV head; anything else raises).  A CPU or meta tensor takes
+over 64-row splits (``decode_partial_kernel``) and a merge pass
+(``decode_merge_kernel``) in one call, counted as one launch — which
+reads ``kv_len`` on the device (no host sync) and skips every cache block
+at or past it (``hd`` 64 or 128, float32 or bfloat16, at most 8 query
+heads per KV head; anything else raises).  :func:`launch_args` is the
+launch's host side as plain numbers (split count from ``S_max`` alone,
+grids, scratch, strides).  A CPU or meta tensor takes
 :func:`decode_attention_plain` (:mod:`.dispatch`).
 """
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -30,11 +34,82 @@ from .flash_attention import _aligned
 
 NEG_INF = -1e30
 MAX_GROUP = 8
+SPLIT = 64              # cache rows a block (csrc kSplit)
+HEAD_DIMS = (64, 128)
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"decode_attention": [_VP] * 8 + [_LL] * 8 + [_INT] * 6
+_SIGNATURES = {"decode_attention": [_VP] * 8 + [_LL] * 8 + [_INT] * 8
                + [ctypes.c_float, _VP],
-               "decode_attention_split": []}
+               "decode_attention_smem_bytes": [_INT] * 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Launch(NamedTuple):
+    """One call's launch as :func:`launch_args` prepares it."""
+    q: torch.Tensor         # the tensors the kernels read (``_aligned``)
+    k: torch.Tensor
+    v: torch.Tensor
+    strides: tuple          # (b, h) of q, (b, s, h) of k, of v
+    dims: tuple             # (B, S_max, nkv, group, hd)
+    dtype: int              # 0 float32, 1 bfloat16
+    n_split: int            # ceil(S_max / SPLIT)
+    grid_partial: tuple     # (n_split, nkv, B)
+    grid_merge: tuple       # (nkv, B)
+    smem_partial: int       # dynamic shared memory a block, bytes
+    n_stat: int             # m (and l) slots, rounded up to 4: acc aligned
+    part_numel: int         # float32 scratch: m, l and acc of each split
+    scale: float
+
+
+def group_bound(group: int) -> int:
+    """The partial kernel instantiation a group runs: the most query heads
+    a KV head it takes (2, 4 or 8)."""
+    return 2 if group <= 2 else 4 if group <= 4 else MAX_GROUP
+
+
+def smem_bytes(dtype: torch.dtype, hd: int, group: int) -> int:
+    """Dynamic shared memory a block of the partial kernel: its K and V
+    tiles and the scores of its group bound's heads (csrc partial_smem)."""
+    return 2 * SPLIT * hd * dtype.itemsize + 4 * group_bound(group) * SPLIT
+
+
+def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_len: torch.Tensor) -> Launch:
+    """Everything a launch needs but the outputs, scratch and stream, on
+    any device; raises on what no kernel takes.  ``n_split`` comes from
+    ``S_max`` alone (``kv_len`` stays on the device)."""
+    _check_shapes(q, k, v, kv_len)
+    B, nh, hd = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    group = nh // nkv
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype \
+            or hd not in HEAD_DIMS or group > MAX_GROUP:
+        raise ValueError(f"decode_attention kernel takes float32 or bfloat16 "
+                         f"q/k/v of one dtype, head_dim 64 or 128 and at "
+                         f"most {MAX_GROUP} query heads per KV head, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}, hd={hd}, "
+                         f"group={group}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    n_split = -(-S // SPLIT)
+    slots = B * nkv * n_split * group
+    n_stat = -(-slots // 4) * 4         # acc's float4 stores stay aligned
+    return Launch(q, k, v, (q.stride(0), q.stride(1), *k.stride()[:3],
+                            *v.stride()[:3]),
+                  (B, S, nkv, group, hd), _DTYPES[q.dtype], n_split,
+                  (n_split, nkv, B), (nkv, B), smem_bytes(q.dtype, hd, group),
+                  n_stat, 2 * n_stat + hd * slots, 1.0 / math.sqrt(hd))
+
+
+def _check_shapes(q, k, v, kv_len) -> None:
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape or \
+            q.shape[0] != k.shape[0] or q.shape[2] != k.shape[3] or \
+            k.shape[2] == 0 or q.shape[1] % k.shape[2]:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)}/{tuple(v.shape)} are not "
+                         f"[B, nh, hd] / [B, S_max, nkv, hd] with nkv | nh")
+    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (q.shape[0],):
+        raise ValueError(f"decode_attention: kv_len must be int32 "
+                         f"[{q.shape[0]}], got {kv_len.dtype}"
+                         f"{tuple(kv_len.shape)}")
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -63,44 +138,22 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: torch.Tensor) -> torch.Tensor:
     """q: [B, nh, hd]; k/v: [B, S_max, nkv, hd]; kv_len: [B] int32 on
     q's device.  Returns [B, nh, hd] in q's dtype."""
-    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape or \
-            q.shape[0] != k.shape[0] or q.shape[2] != k.shape[3] or \
-            k.shape[2] == 0 or q.shape[1] % k.shape[2]:
-        raise ValueError(f"decode_attention: q {tuple(q.shape)} and k/v "
-                         f"{tuple(k.shape)}/{tuple(v.shape)} are not "
-                         f"[B, nh, hd] / [B, S_max, nkv, hd] with nkv | nh")
-    if kv_len.dtype != torch.int32 or tuple(kv_len.shape) != (q.shape[0],):
-        raise ValueError(f"decode_attention: kv_len must be int32 "
-                         f"[{q.shape[0]}], got {kv_len.dtype}"
-                         f"{tuple(kv_len.shape)}")
     if not uses_kernel("decode_attention", q, k, v, kv_len):
+        _check_shapes(q, k, v, kv_len)
         return decode_attention_plain(q, k, v, kv_len)
-    B, nh, hd = q.shape
-    S, nkv = k.shape[1], k.shape[2]
-    group = nh // nkv
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype \
-            or hd not in (64, 128) or group > MAX_GROUP:
-        raise ValueError(f"decode_attention kernel takes float32 or bfloat16 "
-                         f"q/k/v of one dtype, head_dim 64 or 128 and at "
-                         f"most {MAX_GROUP} query heads per KV head, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}, hd={hd}, "
-                         f"group={group}")
-    out = torch.empty((B, nh, hd), dtype=q.dtype, device=q.device)
+    a = launch_args(q, k, v, kv_len)
+    B, S, nkv, group, hd = a.dims
+    out = q.new_empty(q.shape)
     if B == 0 or S == 0:
         return out.zero_()
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     kv_len = kv_len.contiguous()
+    part = torch.empty(a.part_numel, dtype=torch.float32, device=q.device)
     lib = _build.bind("decode_attention", _SIGNATURES)
-    n_split = -(-S // lib.decode_attention_split())
-    part = torch.empty((2 + hd) * B * nkv * n_split * group,
-                       dtype=torch.float32, device=q.device)
-    n_stat = B * nkv * n_split * group
     rc = lib.decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), part.data_ptr(), part[n_stat:].data_ptr(),
-        part[2 * n_stat:].data_ptr(), q.stride(0), q.stride(1),
-        *k.stride()[:3], *v.stride()[:3], B, S, nkv, group, hd,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(hd), _build.stream(q))
+        a.q.data_ptr(), a.k.data_ptr(), a.v.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), part.data_ptr(), part[a.n_stat:].data_ptr(),
+        part[2 * a.n_stat:].data_ptr(), *a.strides, B, S, nkv, group, hd,
+        a.dtype, SPLIT, a.n_split, a.scale, _build.stream(q))
     _build.check(lib, "decode_attention", "decode_attention", rc)
     count_launch("decode_attention")
     return out

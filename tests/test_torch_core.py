@@ -6,6 +6,8 @@ deadlock reasons, graph tables and validation verdicts.  Programs take the
 package as an argument, so both run the same Python.
 """
 
+import importlib
+import itertools
 from dataclasses import astuple
 
 import numpy as np
@@ -22,6 +24,17 @@ from repro_torch.core.errors import GraphValidationError
 
 ENGINES = ["sequential", "thread", "coroutine"]
 PKGS = {"ref": repro, "port": repro_torch}
+
+
+@pytest.fixture(autouse=True)
+def _instance_ids_from_zero(monkeypatch):
+    """A task instance's name carries a process-wide counter of its
+    package (``Producer#9``).  Both counters start at 0 in every test, so
+    the names the two packages give the same program agree whichever
+    tests ran before in the same process."""
+    for pkg in PKGS.values():
+        module = importlib.import_module(f"{pkg.__name__}.core.task")
+        monkeypatch.setattr(module, "_inst_uid", itertools.count())
 
 
 def pipeline(pkg, n=10, cap=2):
