@@ -17,21 +17,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    their wrappers' ``launch_args`` compute on the host) and spills as
    ``ptxas -v`` reported them.
 3. kernels — each ring kernel against its plain PyTorch version on the
-   card, exactly, at the main path's shapes and at the edge cases
+   card, exactly.  ``sweep_guards`` (the sweep's control) at the main
+   path's tables (gemm at full size: 88 tasks, 192 channels, 2 phases;
+   gaussian's 3-phase stencils), with every task dead, with the done flag
+   set, at T = 1 and T = 1000, ``SWEEP_STATES`` random carries each and 40
+   launches back to back on one carry; its times at gemm's tables (per
+   call through a prepared handle, device time a launch, plain version)
+   beside its bound.  ``eval_guards`` (the reference API's counterpart)
+   at its shapes.  Pop and push at the main path's shapes and at the edge
+   cases
    (wraparound, ``n == cap``, ``cap == 1``, int32 and bool elements; the
    bursts that spread over a cluster of blocks: a wrap of 2 MiB rows, odd
    row bytes, ``n == cap`` of 256 KiB rows); two chained sequences of
    ``CHAINED_OPS`` pops and pushes on one ring with no sync between
    them, against the same sequence through the plain versions; CUDA-event
-   times of the kernel through a prepared ``RingHandle`` that has run
-   the op once (the sweep loop's path) in ``TIMING_TURNS`` turns with one
-   library call (the median of each), through ``ring_pop``/``ring_push``
-   (a handle built a call) and of the plain version, each timed call
-   starting from a head/size inside the op's contract.
-4. main path — gemm, gaussian and page_rank through
-   ``run_step(engine="compiled")`` at full size, with launch counts
-   read just before and just after each app: every ring kernel must have
-   launched in every app's run.  Then each app at full size once more,
+   times of an eager call through a prepared ``RingHandle`` that has run
+   the op once (the sweep's bodies call it so at capture; the replays
+   launch the captured kernels with no host path) in ``TIMING_TURNS``
+   turns with one library call (the median of each), the kernels' device
+   time a launch under the profiler (profiled again once if it shows
+   none, then a failure; every timed call must also show on the kernel's
+   own launch counter), through ``ring_pop``/``ring_push`` (a handle
+   built a call) and of the plain version, each timed call starting from
+   a head/size inside the op's contract.
+4. main path — gemm, gaussian and page_rank through ``build_step`` and
+   the compiled engine at full size (what ``run_step`` runs), with launch
+   counts read just before and just after each app.  The ring kernels
+   count their launches on the card, where they run (replayed ones
+   included): every ring kernel, ``sweep_guards`` included, must have
+   launched in every app's run, ``sweep_guards`` once a replay, and
+   ``ring_pop``/``ring_push`` exactly as often as the run's firings
+   popped and pushed (``CompiledEngine.ring_ops``: each phase's ring ops
+   from the counting pass times its firings); the run must have gone
+   through the captured sweep (replays, at most one host sync a block and
+   one final read).  Then each app at full size once more,
    held against the reference and against the CPU lowering of the same
    graph, relative to the output's scale (``REF_REL_TOL``,
    ``CPU_REL_TOL``).
@@ -39,11 +58,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    twin and under ``CompiledEngine``, both on the card: bit-identical
    outputs and equal token counts; the sweeps equal those of the CPU
    (plain-version) lowering of the same graph.
-6. breakdown — each app at full size once more, under ``torch.profiler``:
-   seconds in the app's build, the lowering (wiring + counting pass) and
-   the sweep loop; the device's busy share of the sweep loop; each ring
-   kernel's mean device time per launch.  Measurement only: the checks
-   are phases 3-5.
+6. breakdown — each app at full size twice more: seconds in the app's
+   build, the lowering (wiring + counting pass), the sweep loop and its
+   capture, replays and host syncs, host ms a sweep; then with CUDA events
+   around every block of replays, the device time in the sweep's graphs
+   a replay (over the blocks of 64, where the host runs ahead of the
+   card) and the share of the loop (the profiler does not report the
+   kernels inside the graph's conditional nodes faithfully on this card,
+   so none runs over them); each ring kernel's device time a launch from
+   phase 3; the sweep graph's own cost: a graph of 14 and of 152
+   one-kernel bodies, all firing and none firing, against a plain graph
+   of the same kernels.
+   Measurement only: the checks are phases 3-5.
 7. attention kernels — flash attention forward and flash-decode against
    their plain versions on the card, in float32 and bfloat16, at the
    serving path's shapes (Qwen3-0.6B: 16 query heads, 8 KV heads of
@@ -78,7 +104,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    per launch; every bf16 flash launch of the wave must show in the
    profile as the tensor-core kernel and none as the float32 one, and
    every flash-decode launch as ``decode_partial_kernel`` (by kernel
-   name); then the decode step alone, 32 times over that wave's 8
+   name; the profiler on the card now and then loses kernel records, so
+   here and in phases 13 and 15 a profile that misses launches is taken
+   again on a new run, ``PROFILE_TRIES`` in all); then the decode step
+   alone, 32 times over that wave's 8
    live slots: host and device ms per step, the busy share, and the aten
    operations one step dispatches.
 
@@ -177,11 +206,15 @@ REDUCED = {
     "gaussian": dict(h=64, w=64, iters=2),
     "page_rank": dict(n_vertices=1024, n_edges=8192, n_pe=2, n_iters=4),
 }
+# the ring kernels of the synthesis path; sweep_guards is the guards
+# kernel the sweep loop runs, eval_guards (phase 3 only) its counterpart
+# of the reference's eval_guards API
 REPLACES = {
     "ring_pop": "src/repro/kernels/ring.py:84",
     "ring_push": "src/repro/kernels/ring.py:141",
-    "eval_guards": "src/repro/kernels/ring.py:200",
+    "sweep_guards": "src/repro/kernels/ring.py:200",
 }
+SWEEP_STATES = 100          # random carries a sweep_guards case checks
 ATTN_REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:45",
     "decode_attention": "src/repro/kernels/decode_attention.py:35",
@@ -243,10 +276,10 @@ class _Counters:
 
     def handles(self, buf: torch.Tensor, prime) -> list:
         """One prepared ring handle per timed call, over ``buf`` and that
-        call's (head, size): what the sweep loop's stream views call.
-        Each has run ``prime`` (the timed op) once, as a view's handle has
-        after its ring's first firing (a handle keeps per-burst-size
-        launch arguments and outputs); the counters are then reset."""
+        call's (head, size): what the sweep's stream views call.  Each has
+        run ``prime`` (the timed op) once, as a view's handle has after
+        its ring's first firing (a handle keeps per-burst-size launch
+        arguments); the counters are then reset."""
         from repro_torch.kernels.ring import RingHandle
         hs = [RingHandle(buf, h, s) for h, s in zip(self.h, self.s)]
         for h in hs:
@@ -402,6 +435,192 @@ def check_guards(T: int, C: int, gen) -> float:
     return _max_err((kf, pf))
 
 
+def _counted_device_ms(fn, kernel: str, op: str, n: int) -> float:
+    """:func:`_kernel_device_ms` of ``n`` calls of ``fn``, each of which
+    must launch ``op``'s kernel once: its launch counter, which the
+    kernel advances on the card, must read ``n`` after the calls.  If the
+    profiler shows no launch the calls are profiled once more, and a
+    second miss fails the run (the counter says the launches ran)."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    for attempt in (1, 2):
+        reset_launches()
+        try:
+            ms = _kernel_device_ms(fn, kernel, n=n)
+        except AssertionError as e:
+            launched = launch_counts().get(op, 0)
+            if attempt == 2 or launched != n:
+                raise AssertionError(f"{e} in {n} timed calls (the launch "
+                                     f"counter read {launched}), attempt "
+                                     f"{attempt}") from e
+            log(f"kernels: the profiler saw none of {n} {kernel} launches "
+                f"(the counter saw them); profiling them again")
+            continue
+        launched = launch_counts().get(op, 0)
+        if launched != n:
+            raise AssertionError(f"{n} timed {op} calls launched its "
+                                 f"kernel {launched} times")
+        return ms
+
+
+def _random_plan(rng, n_tasks: int, n_chans: int, n_ph_max: int):
+    """A plan-shaped table of ``n_tasks`` tasks of 1..``n_ph_max`` phases,
+    each phase reading or writing up to 5 of ``n_chans`` channels (what
+    ``_guard_tables`` reads)."""
+    from types import SimpleNamespace
+    caps = rng.integers(1, 9, n_chans)
+    tasks = []
+    for _ in range(n_tasks):
+        phases = []
+        for _ in range(int(rng.integers(1, n_ph_max + 1))):
+            reads, writes = {}, {}
+            for c in rng.choice(n_chans, size=int(rng.integers(
+                    0, min(n_chans, 5) + 1)), replace=False):
+                side = reads if rng.random() < 0.5 else writes
+                side[int(c)] = int(rng.integers(1, caps[c] + 1))
+            phases.append(SimpleNamespace(count=int(rng.integers(1, 5)),
+                                          reads=reads, writes=writes))
+        bounds = list(np.cumsum([p.count for p in phases]))
+        tasks.append(SimpleNamespace(phases=phases, bounds=bounds,
+                                     total=int(bounds[-1])))
+    return SimpleNamespace(tasks=tasks, channels=[
+        SimpleNamespace(capacity=int(c)) for c in caps])
+
+
+def _sweep_tables(plan) -> dict:
+    """The sweep program's tables of a plan, as numpy: what
+    ``_SweepProgram`` hands ``SweepGuards``."""
+    from repro_torch.core.synth import _guard_tables
+    from repro_torch.kernels.ring import sparse_needs
+    need_r, need_w, bounds, n_ph = _guard_tables(plan)
+    n_tasks = len(plan.tasks)
+    if bounds is None:
+        bounds = np.zeros((n_tasks, 0), np.int32)
+    caps = np.asarray([c.capacity for c in plan.channels], np.int32)
+    row_ptr, entries = sparse_needs(need_r, need_w, caps)
+    return dict(totals=np.asarray([tp.total for tp in plan.tasks], np.int32),
+                bounds=bounds, row_ptr=row_ptr, entries=entries, caps=caps,
+                n_ph=n_ph)
+
+
+def _guard_carry(tab: dict, fires, sizes, state) -> list:
+    """``SweepGuards``' arguments on the card: the tables, then a carry
+    of its own (sizes, fires, state) and fresh outputs."""
+    n_tasks = len(tab["totals"])
+    on = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()  # noqa
+    return [on(tab[k]) for k in ("totals", "bounds", "row_ptr",
+                                 "entries")] + [
+        on(sizes), on(fires), on(state),
+        torch.zeros((n_tasks, tab["n_ph"]), dtype=torch.bool, device="cuda"),
+        torch.zeros(n_tasks, dtype=torch.bool, device="cuda"),
+        torch.zeros(n_tasks, dtype=torch.int32, device="cuda")]
+
+
+def _guard_state(rng, tab: dict, how: str) -> tuple:
+    totals, caps = tab["totals"], tab["caps"]
+    fires = totals.copy() if how == "dead" else rng.integers(0, totals + 1)
+    sizes = rng.integers(0, caps + 1)
+    if rng.random() < 0.5:              # rings empty or full, as a run has
+        sizes = np.where(rng.random(len(caps)) < 0.5, 0, caps)
+    return fires, sizes, [int(how == "done"), int(rng.integers(0, 100))]
+
+
+def check_sweep_guards(tag: str, tab: dict, how: str, seed: int) -> dict:
+    """``SWEEP_STATES`` random carries through the kernel and through the
+    plain version on the card, every output and the carry compared
+    exactly; then one carry through 40 launches back to back (the kernel
+    reading what it wrote, no sync between) against 40 plain calls."""
+    from repro_torch.kernels import ring
+    rng = np.random.default_rng(seed)
+    fired = 0
+    for _ in range(SWEEP_STATES):
+        st = _guard_state(rng, tab, how)
+        k, p = _guard_carry(tab, *st), _guard_carry(tab, *st)
+        ring.sweep_guards(*k)
+        ring.sweep_guards_plain(*p)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(k, p)):
+            raise AssertionError(f"sweep_guards differs from plain: {tag}, "
+                                 f"{how}")
+        fired += int(k[8].sum())
+    st = _guard_state(rng, tab, how)
+    k, p = _guard_carry(tab, *st), _guard_carry(tab, *st)
+    handle = ring.SweepGuards(*k)
+    for _ in range(40):
+        handle()
+        ring.sweep_guards_plain(*p)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+        raise AssertionError(f"40 chained sweep_guards launches differ from "
+                             f"plain: {tag}, {how}")
+    n_tasks, n_ph = len(tab["totals"]), tab["n_ph"]
+    return dict(case=tag, carries=how, tasks=n_tasks, phases=n_ph,
+                channels=len(tab["caps"]), nnz=len(tab["entries"]),
+                fired=fired, chained_sweeps=int(k[6][1]), max_abs_err=0.0)
+
+
+def _guard_work(tab: dict, fires, sizes) -> tuple[int, int]:
+    """Bytes and integer operations one ``sweep_guards`` call needs on
+    this carry: each live task reads its counter, total, bounds, its
+    row's two offsets, entries and the sizes they name; every task writes
+    its fire, phase and run row, a fired one its counter."""
+    n_tasks, n_ph = len(tab["totals"]), tab["n_ph"]
+    ph = (fires[:, None] >= tab["bounds"]).sum(1)
+    rows = np.arange(n_tasks) * n_ph + ph
+    live = fires < tab["totals"]
+    nnz = int((tab["row_ptr"][rows + 1] - tab["row_ptr"][rows])[live].sum())
+    nbytes = (n_tasks * (4 + 4 + 4 * (n_ph - 1) + 8) + 20 * nnz + 4
+              + n_tasks * (n_ph + 1 + 4) + 4 * n_tasks + 8)
+    return nbytes, n_tasks * (n_ph - 1) + 3 * nnz + 3 * n_tasks
+
+
+def sweep_guard_phase(timing: dict) -> list:
+    """Phase 3's sweep_guards part: the kernel against its plain version
+    at the main path's tables (gemm at full size: 88 tasks, 192 channels,
+    2 phases; gaussian's 3-phase stencils), with every task dead, with
+    the done flag set, at T = 1 and T = 1000; its times at gemm's tables
+    (per call through a prepared handle, device time a launch, plain
+    version), each timed call on a carry of its own."""
+    from repro_torch.apps import APPS
+    from repro_torch.core.synth import elaborate_step_graph
+    from repro_torch.kernels import ring
+    tabs = {}
+    for name in ("gemm", "gaussian"):
+        top, args, _ = APPS[name].build_step(device="cuda", **FULL[name])
+        tabs[name] = _sweep_tables(elaborate_step_graph(top, *args)[0])
+    rng = np.random.default_rng(7)
+    tabs["T=1"] = _sweep_tables(_random_plan(rng, 1, 3, 3))
+    tabs["T=1000"] = _sweep_tables(_random_plan(rng, 1000, 600, 3))
+    checks = [check_sweep_guards(tag, tabs[tag], how, seed)
+              for seed, (tag, how) in enumerate([
+                  ("gemm", "random"), ("gaussian", "random"),
+                  ("gemm", "dead"), ("gemm", "done"), ("T=1", "random"),
+                  ("T=1000", "random"), ("T=1000", "done")])]
+    for c in checks:
+        log(f"kernels: sweep_guards exact at {c['case']} ({c['tasks']} tasks "
+            f"x {c['phases']} phases, {c['channels']} channels, {c['nnz']} "
+            f"entries), {c['carries']} carries: {SWEEP_STATES} carries "
+            f"({c['fired']} firings) and 40 chained launches")
+    tab = tabs["gemm"]
+    st = _guard_state(np.random.default_rng(11), tab, "random")
+    n = WARM + REPS
+    hs = [ring.SweepGuards(*_guard_carry(tab, *st)) for _ in range(n)]
+    ms = time_ms(lambda i: hs[i]())
+    hs = [ring.SweepGuards(*_guard_carry(tab, *st)) for _ in range(n)]
+    dev = _counted_device_ms(lambda i: hs[i](), "sweep_guards_kernel",
+                             "sweep_guards", n)
+    ps = [_guard_carry(tab, *st) for _ in range(60)]
+    plain = time_ms(lambda i: ring.sweep_guards_plain(*ps[i]), reps=50,
+                    warm=10)
+    nb, ops = _guard_work(tab, st[0], st[1])
+    bnd, by = bound_ms(nb, ops)
+    timing["sweep_guards"] = [dict(
+        shape=f"gemm {len(tab['totals'])} tasks x {tab['n_ph']} phases, "
+              f"{len(tab['caps'])} channels", ms=ms, device_ms=dev,
+        plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
+        bytes=nb, ops=ops)]
+    return checks
+
+
 def kernel_phase() -> tuple[dict, dict, list]:
     from repro_torch.kernels import ring
     gen = torch.Generator().manual_seed(0)
@@ -440,7 +659,8 @@ def kernel_phase() -> tuple[dict, dict, list]:
         dict(tag="n=cap 256K", cap=4, elem=(256, 256), dtype=f32, head=3,
              size=4, n=4, push_n=4),
     ]
-    errs = {"ring_pop": 0.0, "ring_push": 0.0, "eval_guards": 0.0}
+    errs = {"ring_pop": 0.0, "ring_push": 0.0, "sweep_guards": 0.0,
+            "eval_guards": 0.0}
     for c in cases:
         e_pop, e_push = check_pop_push(c, gen)
         errs["ring_pop"] = max(errs["ring_pop"], e_pop)
@@ -468,6 +688,7 @@ def kernel_phase() -> tuple[dict, dict, list]:
     # in-contract head/size (a pop from `size` tokens, a push into exactly
     # n free slots), checked again after the timing
     timing = {"ring_pop": [], "ring_push": [], "eval_guards": []}
+    guard_checks = sweep_guard_phase(timing)
     for c in cases[:4]:
         cap, head, size, n = c["cap"], c["head"], c["size"], c["n"]
         buf = _ring(cap, c["elem"], c["dtype"], 0, 0, gen)[0]
@@ -476,10 +697,10 @@ def kernel_phase() -> tuple[dict, dict, list]:
         arr = buf[:n].clone()
         nb = 2 * n * row + 16           # rows in + out, head/size r+w
         bnd, by = bound_ms(nb)
-        # ring_pop / ring_push: a prepared handle per timed call, as the
-        # sweep loop calls them, in turns with the library call (the host's
-        # clock drifts within a run: the median of TIMING_TURNS each);
-        # *_public: the functions, a handle built a call
+        # ring_pop / ring_push eager: a prepared handle per timed call, as
+        # the sweep's stream views call them at capture, in turns with the
+        # library call (the host's clock drifts within a run: the median of
+        # TIMING_TURNS each); *_public: the functions, a handle built a call
         turns = {k: [] for k in ("ring_pop", "index_select", "ring_push",
                                  "index_copy_")}
         for _ in range(TIMING_TURNS):
@@ -497,6 +718,17 @@ def kernel_phase() -> tuple[dict, dict, list]:
                 time_ms(lambda i: buf.index_copy_(0, idx, arr)))
             del hs
         times = {k: float(np.median(v)) for k, v in turns.items()}
+        st = _Counters(head, size)
+        hs = st.handles(buf, lambda h: h.pop(n))
+        times["ring_pop_device"] = _counted_device_ms(
+            lambda i: hs[i].pop(n), "ring_pop_kernel", "ring_pop",
+            WARM + REPS)
+        st = _Counters(head, cap - n)
+        hs = st.handles(buf, lambda h: h.push(arr))
+        times["ring_push_device"] = _counted_device_ms(
+            lambda i: hs[i].push(arr), "ring_push_kernel", "ring_push",
+            WARM + REPS)
+        del hs
         for op, fn in (("ring_pop_public", ring.ring_pop),
                        ("ring_pop_plain", ring.ring_pop_plain)):
             st = _Counters(head, size)
@@ -512,7 +744,8 @@ def kernel_phase() -> tuple[dict, dict, list]:
                         ("ring_push", "index_copy_")):
             timing[op].append(dict(
                 shape=c["tag"], n=n, cap=cap, row_bytes=row, blocks=blocks,
-                ms=times[op], public_ms=times[f"{op}_public"],
+                ms=times[op], device_ms=times[f"{op}_device"],
+                public_ms=times[f"{op}_public"],
                 plain_ms=times[f"{op}_plain"], library_ms=times[lib],
                 turns_ms=turns[op], library_turns_ms=turns[lib],
                 bound_ms=bnd, bound_by=by))
@@ -533,14 +766,17 @@ def kernel_phase() -> tuple[dict, dict, list]:
         library_ms=None, bound_ms=bnd, bound_by=by))
     for k, rows in timing.items():
         for r in rows:
-            log(f"time {k:11s} {r['shape']:24s} kernel {r['ms']*1e3:8.2f} us"
-                f"  plain {r['plain_ms']*1e3:8.2f} us  library "
+            log(f"time {k:11s} {r['shape']:24s} eager {r['ms']*1e3:8.2f} us"
+                + (f" (device {r['device_ms']*1e3:.3f} us)"
+                   if r.get("device_ms") is not None else "")
+                + f"  plain {r['plain_ms']*1e3:8.2f} us  library "
                 + (f"{r['library_ms']*1e3:8.2f} us" if r["library_ms"]
                    is not None else "    none")
                 + f"  bound {r['bound_ms']*1e3:7.3f} us ({r['bound_by']})"
                 + (f"  public fn {r['public_ms']*1e3:8.2f} us, "
                    f"{r['blocks']} block(s)" if "public_ms" in r else ""))
-    return timing, errs, chained
+    return timing, errs, dict(chained_ring_ops=chained,
+                              sweep_guards=guard_checks)
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +784,15 @@ def kernel_phase() -> tuple[dict, dict, list]:
 # ---------------------------------------------------------------------------
 
 def main_path() -> tuple[dict, dict]:
+    """Each app at full size through ``build_step`` and the compiled
+    engine, as ``run_step`` runs it (build, run, ``check()``), with the
+    engine kept for its counts: the run must go through the captured
+    sweep (replays, at most one host sync a block and one final read).
+    The ring kernels count their own launches on the card: ``sweep_guards``
+    must have launched once a replay, ``ring_pop``/``ring_push`` as often
+    as the run's firings popped and pushed (``eng.ring_ops``), and each at
+    least once."""
+    from repro_torch import ENGINES
     from repro_torch.apps import APPS
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     per_app = {}
@@ -556,27 +801,45 @@ def main_path() -> tuple[dict, dict]:
         before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = APPS[name].run_step("compiled", device="cuda", **kw)
+        top, args, check = APPS[name].build_step(device="cuda", **kw)
+        eng = ENGINES["compiled"](device="cuda")
+        rep = eng.run(top, *args)
+        correct, max_err = check() if rep.ok else (False, float("nan"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         after = launch_counts()
         launches = {k: after.get(k, 0) - before.get(k, 0)
                     for k in REPLACES}
-        if not r.ok:
+        if not (rep.ok and correct):
             raise AssertionError(f"{name}: run failed or check() failed: "
-                                 f"{r.report.error} correct={r.correct} "
-                                 f"err={r.max_err}")
+                                 f"{rep.error} correct={correct} "
+                                 f"err={max_err}")
         for k, v in launches.items():
             if v <= 0:
                 raise AssertionError(f"{name}: its run never launched {k}: "
                                      f"{launches}")
-        sweeps = r.report.switches
-        per_app[name] = dict(params=kw, check=bool(r.correct),
-                             max_err=r.max_err, sweeps=sweeps, wall_s=wall,
-                             sweeps_per_s=sweeps / wall, launches=launches)
-        log(f"main {name}: check {r.correct} max_err {r.max_err:.3e} "
+        if not (eng.n_replays > 0 and eng.n_host_syncs <= eng.n_blocks + 1):
+            raise AssertionError(
+                f"{name}: not the captured sweep: {eng.n_replays} replays, "
+                f"{eng.n_blocks} blocks, {eng.n_host_syncs} host syncs")
+        want = dict(eng.ring_ops, sweep_guards=eng.n_replays)
+        if launches != want:
+            raise AssertionError(
+                f"{name}: the kernels counted {launches} launches on the "
+                f"card; the run's replays and firings make {want}")
+        sweeps = rep.switches
+        per_app[name] = dict(params=kw, check=bool(correct),
+                             max_err=max_err, sweeps=sweeps, wall_s=wall,
+                             sweeps_per_s=sweeps / wall, launches=launches,
+                             capture_s=eng.capture_s,
+                             replays=eng.n_replays, blocks=eng.n_blocks,
+                             host_syncs=eng.n_host_syncs)
+        log(f"main {name}: check {correct} max_err {max_err:.3e} "
             f"sweeps {sweeps} wall {wall:.3f} s "
-            f"({sweeps / wall:.1f} sweeps/s) launches {launches}")
+            f"({sweeps / wall:.1f} sweeps/s) capture {eng.capture_s:.3f} s, "
+            f"{eng.n_replays} replays in {eng.n_blocks} blocks, "
+            f"{eng.n_host_syncs} host syncs; launches {launches} (counted "
+            f"on the card; == replays and the firings' ring ops)")
     return per_app, launch_counts()
 
 
@@ -657,56 +920,172 @@ def twin_vs_compiled() -> dict:
     return out
 
 
-def _device_us(prof) -> tuple[float, dict]:
-    """Total device microseconds in a profile, and per ring kernel
-    (launches, total us)."""
-    total, per = 0.0, {}
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        total += us
-        for k in REPLACES:
-            if f"{k}_kernel" in e.key:
-                n, t = per.get(k, (0, 0.0))
-                per[k] = (n + e.count, t + us)
-    return total, per
+class _TimedReplays:
+    """Inside the block, every block of replays of a sweep's graph
+    (``SweepGraph.replay(k)``) is bracketed by two CUDA events on its
+    stream.  Inside a block the host submits the replays back to back and
+    runs ahead of the card; only a block's first replay may wait for the
+    host's submission, so the blocks of :data:`TIMED_BLOCK` replays
+    before the run's last block (which replays past the run's end) give
+    the device time a replay of a sweep that runs."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ring import SweepGraph
+        self.events, self._orig = [], SweepGraph.replay
+        events, orig = self.events, self._orig
+
+        def replay(graph, k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            orig(graph, k)
+            e1.record()
+            events.append((k, e0, e1))
+
+        SweepGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.ring import SweepGraph
+        SweepGraph.replay = self._orig
+
+    def device_s(self) -> tuple[float, float, int]:
+        """Seconds in all the blocks, seconds in the blocks of
+        :data:`TIMED_BLOCK` replays but the last block, and their
+        replays."""
+        torch.cuda.synchronize()
+        ms = [(k, a.elapsed_time(b)) for k, a, b in self.events]
+        full = [(k, t) for k, t in ms[:-1] if k == TIMED_BLOCK]
+        return (sum(t for _, t in ms) / 1e3, sum(t for _, t in full) / 1e3,
+                sum(k for k, _ in full))
 
 
-def breakdown() -> tuple[dict, dict]:
-    from torch.profiler import ProfilerActivity, profile
+TIMED_BLOCK = 64            # the sweep program's largest block
+
+
+def _graph_time_us(replay, n: int = 200) -> float:
+    replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n * 1e3
+
+
+def graph_node_costs() -> list:
+    """The device cost of the sweep graph's structure, apart from any
+    app: a ``SweepGraph`` of ``T`` bodies of one small kernel each (as
+    many bodies as gaussian's and gemm's sweeps have), every body firing
+    and none firing (the done flag set), against one plain graph of the
+    same ``T`` kernels; CUDA events over 200 replays."""
+    from repro_torch.kernels import ring
+    out = []
+    i32 = dict(dtype=torch.int32, device="cuda")
+    for n in (14, 152):
+        x = torch.zeros(1024, device="cuda")
+        pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+        bodies = []
+        for _ in range(n):
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.stream(stream):
+                g.capture_begin(pool=pool)
+                x.add_(1)
+                g.capture_end()
+            bodies.append(g)
+        row = dict(bodies=n)
+        for done in (0, 1):
+            guards = ring.SweepGuards(
+                torch.full((n,), 1 << 30, **i32), torch.zeros((n, 0), **i32),
+                torch.zeros(n + 1, **i32), torch.zeros((0, 4), **i32),
+                torch.zeros(0, **i32), torch.zeros(n, **i32),
+                torch.tensor([done, 0], **i32),
+                torch.zeros((n, 1), dtype=torch.bool, device="cuda"),
+                torch.zeros(n, dtype=torch.bool, device="cuda"),
+                torch.zeros(n, **i32))
+            sweep = ring.SweepGraph(guards, [(t, g.raw_cuda_graph())
+                                             for t, g in enumerate(bodies)])
+            row["none_fire_us" if done else "all_fire_us"] = _graph_time_us(
+                lambda: sweep.replay(1))
+            sweep.close()
+        plain = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(plain, stream=stream):
+            for _ in range(n):
+                x.add_(1)
+        row["plain_graph_us"] = _graph_time_us(plain.replay)
+        out.append(row)
+        log(f"breakdown graph nodes: {n} one-kernel bodies, a sweep graph "
+            f"{row['all_fire_us']:.1f} us all firing, {row['none_fire_us']:.1f}"
+            f" us none firing; a plain graph of the {n} kernels "
+            f"{row['plain_graph_us']:.1f} us")
+    return out
+
+
+def breakdown(device_ms: dict) -> dict:
+    """Phase 6: each app at full size, twice more.  Uninstrumented: host
+    ms a sweep two ways (``program_s`` over the sweeps: the sweep loop
+    with its capture and the write-back, as earlier trees measured it;
+    and without the capture).  With CUDA events around every block of
+    replays: the device time spent in the sweep's graphs, over the sweeps
+    and as a share of that run's loop, and a replay's over the blocks of
+    :data:`TIMED_BLOCK` (gaussian's; gemm's and page_rank's runs end in
+    shorter blocks).  Not under the profiler: on this card it does not
+    report the kernels inside the graph's conditional nodes faithfully
+    (it both drops and adds records), so the kernels' device times a
+    launch come from phase 3 (``device_ms``: eager launches at the main
+    path's shapes, each held against the kernel's launch counter)."""
     from repro_torch import ENGINES
     from repro_torch.apps import APPS
-    out, kern = {}, {}
+    out = {}
     for name, kw in FULL.items():
         t0 = time.perf_counter()
         top, args, _ = APPS[name].build_step(device="cuda", **kw)
         build_s = time.perf_counter() - t0
         eng = ENGINES["compiled"](device="cuda")
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            rep = eng.run(top, *args)
-            torch.cuda.synchronize()
-        if not rep.ok:
-            raise AssertionError(f"{name}: profiled run failed: {rep.error}")
-        busy_us, per = _device_us(prof)
-        for k, (n, t) in per.items():
-            kn, kt = kern.get(k, (0, 0.0))
-            kern[k] = (kn + n, kt + t)
-        busy = busy_us / 1e6 / eng.program_s if busy_us else None
+        if not eng.run(top, *args).ok:
+            raise AssertionError(f"{name}: the run failed")
+        sweeps, loop_s = eng.n_sweeps, eng.program_s - eng.capture_s
+        top, args, _ = APPS[name].build_step(device="cuda", **kw)
+        timed = ENGINES["compiled"](device="cuda")
+        with _TimedReplays() as tr:
+            if not timed.run(top, *args).ok:
+                raise AssertionError(f"{name}: the timed run failed")
+        graph_s, full_s, full_replays = tr.device_s()
+        per_replay = full_s / full_replays * 1e6 if full_replays else None
+        timed_loop_s = timed.program_s - timed.capture_s
         out[name] = dict(build_s=build_s, lower_s=eng.lower_s,
-                         program_s=eng.program_s, sweeps=eng.n_sweeps,
-                         host_ms_per_sweep=eng.program_s / eng.n_sweeps * 1e3,
-                         device_busy_s=busy_us / 1e6,
-                         device_busy_share=busy, ring_device_us={
-                             k: (t / n if n else None)
-                             for k, (n, t) in per.items()})
+                         program_s=eng.program_s, capture_s=eng.capture_s,
+                         sweeps=sweeps, replays=eng.n_replays,
+                         blocks=eng.n_blocks, host_syncs=eng.n_host_syncs,
+                         host_ms_per_sweep=eng.program_s / sweeps * 1e3,
+                         host_ms_per_sweep_uncaptured=loop_s / sweeps * 1e3,
+                         graph_device_s=graph_s,
+                         graph_us_per_sweep=graph_s / sweeps * 1e6,
+                         graph_share_of_loop=graph_s / timed_loop_s,
+                         graph_us_per_replay_in_blocks_of_64=per_replay,
+                         replays_in_blocks_of_64=full_replays,
+                         timed_program_s=timed.program_s,
+                         timed_capture_s=timed.capture_s,
+                         kernel_device_us={
+                             k: v * 1e3 for k, v in device_ms.items()})
         log(f"breakdown {name}: build {build_s:.3f} s, lower {eng.lower_s:.3f}"
-            f" s, sweep loop {eng.program_s:.3f} s ({eng.n_sweeps} sweeps, "
-            f"{eng.program_s / eng.n_sweeps * 1e3:.3f} ms each), device busy "
-            + (f"{busy_us / 1e6:.3f} s = {busy:.1%} of the loop"
-               if busy is not None else "not measured (profiler saw none)"))
-    dev_ms = {k: t / n / 1e3 for k, (n, t) in kern.items() if n}
-    log("breakdown ring kernels, mean device time per launch: "
-        + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in dev_ms.items()))
-    return out, dev_ms
+            f" s, sweep loop {eng.program_s:.3f} s ({sweeps} sweeps, "
+            f"{eng.program_s / sweeps * 1e3:.3f} ms each; capture "
+            f"{eng.capture_s:.3f} s, {loop_s / sweeps * 1e3:.3f} ms a sweep "
+            f"without it; {eng.n_replays} replays, {eng.n_host_syncs} host "
+            f"syncs); device in the sweep's graphs (events a block, another "
+            f"run) {graph_s:.4f} s = {graph_s / sweeps * 1e6:.1f} us a sweep, "
+            f"{graph_s / timed_loop_s:.1%} of its {timed_loop_s:.3f} s loop"
+            + (f"; {per_replay:.1f} us a replay in {full_replays} replays in "
+               f"blocks of {TIMED_BLOCK}" if per_replay is not None else ""))
+    log("breakdown kernels, device time a launch (phase 3): " + ", ".join(
+        f"{k} {v * 1e3:.3f} us" for k, v in device_ms.items()))
+    out["graph_nodes"] = graph_node_costs()
+    return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -1084,6 +1463,32 @@ def _device_times(prof) -> tuple[float, dict]:
     return total, per
 
 
+PROFILE_TRIES = 3            # profiles of one run before a lost record fails
+
+
+def _profiled(run, check, where: str):
+    """``run()`` under ``torch.profiler`` (device activity), then
+    ``check(prof, out)`` on the profile and what ``run`` returned, which
+    raises AssertionError unless the profile shows every launch the run
+    made.  The profiler on the card now and then loses kernel records
+    (one serving wave showed 779 of its 868 flash-decode launches, in the
+    runs of two trees), so a profile that fails the check is taken again
+    on a new run, up to ``PROFILE_TRIES`` in all, and the last failure
+    fails.  Returns ``(prof, out, check's result)``."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        try:
+            return prof, out, check(prof, out)
+        except AssertionError as e:
+            if attempt == PROFILE_TRIES:
+                raise
+            log(f"{where}: {e}; profiling a new run ({attempt} of "
+                f"{PROFILE_TRIES} lost records)")
+
+
 def _check_flash_route(kern: dict, launches: int, where: str) -> None:
     """Raise unless the profile shows every one of ``launches`` bf16 flash
     launches as the tensor-core kernel and no float32 FMA kernel."""
@@ -1174,25 +1579,32 @@ def _decode_loop(adapter, wave: list, steps: int = 32) -> dict:
 def serving_breakdown(eng, reqs, stats) -> dict:
     """Phase 10: the first wave of requests again under the profiler
     (device activity only), then the decode step alone on that wave."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.serve import serve_requests
     wave = reqs[:SERVE["slots"]]
-    stats.reset()
-    reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
+        stats.reset()
+        reset_launches()
         t0 = time.perf_counter()
         res = serve_requests(eng, wave)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    counts = launch_counts()
-    if any(len(res[r.rid]) != SERVE["max_new"] for r in wave):
-        raise AssertionError("profiled wave: a request is short of tokens")
-    busy_us, kern = _device_times(prof)
-    _check_flash_route(kern, counts.get("flash_attention", 0),
-                       "breakdown serve")
-    _check_decode_route(kern, counts.get("decode_attention", 0),
-                        "breakdown serve")
+        if any(len(res[r.rid]) != SERVE["max_new"] for r in wave):
+            raise AssertionError("profiled wave: a request is short of "
+                                 "tokens")
+        return wall, launch_counts()
+
+    def check(prof, out):
+        counts = out[1]
+        busy_us, kern = _device_times(prof)
+        _check_flash_route(kern, counts.get("flash_attention", 0),
+                           "breakdown serve")
+        _check_decode_route(kern, counts.get("decode_attention", 0),
+                            "breakdown serve")
+        return busy_us, kern
+
+    _, (wall, _), (busy_us, kern) = _profiled(run, check, "breakdown serve")
     dev_ms = {op: t / n / 1e3 for op, (n, t) in kern.items() if n}
     n_call, s_call = dict(stats.n), dict(stats.s)
     loop = _decode_loop(eng.batched, wave)
@@ -1620,7 +2032,6 @@ def qwen_train_phase() -> dict:
     """Phase 13: Qwen3-0.6B at full width, ``make_train_step`` with the
     flash kernel forward and its autograd backward; then one step under
     the profiler."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
@@ -1661,16 +2072,23 @@ def qwen_train_phase() -> dict:
     # flash launch must be the tensor-core kernel; flash's device time
     batch = {k: torch.from_numpy(v).to(DEV)
              for k, v in data.next_batch().items()}
-    reset_launches()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
+        nonlocal params, state
+        reset_launches()
         t0 = time.perf_counter()
         params, state, _ = step_fn(params, state, batch)
         torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    busy_us, kern = _device_times(prof)
-    _check_flash_route(kern, launch_counts().get("flash_attention", 0),
-                       f"train {ARCH}")
+        return time.perf_counter() - t0
+
+    def check(prof, _):
+        busy_us, kern = _device_times(prof)
+        _check_flash_route(kern, launch_counts().get("flash_attention", 0),
+                           f"train {ARCH}")
+        return busy_us, kern
+
+    _, prof_s, (busy_us, kern) = _profiled(run, check, f"train {ARCH}")
     n_flash, flash_us = kern["flash_attention"]
     del params, state
     torch.cuda.empty_cache()
@@ -1762,7 +2180,6 @@ def train_breakdown() -> dict:
     device time per launch and share, the top device operations; then the
     backward's recompute (``ssd_chunked`` in torch ops, forward and
     backward) alone at one layer's shape, times the layers."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data import make_pipeline
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
@@ -1786,25 +2203,31 @@ def train_breakdown() -> dict:
         params, state, _ = step_fn(params, state, b)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / 2
-    reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def run():
+        nonlocal params, state
+        reset_launches()
         params, state, _ = step_fn(params, state, batches[3])
-        torch.cuda.synchronize()
-    launches = launch_counts().get("ssd_scan", 0)
-    total, ssd_us, ssd_n, ops = 0.0, 0.0, 0, []
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        total += us
-        if any(nm in e.key for nm in SSD_KERNELS):
-            ssd_us += us
-            if SSD_KERNELS[0] in e.key:
-                ssd_n += e.count
-        if us:
-            ops.append((us, e.key, e.count))
-    ops.sort(reverse=True)
-    if launches == 0 or ssd_n != launches:
-        raise AssertionError(f"breakdown train: {launches} SSD launches, the "
-                             f"profiler saw {ssd_n} {SSD_KERNELS[0]}")
+
+    def check(prof, _):
+        launches = launch_counts().get("ssd_scan", 0)
+        total, ssd_us, ssd_n, ops = 0.0, 0.0, 0, []
+        for e in prof.key_averages():
+            us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+            total += us
+            if any(nm in e.key for nm in SSD_KERNELS):
+                ssd_us += us
+                if SSD_KERNELS[0] in e.key:
+                    ssd_n += e.count
+            if us:
+                ops.append((us, e.key, e.count))
+        ops.sort(reverse=True)
+        if launches == 0 or ssd_n != launches:
+            raise AssertionError(f"breakdown train: {launches} SSD launches, "
+                                 f"the profiler saw {ssd_n} {SSD_KERNELS[0]}")
+        return launches, total, ssd_us, ssd_n, ops
+
+    launches, total, ssd_us, ssd_n, ops = _profiled(run, check,
+                                                     "breakdown train")[2]
     del params, state, batches
     torch.cuda.empty_cache()
 
@@ -1951,11 +2374,12 @@ def main() -> int:
         return out
 
     # 3-6: the synthesis path
-    timing, errs, chained = phase("3 kernels", kernel_phase)
+    timing, errs, kernel_checks = phase("3 kernels", kernel_phase)
     per_app, counts = phase("4 main path", main_path)
     full = phase("4 full size vs cpu", full_size_vs_cpu)
     twin = phase("5 twin vs compiled", twin_vs_compiled)
-    brk, dev_ms = phase("6 breakdown", breakdown)
+    dev_ms = {k: timing[k][0]["device_ms"] for k in REPLACES}
+    brk = phase("6 breakdown", breakdown, dev_ms)
 
     # 7-10: the LM serving path
     attn_checks, attn_errs = phase("7 attention checks", check_attention)
@@ -1977,7 +2401,8 @@ def main() -> int:
     train_brk = phase("15 train breakdown", train_breakdown)
 
     kernels = []
-    for name, rows in timing.items():
+    for name in REPLACES:
+        rows = timing[name]
         head = rows[0]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
@@ -1985,8 +2410,7 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
-            device_ms=dev_ms.get(name),
-            shape=head["shape"], by_shape=rows))
+            device_ms=head["device_ms"], shape=head["shape"], by_shape=rows))
     for name, rows in attn_timing.items():
         head = rows[0]
         kernels.append(dict(
@@ -2011,7 +2435,11 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        kernels=kernels, chained_ring_ops=chained, main_path=per_app, full_size_vs_cpu=full,
+        kernels=kernels, kernel_checks=kernel_checks,
+        eval_guards=dict(replaces=REPLACES["sweep_guards"],
+                         max_abs_err=errs["eval_guards"],
+                         timing=timing["eval_guards"]),
+        main_path=per_app, full_size_vs_cpu=full,
         twin_vs_compiled=twin, breakdown=brk, attention_checks=attn_checks,
         serving=serving, serving_breakdown=serve_brk, serve_cli=cli,
         card_vs_cpu=vs_cpu, ssd_checks=ssd_checks, training=training,

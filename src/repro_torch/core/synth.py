@@ -24,10 +24,14 @@ against real blocking streams, so one graph definition is both the
 correctness vehicle and the synthesized program, bit for bit on one
 device.
 
-The program is a sweep loop (:func:`_build_program`).  Each sweep
-evaluates every task's guard at once on the device (the ``eval_guards``
-kernel), copies the fire vector to the host — one synchronisation per
-sweep — and runs each fired task's phase function eagerly, in task order.
+The program is a sweep loop (:class:`_SweepProgram`).  A sweep is one
+launch of the ``sweep_guards`` kernel — every task's phase and guard, the
+predicate of each (task, phase) body, the firing counters, the sweep
+count and the done flag, all on the device — followed by every (task,
+phase) body in task order behind its predicate.  On the card the sweep is
+captured once as a CUDA graph whose bodies sit in conditional nodes, and
+the host replays it in blocks (:data:`SWEEP_BLOCKS`), reading the done
+flag once a block; on the CPU the same sweep runs with Python branches.
 A sweep that fires nothing ends the run as a stall.
 
 Rates and refusals come from a **counting pass**: one firing of every
@@ -43,6 +47,8 @@ refused too: their synthesis is not ported yet.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import inspect
 import time
 from dataclasses import dataclass, field
@@ -60,7 +66,8 @@ from .graph import extract_graph
 from .interface import AsyncMMap, MMap
 from .task import (AutoStream, TaskInstance, bind_streams,
                    builder_stack_depth, join_pending_builders)
-from ..kernels.ring import RingHandle, eval_guards
+from ..kernels.ring import (MAX_SWEEP_CHANNELS, MAX_SWEEP_TASKS, RingHandle,
+                            SweepGraph, SweepGuards, sparse_needs)
 
 # JAX's canonicalization with 64-bit mode off, which the reference
 # package's rings, mmaps and states carry
@@ -111,6 +118,18 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     return fn(tree)
 
 
+def _leaves(tree: Any) -> list:
+    """The leaves of a state pytree in a fixed order (dict entries by
+    key), the order :func:`_tree_map` visits a tuple or list."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=str) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def _as_canon(x: Any, device: Any = None) -> torch.Tensor:
     """One leaf as a tensor of canonical dtype.  ``device=None`` keeps a
     tensor where it is and puts anything else on the CPU."""
@@ -143,6 +162,43 @@ def _leaf_spec(x: Any) -> tuple:
 
 def _meta_like(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, device="meta")
+
+
+def _const_key(t: torch.Tensor) -> tuple:
+    return str(t.dtype), tuple(t.shape), t.numpy().tobytes()
+
+
+def _on_device(x: Any, ctx: "_Ctx", rec: Optional["_Recorder"],
+               inst: TaskInstance) -> torch.Tensor:
+    """``x`` — a token, a stored value or a returned state leaf — as a
+    tensor on the program's device (``ctx.device``).  A tensor already
+    there is returned as it is.  A number, an array or a CPU tensor is a
+    host constant of the phase: the counting pass (``rec``) records it,
+    and the sweep takes the copy the program put on the device before the
+    sweep was captured (a copy from host memory cannot be captured).  A
+    host value the counting pass did not see depends on data, which
+    synthesis cannot lower."""
+    if rec is None and isinstance(x, torch.Tensor) and \
+            x.get_device() == ctx.dev:
+        return x
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            return x.to(ctx.device)
+        host = x
+    else:
+        host = _as_canon(x)
+    key = _const_key(host)
+    if rec is not None:
+        rec.consts[key] = host
+        return host.to(ctx.device)
+    t = ctx.consts.get(key)
+    if t is None:
+        raise SynthesisError(
+            f"task {inst.name!r} used a host value {host.dtype}"
+            f"{tuple(host.shape)} that its counting pass never saw: a "
+            f"value computed on the host from data cannot be synthesized; "
+            f"compute it on the device")
+    return t
 
 
 def dynamic_slice(x: torch.Tensor, start: Any, n: int,
@@ -306,13 +362,20 @@ def _twin_view(v: Any, streams: Optional[list] = None) -> Any:
 class _Ctx:
     """The device (or meta) state a firing reads and updates in place:
     ``chans`` maps a channel index to its ring's :class:`RingHandle`,
-    ``mmaps`` an mmap index to its tensor."""
+    ``mmaps`` an mmap index to its tensor, ``consts`` a host constant's
+    key to its copy on ``device`` (:func:`_on_device`)."""
 
-    __slots__ = ("chans", "mmaps")
+    __slots__ = ("chans", "mmaps", "consts", "device", "dev")
 
-    def __init__(self, chans: dict, mmaps: dict):
+    def __init__(self, chans: dict, mmaps: dict, device: Any,
+                 consts: Optional[dict] = None):
         self.chans = chans
         self.mmaps = mmaps
+        self.consts = consts if consts is not None else {}
+        self.device = torch.device(device)
+        self.dev = -1 if self.device.type != "cuda" else \
+            self.device.index if self.device.index is not None else \
+            torch.cuda.current_device()
 
 
 class _Recorder:
@@ -329,6 +392,9 @@ class _Recorder:
         self.mmap_stores: dict[int, int] = {}
         self.mmap_load_ops: dict[int, int] = {}  # transfer counts
         self.mmap_store_ops: dict[int, int] = {}
+        self.consts: dict = {}      # host constants (_on_device)
+        self.pops = 0               # ring ops of one firing that move
+        self.pushes = 0             # tokens: one kernel launch each
 
 
 class _SynthStream:
@@ -341,7 +407,7 @@ class _SynthStream:
     state spec), so there it only moves tokens; the handle still checks
     what the kernel's memory safety needs."""
 
-    __slots__ = ("_ring", "_ci", "_chan", "_inst", "_rec", "_dev")
+    __slots__ = ("_ring", "_ci", "_chan", "_inst", "_rec", "_ctx")
 
     def __init__(self, ctx: _Ctx, ci: int, chan: Channel,
                  inst: TaskInstance, rec: Optional[_Recorder]):
@@ -350,7 +416,7 @@ class _SynthStream:
         self._chan = chan
         self._inst = inst
         self._rec = rec
-        self._dev = self._ring.buf.get_device()
+        self._ctx = ctx
 
     # -- reads ---------------------------------------------------------------
     def read(self):
@@ -415,13 +481,8 @@ class _SynthStream:
 
     # -- helpers -------------------------------------------------------------
     def _on_ring(self, x: Any) -> torch.Tensor:
-        """``x`` as a tensor on the ring's device (a number or array is
-        canonicalized first)."""
-        if not isinstance(x, torch.Tensor):
-            x = _as_canon(x)
-        if x.get_device() != self._dev or self._rec is not None:
-            x = x.to(self._ring.buf.device)     # the counting pass: meta
-        return x
+        """``x`` as a tensor on the ring's device (:func:`_on_device`)."""
+        return _on_device(x, self._ctx, self._rec, self._inst)
 
     def _static(self, n: Any, op: str) -> int:
         if not isinstance(n, (int, np.integer)):
@@ -452,10 +513,12 @@ class _SynthStream:
         if op == "read":
             c._bind("consumer", self._inst)
             total = rec.reads[self._ci] = rec.reads.get(self._ci, 0) + n
+            rec.pops += n > 0
             verb, prep = "reads", "from"
         else:
             c._bind("producer", self._inst)
             total = rec.writes[self._ci] = rec.writes.get(self._ci, 0) + n
+            rec.pushes += n > 0
             verb, prep = "writes", "to"
         if total > c.capacity:
             raise SynthesisError(
@@ -469,7 +532,7 @@ class _SynthMMap:
     in place.  Loads and stores may take tensor indices: a burst from a
     device-scalar ``start`` stays on the device."""
 
-    __slots__ = ("_t", "_mi", "_mmap", "_inst", "_rec")
+    __slots__ = ("_t", "_mi", "_mmap", "_inst", "_rec", "_ctx")
 
     def __init__(self, ctx: _Ctx, mi: int, mmap: MMap,
                  inst: TaskInstance, rec: Optional[_Recorder]):
@@ -478,6 +541,7 @@ class _SynthMMap:
         self._mmap = mmap
         self._inst = inst
         self._rec = rec
+        self._ctx = ctx
 
     @property
     def shape(self) -> tuple:
@@ -496,7 +560,8 @@ class _SynthMMap:
         return v
 
     def __setitem__(self, idx, value) -> None:
-        value = _as_canon(value, self._t.device)
+        value = _as_canon(_on_device(value, self._ctx, self._rec,
+                                     self._inst))
         self._account("write", value)
         self._t[idx] = value
 
@@ -511,7 +576,8 @@ class _SynthMMap:
         return out
 
     def write_burst(self, start, seq) -> None:
-        seq = _as_canon(seq, self._t.device).to(self._t.dtype)
+        seq = _on_device(seq, self._ctx, self._rec, self._inst) \
+            .to(self._t.dtype)
         self._account("write", seq)
         n, size = int(seq.shape[0]), self._t.shape[0]
         if isinstance(start, torch.Tensor):
@@ -570,6 +636,8 @@ class _PhasePlan:
     mmap_stores: dict = field(default_factory=dict)
     mmap_load_ops: dict = field(default_factory=dict)  # mi -> transfers
     mmap_store_ops: dict = field(default_factory=dict)
+    pops: int = 0               # ring pops / pushes of one firing that move
+    pushes: int = 0             # tokens (a kernel launch each on the card)
 
 
 @dataclass
@@ -603,6 +671,7 @@ class _Plan:
         self.mmaps: list[MMap] = []
         self._mmap_idx: dict[int, int] = {}
         self.tasks: list[_TaskPlan] = []
+        self.consts: dict = {}      # the phases' host constants, on the CPU
 
     def chan_index(self, c: Channel) -> int:
         i = self._chan_idx.get(id(c))
@@ -679,7 +748,7 @@ def _meta_ctx(plan: _Plan, tp: _TaskPlan) -> _Ctx:
                              dtype=_torch_dtype(plan.mmaps[mi].dtype),
                              device="meta")
              for mi in tp.mmap_ids}
-    return _Ctx(chans, mmaps)
+    return _Ctx(chans, mmaps, "meta")
 
 
 def _count_phase(plan: _Plan, tp: _TaskPlan, label: str, fn: Callable,
@@ -687,7 +756,8 @@ def _count_phase(plan: _Plan, tp: _TaskPlan, label: str, fn: Callable,
     """One firing of ``fn`` on meta tensors: records the phase's I/O rates
     and refuses what synthesis cannot lower."""
     rec = _Recorder(tp.inst, label)
-    args, kw = _bind_views(plan, tp, _meta_ctx(plan, tp), rec)
+    ctx = _meta_ctx(plan, tp)
+    args, kw = _bind_views(plan, tp, ctx, rec)
     state = _tree_map(_meta_like, tp.state0)
     try:
         out_state = fn(state, *args, **kw)
@@ -705,11 +775,15 @@ def _count_phase(plan: _Plan, tp: _TaskPlan, label: str, fn: Callable,
             f"task {tp.inst.name!r}: phase {label!r} changed the state "
             f"spec from {want} to {got}; step state must be shape- and "
             f"dtype-stable across firings")
+    for x in _leaves(out_state):        # host leaves are constants too
+        _on_device(x, ctx, rec, tp.inst)
+    plan.consts.update(rec.consts)
     return _PhasePlan(label=label, fn=fn, count=count, reads=rec.reads,
                       writes=rec.writes, mmap_loads=rec.mmap_loads,
                       mmap_stores=rec.mmap_stores,
                       mmap_load_ops=rec.mmap_load_ops,
-                      mmap_store_ops=rec.mmap_store_ops)
+                      mmap_store_ops=rec.mmap_store_ops, pops=rec.pops,
+                      pushes=rec.pushes)
 
 
 # ---------------------------------------------------------------------------
@@ -742,23 +816,158 @@ def _guard_tables(plan: _Plan):
     return need_r_np, need_w_np, bounds_np, n_ph_max
 
 
-def _build_program(plan: _Plan, device: torch.device) -> Callable:
+# Sweeps replayed between two reads of the done flag on the card, one block
+# after another; the last size repeats.  Doubling from 1 keeps what a short
+# run replays past its end below its own sweeps (gemm: 33 sweeps in 63
+# replays, page_rank: 21 in 31), and blocks of 64 keep a long run to one
+# host sync every 64 sweeps (gaussian: 2,057 sweeps in 38 blocks) while
+# what it replays past its end stays under 64 sweeps, each of which only
+# launches the guards and finds every predicate false.  Fixed here, not by
+# the caller: the results do not depend on it.
+SWEEP_BLOCKS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def _block_sizes():
+    yield from SWEEP_BLOCKS
+    while True:
+        yield SWEEP_BLOCKS[-1]
+
+
+@contextlib.contextmanager
+def _if_node(pred: torch.Tensor, capture: Optional["_Capture"] = None,
+             key: tuple = ()):
+    """A conditional node of the sweep; yields whether to run its body.
+
+    On the card (``capture`` given) the block is captured as the body of
+    the conditional node of ``key`` = (task, phase), which a replay runs
+    only where ``pred`` is true, and this yields True.  On the CPU it
+    yields ``bool(pred)``, and the caller's ``if`` is the branch: the CPU
+    runs the structure the card captures."""
+    if capture is None:
+        yield bool(pred)
+        return
+    with capture.body(key):
+        yield True
+
+
+def _require_conditional_nodes() -> None:
+    ver = tuple(int(v) for v in (torch.version.cuda or "0.0").split(".")[:2])
+    if ver < (12, 4):
+        raise SynthesisError(
+            f"the captured sweep needs CUDA-graph conditional nodes, CUDA "
+            f">= 12.4; this is torch {torch.__version__} built with CUDA "
+            f"{torch.version.cuda}")
+
+
+class _Capture:
+    """Captures the (task, phase) bodies of one sweep on the card, each
+    into its own CUDA graph (``torch.cuda.CUDAGraph(keep_graph=True)``,
+    on a side stream), all in one memory pool: a body's temporaries are
+    dead when it ends, and the sweep runs the bodies one after another,
+    so they may share memory.  ``graphs`` holds ``(row, graph)`` with
+    ``row = t * P + p``."""
+
+    def __init__(self, plan: _Plan, device: torch.device, mode: str,
+                 n_ph: int):
+        self.plan, self.mode, self.n_ph = plan, mode, n_ph
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.graphs: list = []
+
+    @contextlib.contextmanager
+    def body(self, key: tuple):
+        ti, pi = key
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode=self.mode)
+            try:
+                yield
+            except BaseException:
+                with contextlib.suppress(RuntimeError):   # already invalid
+                    graph.capture_end()
+                raise
+            try:
+                graph.capture_end()
+            except RuntimeError as e:
+                tp = self.plan.tasks[ti]
+                raise SynthesisError(
+                    f"task {tp.inst.name!r}: phase {tp.phases[pi].label!r} "
+                    f"failed to capture into the sweep's CUDA graph: "
+                    f"{e}") from e
+        self.graphs.append((ti * self.n_ph + pi, graph))
+
+
+class _Carry:
+    """Everything a sweep reads and updates in place, on one device, so
+    that a captured sweep replays on it: the rings (``rings``: channel
+    index -> :class:`RingHandle` over its buffer and its ``heads``/
+    ``sizes`` entries), ``maxocc``, the firing counters ``fires`` and the
+    sweep state ``state`` (int32: done, sweeps), each task's state in
+    static buffers (``states``; a firing copies its returned state into
+    them) and the mmaps.  ``run``/``fire``/``phase`` are the guards'
+    outputs for the sweep in progress, not carried across sweeps."""
+
+    def __init__(self, plan: _Plan, device: torch.device, states0: tuple,
+                 mmaps0: tuple, n_ph: int):
+        n_chans, n_tasks = len(plan.channels), len(plan.tasks)
+        zeros = functools.partial(torch.zeros, dtype=torch.int32,
+                                  device=device)
+        self.heads, self.sizes, self.maxocc = (zeros(n_chans)
+                                               for _ in range(3))
+        self.fires, self.state, self.phase = zeros(n_tasks), zeros(2), \
+            zeros(n_tasks)
+        self.run = torch.zeros((n_tasks, n_ph), dtype=torch.bool,
+                               device=device)
+        self.fire = torch.zeros(n_tasks, dtype=torch.bool, device=device)
+        self.rings = {ci: RingHandle(torch.zeros((c.capacity,) + c.shape,
+                                                 dtype=_torch_dtype(c.dtype),
+                                                 device=device),
+                                     self.heads[ci], self.sizes[ci])
+                      for ci, c in enumerate(plan.channels)}
+        self.states = list(states0)
+        self.mmaps = list(mmaps0)
+        self.ctx = _Ctx(self.rings, dict(enumerate(self.mmaps)), device,
+                        {k: v.to(device) for k, v in plan.consts.items()})
+
+    def tensors(self) -> list:
+        """Every carried tensor."""
+        return [r.buf for r in self.rings.values()] + [
+            self.heads, self.sizes, self.maxocc, self.fires, self.state] + \
+            [x for st in self.states for x in _leaves(st)] + self.mmaps
+
+
+class _SweepProgram:
     """The whole graph as one sweep loop on ``device``.
 
     ``program(states0, mmaps0)`` runs the graph to completion (or to a
     stall) and returns ``(mmaps, fires, sweeps, maxocc, sizes)``.  One
-    sweep gives every task instance one guarded chance to fire:
+    sweep (:meth:`_sweep`) gives every task instance one guarded chance to
+    fire:
 
-    1. the phase and live vectors follow from the host's firing counters;
-    2. ``eval_guards`` computes every task's fire predicate on the device
-       from the start-of-sweep occupancy vector;
-    3. the fire vector comes back to the host — one synchronisation per
-       sweep;
-    4. each fired task runs its phase eagerly, in task order; its stream
-       views launch ``ring_pop``/``ring_push`` on the device rings, each
-       ring's launch path prepared once (:class:`RingHandle`);
-    5. the occupancy highwater marks are sampled after every firing (a
-       sweep-boundary sample would always see drained FIFOs).
+    1. one ``sweep_guards`` launch (:class:`SweepGuards`) derives every
+       task's phase and liveness from the firing counters, evaluates every
+       guard from the start-of-sweep occupancy vector over sparse need
+       tables, writes the predicate ``run[t, p]`` of each (task, phase),
+       commits ``fires += fire``, counts the sweep and sets the done flag;
+    2. each (task, phase) body runs in task order behind its predicate
+       (:func:`_if_node`): the phase function through the task's stream
+       and mmap views, bound once (ring ops and mmap stores update the
+       device tensors in place), its returned state copied into the task's
+       static state buffers, and the occupancy highwater marks sampled
+       after the firing (a sweep-boundary sample would always see drained
+       FIFOs).
+
+    On the card the sweep is one CUDA graph (:class:`SweepGraph`): the
+    guards kernel, then one conditional node a (task, phase) whose body is
+    that body's captured graph (:class:`_Capture`); the kernel sets the
+    condition of the phase that fires.  The host replays it in blocks of
+    :data:`SWEEP_BLOCKS` with no sync inside a block, reads the done flag
+    once a block (one copy into pinned memory) and everything else once
+    at the end.  A body
+    that cannot be captured raises :class:`SynthesisError` naming its task
+    and phase; nothing falls back to an eager loop.  On the CPU the same
+    sweep runs eagerly, its predicates as Python branches.  A replay after
+    the done flag is set changes no carried tensor.
 
     Evaluating every guard at sweep start is sound because each channel
     has one producer and one consumer: a consumer's available tokens only
@@ -767,69 +976,167 @@ def _build_program(plan: _Plan, device: torch.device) -> Callable:
     task's effects apply in task order.  The loop ends when every task
     has spent its firing budget, or after a sweep that fired nothing (the
     compiled analogue of the engines' deadlock detection).
+
+    After a run: ``capture_s`` (host seconds capturing, 0 on the CPU),
+    ``n_replays`` (sweeps replayed, those past the end included),
+    ``n_blocks`` and ``n_host_syncs`` (one a block and one final read).
+    On the card the ring kernels count their own launches, replayed ones
+    included (:mod:`..kernels.dispatch`).
     """
-    caps = [c.capacity for c in plan.channels]
-    totals = np.asarray([tp.total for tp in plan.tasks], np.int64)
-    n_chans = len(plan.channels)
-    n_tasks = len(plan.tasks)
-    need_r_np, need_w_np, bounds_np, n_ph_max = _guard_tables(plan)
-    rows = np.arange(n_tasks)
 
-    def program(states0: tuple, mmaps0: tuple):
-        dev = device
-        heads = torch.zeros(n_chans, dtype=torch.int32, device=dev)
-        sizes = torch.zeros(n_chans, dtype=torch.int32, device=dev)
-        maxocc = torch.zeros(n_chans, dtype=torch.int32, device=dev)
-        caps_t = torch.tensor(caps, dtype=torch.int32, device=dev)
-        chans = {ci: RingHandle(torch.zeros((c.capacity,) + c.shape,
-                                            dtype=_torch_dtype(c.dtype),
-                                            device=dev),
-                                heads[ci], sizes[ci])
-                 for ci, c in enumerate(plan.channels)}
-        mmaps = list(mmaps0)
-        ctx = _Ctx(chans, dict(enumerate(mmaps)))
-        # ring ops and mmap stores update the device tensors in place, so
-        # each task's views are bound once for the whole run
-        views = [_bind_views(plan, tp, ctx, None) for tp in plan.tasks]
-        states = list(states0)
-        fires = np.zeros(n_tasks, np.int64)
-        sweeps = 0
-        guard_key = None
-        while True:
-            live = fires < totals
-            if not live.any():
-                break
-            if n_ph_max > 1:
-                phase_vec = np.sum(fires[:, None] >= bounds_np, axis=1)
-            else:
-                phase_vec = np.zeros(n_tasks, np.int64)
-            if n_chans:
-                key = (phase_vec.tobytes(), live.tobytes())
-                if key != guard_key:    # phases and budgets change rarely
-                    guard_key = key
-                    nr = torch.from_numpy(need_r_np[rows, phase_vec]).to(dev)
-                    nw = torch.from_numpy(need_w_np[rows, phase_vec]).to(dev)
-                    live_t = torch.from_numpy(live).to(dev)
-                fire = eval_guards(sizes, caps_t, nr, nw, live_t)
-                fire = fire.cpu().numpy()       # the sweep's one sync
-            else:
-                fire = live
-            sweeps += 1
-            for ti in np.flatnonzero(fire):
-                tp = plan.tasks[ti]
-                args, kw = views[ti]
-                fn = tp.phases[phase_vec[ti]].fn
-                states[ti] = fn(states[ti], *args, **kw)
-                if tp.chan_ids:
-                    # only this task's channels moved since the last
-                    # sample, so a whole-vector max is the per-channel max
-                    torch.maximum(maxocc, sizes, out=maxocc)
-            fires += fire
-            if not fire.any():
-                break
-        return tuple(mmaps), fires, sweeps, maxocc, sizes
+    def __init__(self, plan: _Plan, device: torch.device):
+        self.plan, self.device = plan, device
+        need_r, need_w, bounds, self.n_ph = _guard_tables(plan)
+        caps = [c.capacity for c in plan.channels]
+        n_tasks = len(plan.tasks)
+        if device.type == "cuda" and (n_tasks > MAX_SWEEP_TASKS or len(
+                plan.channels) > MAX_SWEEP_CHANNELS):
+            raise SynthesisError(
+                f"graph has {n_tasks} task instances and "
+                f"{len(plan.channels)} channels; the captured sweep's guards "
+                f"run one block of one thread a task, at most "
+                f"{MAX_SWEEP_TASKS} tasks over {MAX_SWEEP_CHANNELS} channels")
+        if bounds is None:
+            bounds = np.zeros((n_tasks, 0), np.int32)
+        row_ptr, entries = sparse_needs(need_r, need_w, caps)
+        totals = np.asarray([tp.total for tp in plan.tasks], np.int32)
+        self._tables = [torch.from_numpy(a).to(device)
+                        for a in (totals, bounds, row_ptr, entries)]
+        self.carry: Optional[_Carry] = None
+        self.capture_s = 0.0
+        self.n_replays = self.n_blocks = self.n_host_syncs = 0
+        self._graph = self._flag = None
 
-    return program
+    def __call__(self, states0: tuple, mmaps0: tuple):
+        c = self.carry = _Carry(self.plan, self.device, states0, mmaps0,
+                                self.n_ph)
+        self._guards = SweepGuards(*self._tables, c.sizes, c.fires, c.state,
+                                   c.run, c.fire, c.phase)
+        self._views = [_bind_views(self.plan, tp, c.ctx, None)
+                       for tp in self.plan.tasks]
+        self._bodies = [(ti, pi, c.run[ti, pi])
+                        for ti, tp in enumerate(self.plan.tasks)
+                        for pi in range(len(tp.phases))]
+        self._own = [{x.untyped_storage().data_ptr() for x in _leaves(st)}
+                     for st in c.states]
+        if self.device.type == "cuda":
+            self._flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+            self._build_graph()
+        try:
+            for k in _block_sizes():
+                self.block(k)
+                if self._done():
+                    break
+            out = self._read()
+        except BaseException:
+            if self._graph is not None:     # no replay may outlive its graph
+                torch.cuda.synchronize(self.device)
+            raise
+        finally:
+            if self._graph is not None:
+                self._graph.close()
+        return out
+
+    def block(self, k: int) -> None:
+        """``k`` sweeps back to back, with no sync between them."""
+        if self._graph is not None:
+            self._graph.replay(k)
+        else:
+            for _ in range(k):
+                self._sweep()
+        self.n_replays += k
+        self.n_blocks += 1
+
+    def _sweep(self, capture: Optional[_Capture] = None) -> None:
+        """One sweep; on the card (``capture``) it captures the bodies,
+        and the guards are the graph's first node."""
+        if capture is None:
+            self._guards()
+        for ti, pi, pred in self._bodies:
+            with _if_node(pred, capture, (ti, pi)) as taken:
+                if taken:
+                    self._fire(ti, pi, capture is not None)
+
+    def _fire(self, ti: int, pi: int, capturing: bool) -> None:
+        tp, c = self.plan.tasks[ti], self.carry
+        args, kw = self._views[ti]
+        try:
+            out = tp.phases[pi].fn(c.states[ti], *args, **kw)
+            self._store(ti, out)
+        except SynthesisError:
+            raise
+        except Exception as e:
+            if not capturing:
+                raise
+            raise SynthesisError(
+                f"task {tp.inst.name!r}: phase {tp.phases[pi].label!r} "
+                f"cannot be captured into the sweep's CUDA graph "
+                f"({type(e).__name__}: {e}); a phase body must not read a "
+                f"device value on the host (.item(), .cpu(), a Python "
+                f"branch on a tensor)") from e
+        if tp.chan_ids:
+            # only this task's channels moved since the last sample, so a
+            # whole-vector max is the per-channel max
+            torch.maximum(c.maxocc, c.sizes, out=c.maxocc)
+
+    def _store(self, ti: int, out: Any) -> None:
+        """Copy a firing's returned state into the task's static buffers;
+        a returned leaf that is another buffer of the same state is
+        copied aside first (a state may swap its parts)."""
+        c = self.carry
+        pairs = []
+        for dst, src in zip(_leaves(c.states[ti]), _leaves(out)):
+            if src is dst:
+                continue
+            src = _on_device(src, c.ctx, None, self.plan.tasks[ti].inst)
+            if src.untyped_storage().data_ptr() in self._own[ti]:
+                src = src.clone()
+            pairs.append((dst, src))
+        for dst, src in pairs:
+            dst.copy_(src)
+
+    def _build_graph(self) -> None:
+        """Capture the sweep's bodies and build its graph.  A first
+        capture in relaxed mode is thrown away: it warms up what a body's
+        first call does beside the stream (cuBLAS handles and workspaces,
+        allocator growth, kernel loading) without running anything; the
+        second is the one the graph holds."""
+        _require_conditional_nodes()
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(self.device)
+        for mode in ("relaxed", "global"):
+            capture = _Capture(self.plan, self.device, mode, self.n_ph)
+            self._sweep(capture)
+        self._graph = SweepGraph(self._guards, [(row, g.raw_cuda_graph())
+                                                for row, g in capture.graphs])
+        self.capture_s = time.perf_counter() - t0
+
+    def _done(self) -> bool:
+        """One read of the done flag: on the card, one copy into pinned
+        memory and one sync."""
+        self.n_host_syncs += 1
+        flag = self.carry.state[:1]
+        if self._flag is not None:
+            self._flag.copy_(flag, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            flag = self._flag
+        return bool(flag[0])
+
+    def _read(self) -> tuple:
+        """The run's results in one read: ``(mmaps, fires, sweeps, maxocc,
+        sizes)``, all but the mmaps on the host."""
+        c = self.carry
+        vec = torch.cat([c.fires, c.state, c.maxocc, c.sizes])
+        if self._flag is not None:
+            host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+            host.copy_(vec, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            vec = host
+        self.n_host_syncs += 1
+        t, n = len(c.fires), len(c.sizes)
+        fires = vec[:t].numpy().astype(np.int64)
+        return (tuple(c.mmaps), fires, int(vec[t + 1]),
+                vec[t + 2:t + 2 + n], vec[t + 2 + n:])
 
 
 # ---------------------------------------------------------------------------
@@ -864,11 +1171,19 @@ class CompiledEngine(EngineBase):
         self.device = resolve_device(device)
         self._cur: Optional[TaskInstance] = None
         # post-run introspection: sweeps, and host seconds spent in the
-        # wiring + counting pass (lower_s) and in the sweep loop with the
-        # write-back (program_s)
+        # wiring + counting pass (lower_s) and in the sweep loop with its
+        # capture and the write-back (program_s); of the sweep loop
+        # (_SweepProgram): the capture's host seconds (capture_s, 0 on the
+        # CPU), sweeps replayed (n_replays, those past the end included),
+        # blocks and host syncs (n_host_syncs: one a block and one final
+        # read); the ring pops and pushes the firings made (ring_ops: on the
+        # card, the kernel launches the run should count)
         self.n_sweeps = 0
         self.lower_s = 0.0
         self.program_s = 0.0
+        self.capture_s = 0.0
+        self.n_replays = self.n_blocks = self.n_host_syncs = 0
+        self.ring_ops: dict = {}
 
     # -- runtime protocol: any live stream op means "not step form" ----------
     def _refuse(self, op: str):
@@ -1032,8 +1347,11 @@ class CompiledEngine(EngineBase):
                             for tp in plan.tasks)
             mmaps0 = tuple(_as_canon(m.data, self.device).clone()
                            for m in plan.mmaps)
-            program = _build_program(plan, self.device)
+            program = _SweepProgram(plan, self.device)
             mm_final, fires, sweeps, maxocc, sizes = program(states0, mmaps0)
+            self.capture_s = program.capture_s
+            self.n_replays, self.n_blocks, self.n_host_syncs = \
+                program.n_replays, program.n_blocks, program.n_host_syncs
             rep = self._finish(plan, mm_final, fires, sweeps, maxocc, sizes,
                                result, t0)
             self.program_s = time.perf_counter() - t1
@@ -1097,12 +1415,16 @@ class CompiledEngine(EngineBase):
                     maxocc: np.ndarray) -> None:
         """Reconstruct per-channel token counts and occupancy highwater
         marks from the firing counters — the compiled analogue of the
-        simulators' per-push statistics."""
+        simulators' per-push statistics — and the ring ops the firings
+        made (``ring_ops``)."""
+        ops = {"ring_pop": 0, "ring_push": 0}
         for tp, f in zip(plan.tasks, fires):
             start = 0
             for ph in tp.phases:
                 k = int(np.clip(int(f) - start, 0, ph.count))
                 start += ph.count
+                ops["ring_pop"] += ph.pops * k
+                ops["ring_push"] += ph.pushes * k
                 for ci, r in ph.reads.items():
                     plan.channels[ci].total_read += r * k
                 for ci, w in ph.writes.items():
@@ -1116,6 +1438,7 @@ class CompiledEngine(EngineBase):
                         plan.mmaps[mi].store_elems += n * k
         for c, occ in zip(plan.channels, maxocc):
             c.max_occupancy = int(occ)
+        self.ring_ops = ops
 
 
 def elaborate_step_graph(top: Callable, *args, **kwargs):

@@ -2,17 +2,21 @@
 //
 // CompiledEngine keeps every channel as a ring buffer buf[cap, *elem] on
 // the card, with the channel's head and size as int32 entries of two
-// device vectors (heads[C], sizes[C]).  These three kernels are the whole
-// per-sweep interconnect:
+// device vectors (heads[C], sizes[C]).  The kernels of the interconnect:
 //
-//   ring_pop     toks[i] = buf[(head + i) % cap]; head = (head + n) % cap;
-//                size -= n
-//   ring_push    buf[(head + size + i) % cap] = arr[i]; size += n
-//   eval_guards  fire[t] = live[t] & all_c(need_r[t,c] <= sizes[c])
-//                                   & all_c(need_w[t,c] <= caps[c] - sizes[c])
+//   ring_pop      toks[i] = buf[(head + i) % cap]; head = (head + n) % cap;
+//                 size -= n
+//   ring_push     buf[(head + size + i) % cap] = arr[i]; size += n
+//   sweep_guards  the sweep's control: phase[t], fire[t] = live[t] & the
+//                 guard of t's phase over sparse need tables, run[t, p],
+//                 fires += fire, the sweep count and the done flag
+//   eval_guards   fire[t] = live[t] & all_c(need_r[t,c] <= sizes[c])
+//                                    & all_c(need_w[t,c] <= caps[c] - sizes[c])
 //
 // They replace the Pallas kernels _pop_kernel, _push_kernel and
-// _guard_kernel of the reference package (src/repro/kernels/ring.py).
+// _guard_kernel of the reference package (src/repro/kernels/ring.py):
+// sweep_guards is the guards kernel the sweep loop runs, eval_guards its
+// counterpart of the reference's eval_guards API.
 //
 // Design notes.
 // * head and size are read by the kernel from device memory, never passed
@@ -40,9 +44,39 @@
 // * eval_guards gives one warp to each task row: lanes stride over the
 //   channels and __all_sync reduces.  Integer compares only, so the result
 //   is exact.
+//
+// * Each launch of ring_pop, ring_push or sweep_guards adds one to its entry
+//   of ring_launches, on the device (block 0, thread 0, one atomicAdd):
+//   a launch is counted where it runs, whether the host launched it or a
+//   replayed CUDA graph did.  The host reads the counters
+//   (ring_launch_counters) when it asks for the launch counts.
+//
+// sweep_guards is the guards kernel (_guard_kernel) redesigned as the head
+// of the captured sweep (core/synth.py): one launch does all the control
+// work of a sweep on the device, so the host replays sweeps without
+// reading anything back.  From the firing counters it derives each task's
+// phase (the number of cumulative phase bounds passed) and liveness,
+// evaluates the guard of the current phase, writes the predicate run[t, p]
+// of every (task, phase), commits fires += fire, counts the sweep and sets
+// done when the run is over.  Inside the sweep's CUDA graph
+// (sweep_graph_create) it also sets the condition of the conditional node
+// that holds the body of the phase that fires; a launch of the graph resets
+// every condition to false, so no other node needs a launch of its own.
+// Bound: its launch and its chain of dependent loads.  The work is a few
+// KiB of tables: the dense [T, C] compare of eval_guards becomes sparse
+// tables built once on the host, per (task, phase) only the channels it
+// touches (a gemm task touches 1-8 of 192), each entry one 16-byte load of
+// (channel, need_r, need_w, cap).  One block, one thread a task.  Each
+// thread loads its counter, total, phase bounds and the row offsets of all
+// its phases at once while the block stages the occupancy vector in shared
+// memory, so an entry costs one load from device memory after the phase is
+// known: two round trips in all, as eval_guards' compare.
+// __syncthreads_or gives any(live), any(fire) and any(left).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 // The launch arguments that depend only on the ring, prepared once per
 // ring by the Python wrapper (kernels/ring.py, class _RingLaunch), and the
@@ -60,12 +94,46 @@ struct RingLaunch {
   int word;   // widest copy word dividing row_bytes and buf's address
 };
 
+// One program's sweep-control launch, prepared once by the Python wrapper
+// (kernels/ring.py, class _SweepLaunch) and passed to the kernel by value.
+// T tasks of at most P phases; row r = t * P + p of the sparse tables holds
+// entries[row_ptr[r] .. row_ptr[r + 1]).
+struct SweepLaunch {
+  const int32_t* totals;    // [T] firings of each task
+  const int32_t* bounds;    // [T, P - 1] cumulative phase bounds, padded
+  const int32_t* row_ptr;   // [T * P + 1]
+  const int4* entries;      // [nnz] (channel, need_r, need_w, cap)
+  const int32_t* sizes;     // [C] channel occupancy
+  int32_t* fires;           // [T] firing counters, advanced in place
+  int32_t* state;           // [2] done, sweeps
+  bool* run;                // [T, P] out: the phase that fires
+  bool* fire;               // [T] out
+  int32_t* phase;           // [T] out
+  // [T * P] the conditional handle of each (task, phase) body in the
+  // sweep's graph, 0 where the task has no such phase; null outside it
+  const unsigned long long* handles;
+  void* stream;
+  int T;
+  int P;
+  int C;
+};
+
+// Launches of ring_pop, ring_push and sweep_guards (in that order) since
+// the host last zeroed them.  Outside the anonymous namespace: an extern
+// "C" entry returns its address.
+__device__ unsigned long long ring_launches[3];
+
 namespace {
+
+enum { kPopLaunches, kPushLaunches, kSweepLaunches };
 
 constexpr int kCopyThreads = 512;
 constexpr int kUnroll = 4;
 constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr int kGuardWarps = 4;   // task rows per block
+constexpr int kMaxSweepTasks = 1024;   // one thread a task, one block
+constexpr int kMaxPhases = 4;          // a StepTask has at most 3
+constexpr int kMaxSweepChannels = 12288;   // sizes staged in 48 KiB
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
@@ -125,6 +193,7 @@ ring_pop_kernel(const W* buf, W* out, int32_t* head, int32_t* size, int cap,
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *head = (h + n) % cap;
     *size = s - n;
+    atomicAdd(&ring_launches[kPopLaunches], 1ull);
   }
 }
 
@@ -143,6 +212,7 @@ ring_push_kernel(W* buf, const W* arr, const int32_t* head, int32_t* size,
   cluster_wait();     // every thread of the cluster has read s
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *size = s + n;
+    atomicAdd(&ring_launches[kPushLaunches], 1ull);
   }
 }
 
@@ -200,6 +270,72 @@ __global__ void eval_guards_kernel(const int32_t* __restrict__ sizes,
   }
   ok = __all_sync(0xffffffffu, ok);
   if (lane == 0) fire[t] = live[t] && ok;
+}
+
+// One sweep's control, as the eager loop did it on the host: a sweep that
+// finds no live task ends the run uncounted; a counted sweep that fires
+// nothing ends it; one after which no task has firings left ends it too
+// (the next would find none live).  Once done is set a launch writes
+// all-zero predicates and changes nothing, so replays past the end are
+// harmless.  fires is committed here and not after the task bodies: within
+// a sweep nothing reads it again (each body learns its phase from run).
+__global__ void __launch_bounds__(kMaxSweepTasks)
+sweep_guards_kernel(const SweepLaunch a) {
+  extern __shared__ int32_t occ[];   // sizes[C], staged once a launch
+  const int t = threadIdx.x;
+  const bool task = t < a.T;
+  const int done = a.state[0];   // every thread reads it before the barriers
+  int f = 0, total = 0, b[kMaxPhases - 1], rp[kMaxPhases + 1];
+  if (task) {
+    f = a.fires[t];
+    total = a.totals[t];
+#pragma unroll
+    for (int k = 0; k < kMaxPhases - 1; ++k)
+      b[k] = k < a.P - 1 ? a.bounds[t * (a.P - 1) + k] : 0x7fffffff;
+#pragma unroll
+    for (int k = 0; k <= kMaxPhases; ++k)
+      rp[k] = k <= a.P ? a.row_ptr[t * a.P + k] : 0;
+  }
+  for (int c = t; c < a.C; c += blockDim.x) occ[c] = a.sizes[c];
+  __syncthreads();
+  int ph = 0, lo = 0, hi = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxPhases - 1; ++k) ph += f >= b[k];
+#pragma unroll
+  for (int k = 0; k < kMaxPhases; ++k) {
+    if (k == ph) {
+      lo = rp[k];
+      hi = rp[k + 1];
+    }
+  }
+  const bool live = task && !done && f < total;
+  bool ok = live;
+  if (live) {
+#pragma unroll 4
+    for (int e = lo; e < hi; ++e) {
+      const int4 n = a.entries[e];
+      const int s = occ[n.x];
+      ok &= n.y <= s && n.z <= n.w - s;
+    }
+  }
+  const bool left = task && f + ok < total;
+  if (ok && a.handles) cudaGraphSetConditional(a.handles[t * a.P + ph], 1u);
+  const int any_live = __syncthreads_or(live);
+  const int any_fire = __syncthreads_or(ok);
+  const int any_left = __syncthreads_or(left);
+  if (task) {
+    if (ok) a.fires[t] = f + 1;
+    a.fire[t] = ok;
+    a.phase[t] = ph;
+    for (int p = 0; p < a.P; ++p) a.run[t * a.P + p] = ok && p == ph;
+  }
+  if (t == 0) {
+    atomicAdd(&ring_launches[kSweepLaunches], 1ull);
+    if (!done) {
+      if (any_live) a.state[1] += 1;
+      if (!any_live || !any_fire || !any_left) a.state[0] = 1;
+    }
+  }
 }
 
 }  // namespace
@@ -262,6 +398,123 @@ int eval_guards(const void* sizes, const void* caps, const void* need_r,
       static_cast<const int32_t*>(need_r), static_cast<const int32_t*>(need_w),
       static_cast<const bool*>(live), static_cast<bool*>(fire), T, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+static bool sweep_args_ok(const SweepLaunch* s) {
+  return s->T >= 1 && s->T <= kMaxSweepTasks && s->P >= 1 &&
+         s->P <= kMaxPhases && s->C >= 0 && s->C <= kMaxSweepChannels;
+}
+
+// sweep_guards: `s` is the program's prepared SweepLaunch (its stream the
+// one to launch on); 1 <= T <= 1024, 1 <= P <= 4, 0 <= C <= 12288.
+int sweep_guards(const SweepLaunch* s) {
+  if (!sweep_args_ok(s)) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = (s->T + 31) / 32 * 32;
+  sweep_guards_kernel<<<1, threads, s->C * sizeof(int32_t),
+                        static_cast<cudaStream_t>(s->stream)>>>(*s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sweep_graph_create: one sweep as a CUDA graph, instantiated: the
+// sweep_guards kernel (launch `s`, its handles pointed at `handles`, a
+// device array of T * P) and then, chained in the order given, one
+// conditional IF node for each of the n bodies that holds any node: row
+// rows[i] = t * P + p, body the captured graph bodies[i] (a cudaGraph_t
+// the caller keeps with its memory), added as a child graph.  *out
+// receives the SweepGraph.
+struct SweepGraph {
+  cudaGraph_t graph;
+  cudaGraphExec_t exec;
+};
+
+int sweep_graph_create(const SweepLaunch* s, const int* rows,
+                       void* const* bodies, int n, unsigned long long* handles,
+                       void** out) {
+  *out = nullptr;
+  if (!sweep_args_ok(s) || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  std::vector<unsigned long long> h(static_cast<size_t>(s->T) * s->P, 0);
+  cudaGraph_t g = nullptr;
+  cudaGraphExec_t exec = nullptr;
+  cudaError_t e = cudaGraphCreate(&g, 0);
+  for (int i = 0; e == cudaSuccess && i < n; ++i) {
+    if (rows[i] < 0 || rows[i] >= s->T * s->P) {
+      e = cudaErrorInvalidValue;
+      break;
+    }
+    cudaGraphConditionalHandle c;
+    e = cudaGraphConditionalHandleCreate(&c, g, 0,
+                                         cudaGraphCondAssignDefault);
+    h[rows[i]] = c;
+  }
+  if (e == cudaSuccess)
+    e = cudaMemcpy(handles, h.data(), h.size() * sizeof(h[0]),
+                   cudaMemcpyHostToDevice);
+  SweepLaunch a = *s;
+  a.handles = handles;
+  void* args[] = {&a};
+  cudaGraphNode_t prev = nullptr;
+  if (e == cudaSuccess) {
+    cudaKernelNodeParams kp = {};
+    kp.func = reinterpret_cast<void*>(sweep_guards_kernel);
+    kp.gridDim = dim3(1, 1, 1);
+    kp.blockDim = dim3((s->T + 31) / 32 * 32, 1, 1);
+    kp.sharedMemBytes = s->C * sizeof(int32_t);
+    kp.kernelParams = args;
+    e = cudaGraphAddKernelNode(&prev, g, nullptr, 0, &kp);
+  }
+  for (int i = 0; e == cudaSuccess && i < n; ++i) {
+    size_t body_nodes = 0;
+    e = cudaGraphGetNodes(static_cast<cudaGraph_t>(bodies[i]), nullptr,
+                          &body_nodes);
+    if (e != cudaSuccess || body_nodes == 0) continue;   // nothing to run
+    cudaGraphNodeParams cp = {};
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = h[rows[i]];
+    cp.conditional.type = cudaGraphCondTypeIf;
+    cp.conditional.size = 1;
+    cudaGraphNode_t node, child;
+    e = cudaGraphAddNode(&node, g, &prev, 1, &cp);
+    if (e == cudaSuccess)
+      e = cudaGraphAddChildGraphNode(&child, cp.conditional.phGraph_out[0],
+                                     nullptr, 0,
+                                     static_cast<cudaGraph_t>(bodies[i]));
+    prev = node;
+  }
+  if (e == cudaSuccess) e = cudaGraphInstantiate(&exec, g, 0);
+  if (e != cudaSuccess) {
+    if (g) cudaGraphDestroy(g);
+    cudaGetLastError();   // clear it
+    return static_cast<int>(e);
+  }
+  *out = new SweepGraph{g, exec};
+  return 0;
+}
+
+// k launches of the sweep's graph on `stream`, back to back.
+int sweep_graph_replay(void* sg, void* stream, int k) {
+  const SweepGraph* p = static_cast<SweepGraph*>(sg);
+  for (int i = 0; i < k; ++i) {
+    const cudaError_t e =
+        cudaGraphLaunch(p->exec, static_cast<cudaStream_t>(stream));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+int sweep_graph_destroy(void* sg) {
+  SweepGraph* p = static_cast<SweepGraph*>(sg);
+  cudaError_t e = cudaGraphExecDestroy(p->exec);
+  const cudaError_t e2 = cudaGraphDestroy(p->graph);
+  delete p;
+  return static_cast<int>(e != cudaSuccess ? e : e2);
+}
+
+// ring_launch_counters: *out receives the device address of
+// ring_launches[3] (pop, push, sweep_guards; unsigned 64-bit) on the
+// current device.
+int ring_launch_counters(void** out) {
+  return static_cast<int>(cudaGetSymbolAddress(out, ring_launches));
 }
 
 const char* ring_error_string(int code) {

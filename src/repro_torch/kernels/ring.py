@@ -3,28 +3,37 @@
 ``CompiledEngine`` keeps every channel as a ring buffer ``buf[cap, *elem]``
 on the device, with its head and size as int32 entries of two device
 vectors; ``head``/``size`` arguments below are 0-d int32 tensors (views of
-those entries).  The three ops of the sweep loop:
+those entries).  The ops of the sweep loop:
 
 * :func:`ring_pop` — pop ``n`` tokens from the head, advancing head and
   size in place;
 * :func:`ring_push` — push ``arr[n, *elem]`` at the tail, writing ``buf``
   and advancing size in place;
-* :func:`eval_guards` — every task's fire predicate in one op.
+* :class:`SweepGuards` / :func:`sweep_guards` — a sweep's control in one
+  launch: every task's phase and fire predicate, the predicate of each
+  (task, phase) body, the firing counters, the sweep count and the done
+  flag; the head of the captured sweep (``core/synth.py``);
+* :func:`eval_guards` — every task's fire predicate in one op, the
+  counterpart of the reference's API.
 
 Each has a hand-written CUDA kernel for Hopper (``csrc/ring.cu``, built at
 first use by :mod:`._build`) and, beside it, a plain PyTorch version of
 the same function.  A CUDA tensor launches the kernel; a CPU or meta
-tensor takes the plain version (:mod:`.dispatch`).  All three are exact
+tensor takes the plain version (:mod:`.dispatch`).  All are exact
 integer/copy ops, so kernel and plain version agree bit for bit, and both
 agree with the reference package's ``ring_pop``/``ring_push``/
 ``eval_guards`` (``src/repro/kernels/ring.py``).
 
 A caller that pops and pushes one ring many times (the sweep loop's
 stream views) prepares a :class:`RingHandle` once: it holds everything
-that depends only on the ring, so an op on the card is the output (pop;
-from a slab allocated ahead), one ctypes call of three plain arguments
-and the launch count.  :func:`ring_pop`/:func:`ring_push` build a handle per
-call.
+that depends only on the ring, so an op on the card is the output (pop),
+one ctypes call of three plain arguments and nothing else.
+:func:`ring_pop`/:func:`ring_push` build a handle per call.
+
+``ring_pop``, ``ring_push`` and ``sweep_guards`` count their launches on
+the card (:data:`DEVICE_COUNTED`): each launch adds one to a counter in
+the library's device memory, also where a replayed CUDA graph launches
+it, and :func:`.dispatch.launch_counts` reads the counters.
 
 Source notes, per kernel (the card's bound and what the design does):
 
@@ -37,9 +46,16 @@ Source notes, per kernel (the card's bound and what the design does):
 * ``ring_push`` replaces ``_push_kernel`` (``ring.py:141``).  Same bound
   and design.  It writes in place: the Pallas kernel copies the whole
   ring through only because JAX arrays are immutable.
-* ``eval_guards`` replaces ``_guard_kernel`` (``ring.py:200``).  Bound by
-  the launch at every size the port runs (``T*C`` int32 compares, a few
-  tens of KiB); one warp per task row, ``__all_sync`` over the channels.
+* ``sweep_guards`` replaces ``_guard_kernel`` (``ring.py:200``) on the
+  sweep loop's path, redesigned as the sweep's device-side head: it also
+  does the control the eager loop did on the host between sweeps, so a
+  sweep is one captured program.  Bound by the launch (a few KiB of
+  sparse tables: per (task, phase) only the channels it touches); one
+  block, one thread a task, at most :data:`MAX_SWEEP_TASKS` tasks.
+* ``eval_guards`` replaces ``_guard_kernel`` for the reference's API.
+  Bound by the launch at every size the port runs (``T*C`` int32
+  compares, a few tens of KiB); one warp per task row, ``__all_sync`` over
+  the channels.
 """
 
 from __future__ import annotations
@@ -49,10 +65,11 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build
-from .dispatch import count_launch, uses_kernel
+from .dispatch import add_device_counters, count_launch, uses_kernel
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -62,22 +79,57 @@ _ARGTYPES = {
     "ring_pop": [_VP, _VP, ctypes.c_longlong],
     "ring_push": [_VP, _VP, ctypes.c_longlong],
     "eval_guards": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    "sweep_guards": [_VP],          # the program's _SweepLaunch by reference
+    "sweep_graph_create": [_VP, _VP, _VP, _INT, _VP, _VP],
+    "sweep_graph_replay": [_VP, _VP, _INT],
+    "sweep_graph_destroy": [_VP],
+    "ring_launch_counters": [_VP],
 }
 # csrc/ring.cu: kCopyThreads threads a block, each moving kUnroll 16-byte
 # words a pass, and clusters of at most kMaxCluster blocks (the portable
 # limit)
 COPY_THREADS, UNROLL, MAX_CLUSTER = 512, 4, 8
 BLOCK_BYTES = COPY_THREADS * UNROLL * 16        # 32 KiB: one block's pass
-# popped tokens are allocated SLAB_BYTES (at most SLAB_MAX tokens) at a time
-SLAB_BYTES, SLAB_MAX = 16 << 20, 256
-# (token shape, dtype, device index) -> popped-token outputs not yet used,
-# with their addresses, shared by the rings of one token type (RingHandle)
-_SPARE: dict = {}
+# the kernels that count their own launches on the card, in the order of
+# csrc/ring.cu's ring_launches
+DEVICE_COUNTED = ("ring_pop", "ring_push", "sweep_guards")
+_counted: set = set()       # devices whose counters dispatch reads
+# csrc/ring.cu: sweep_guards runs one block of one thread a task, for
+# tasks of at most 4 phases, with the occupancy vector in 48 KiB of shared
+# memory
+MAX_SWEEP_TASKS, MAX_SWEEP_PHASES, MAX_SWEEP_CHANNELS = 1024, 4, 12288
 
 
 def _launched(lib: ctypes.CDLL, op: str, rc: int) -> None:
     _build.check(lib, "ring", op, rc)
     count_launch(op)
+
+
+class _DeviceWords:
+    """``n`` int64 words at a device address, as ``torch.as_tensor`` takes
+    them (``__cuda_array_interface__``, no copy)."""
+
+    def __init__(self, ptr: int, n: int):
+        self.__cuda_array_interface__ = dict(
+            shape=(n,), typestr="<i8", data=(ptr, False), version=3)
+
+
+def _ring_lib(dev: int) -> ctypes.CDLL:
+    """The ring library, bound; the first call on device ``dev`` also
+    hands its launch counters there (``ring_launches``) to
+    :func:`.dispatch.add_device_counters`."""
+    lib = _build.bind("ring", _ARGTYPES)
+    if dev not in _counted:
+        ptr = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            _build.check(lib, "ring", "ring_launch_counters",
+                         lib.ring_launch_counters(ctypes.byref(ptr)))
+            counters = torch.as_tensor(
+                _DeviceWords(ptr.value, len(DEVICE_COUNTED)),
+                device=f"cuda:{dev}")
+        add_device_counters(DEVICE_COUNTED, counters)
+        _counted.add(dev)
+    return lib
 
 
 class _RingLaunch(ctypes.Structure):
@@ -104,13 +156,6 @@ def cluster_blocks(nbytes: int) -> int:
     :data:`BLOCK_BYTES`, at least 1 and at most :data:`MAX_CLUSTER` (a
     gaussian row of 8 KiB takes one block, a 256 KiB token eight)."""
     return max(1, min(MAX_CLUSTER, -(-nbytes // BLOCK_BYTES)))
-
-
-def slab_tokens(token_bytes: int) -> int:
-    """Popped tokens allocated together: :data:`SLAB_BYTES` of them, at
-    least 1 and at most :data:`SLAB_MAX` (256 of gaussian's 8 KiB rows, 64
-    of a 256 KiB gemm token, 1 of anything past 16 MiB)."""
-    return max(1, min(SLAB_MAX, SLAB_BYTES // max(1, token_bytes)))
 
 
 def burst_arg(n: int, row_bytes: int) -> int:
@@ -166,19 +211,15 @@ class RingHandle:
     synthesis's counting pass makes it for every firing.  A CPU or meta
     ring takes the plain versions.
 
-    Popped tokens on the card are allocated :func:`slab_tokens` at a time
-    (one ``torch.empty`` and one ``unbind``, which cost less than one
-    ``torch.empty`` a pop), and the spare ones are shared by every ring of
-    the same token shape, dtype and device (``_SPARE``): each token is a
-    new tensor of its own elements, a view of a slab that no ring and no
-    other token's elements share; a slab's memory is freed when its last
-    token is.
+    Each pop on the card allocates its output with ``torch.empty``: a new
+    tensor that no ring and no other token shares.  Under a CUDA-graph
+    capture (the captured sweep's bodies) it comes from the graph's
+    memory pool, which the graph owns for its life.
     """
 
     __slots__ = ("buf", "head", "size", "cap", "elem", "row_bytes",
-                 "_dtype", "_device", "_dev", "_kernel",
-                 "_lib", "_launch", "_ref", "_stream", "_st", "_pop_fn",
-                 "_push_fn", "_bursts", "_spare")
+                 "_dtype", "_device", "_dev", "_kernel", "_lib", "_launch",
+                 "_ref", "_stream", "_st", "_pop_fn", "_push_fn", "_bursts")
 
     def __init__(self, buf: torch.Tensor, head: torch.Tensor,
                  size: torch.Tensor):
@@ -189,9 +230,8 @@ class RingHandle:
         self._dev = buf.get_device()
         self._kernel = uses_kernel("ring", buf, head, size)
         self._bursts: dict = {}     # n -> burst_arg(n), for n in [1, cap]
-        self._spare: dict = {}      # n (None: one token) -> _SPARE's list
         if self._kernel:
-            self._lib = _build.bind("ring", _ARGTYPES)
+            self._lib = _ring_lib(self._dev)
             self._pop_fn, self._push_fn = self._lib.ring_pop, \
                 self._lib.ring_push
             self._stream = functools.partial(
@@ -219,54 +259,28 @@ class RingHandle:
     def pop(self, n: int, _one: bool = False) -> torch.Tensor:
         """Pop ``n`` tokens: a new ``[n, *elem]`` tensor (``_one``: one
         ``elem``-shaped token, :meth:`pop_one`)."""
-        key = None if _one else n   # the spare outputs' shape
         if not self._kernel:
             self._check_n("ring_pop", n)
             toks = ring_pop_plain(self.buf, self.head, self.size, n)[0]
-            return toks if key is not None else toks[0]
-        try:
-            out, ptr = self._spare[key].pop()
-        except (KeyError, IndexError):  # first pop of this size, or none left
-            out, ptr = self._refill(n, key)
-            if n == 0:
-                return out
+            return toks[0] if _one else toks
+        burst = self._bursts.get(n)
+        if burst is None:
+            burst = self._burst("ring_pop", n)
+        out = torch.empty(self.elem if _one else (n, *self.elem),
+                          dtype=self._dtype, device=self._device)
+        if not burst:
+            return out
         st = self._stream()
         if st != self._st:
             self._launch.stream = self._st = st
-        rc = self._pop_fn(self._ref, ptr, self._bursts[n])
+        rc = self._pop_fn(self._ref, out.data_ptr(), burst)
         if rc:
             _build.check(self._lib, "ring", "ring_pop", rc)
-        count_launch("ring_pop")
         return out
 
     def pop_one(self) -> torch.Tensor:
         """Pop one token: a new ``elem``-shaped tensor."""
         return self.pop(1, True)
-
-    def _refill(self, n: int, key) -> tuple:
-        """An output for ``key`` (an ``n``-row burst, or None: one token)
-        and its address: a spare one of this token type if there is one,
-        else one of a new slab whose other tokens become the spare ones;
-        for ``n == 0`` an empty output."""
-        shape = (n, *self.elem) if key is not None else self.elem
-        if not self._burst("ring_pop", n):
-            return torch.empty(shape, dtype=self._dtype,
-                               device=self._device), 0
-        spare = self._spare[key] = _SPARE.setdefault(
-            (shape, self._dtype, self._dev), [])
-        try:
-            return spare.pop()
-        except IndexError:
-            pass
-        k, tb = slab_tokens(n * self.row_bytes), n * self.row_bytes
-        slab = torch.empty((k, *shape), dtype=self._dtype,
-                           device=self._device)
-        base = slab.data_ptr()
-        slab = list(zip(slab.unbind(0), range(base, base + k * tb, tb)
-                        if tb else [base] * k))
-        out = slab.pop()
-        spare.extend(slab)
-        return out
 
     # -- push ----------------------------------------------------------------
     def push(self, arr: torch.Tensor) -> None:
@@ -298,7 +312,6 @@ class RingHandle:
         rc = self._push_fn(self._ref, arr.data_ptr(), burst)
         if rc:
             _build.check(self._lib, "ring", "ring_push", rc)
-        count_launch("ring_push")
 
     def _refuse(self, arr: torch.Tensor, n: int) -> None:
         if arr.dtype is not self._dtype or n * self.row_bytes != arr.nbytes:
@@ -422,3 +435,194 @@ def eval_guards(sizes: torch.Tensor, caps: torch.Tensor,
                          t, c, _build.stream(live))
     _launched(lib, "eval_guards", rc)
     return fire
+
+
+# ---------------------------------------------------------------------------
+# a sweep's control: the captured sweep's head
+# ---------------------------------------------------------------------------
+
+class _SweepLaunch(ctypes.Structure):
+    """``csrc/ring.cu``'s ``struct SweepLaunch``: one program's tables,
+    carry and outputs, and the stream of its last launch."""
+    _fields_ = [("totals", _VP), ("bounds", _VP), ("row_ptr", _VP),
+                ("entries", _VP), ("sizes", _VP), ("fires", _VP),
+                ("state", _VP), ("run", _VP), ("fire", _VP), ("phase", _VP),
+                ("handles", _VP), ("stream", _VP), ("T", _INT), ("P", _INT),
+                ("C", _INT)]
+
+
+def sparse_needs(need_r, need_w, caps) -> tuple:
+    """The sparse need tables of :func:`sweep_guards` from dense numpy
+    ``need_r``/``need_w[T, P, C]`` and ``caps[C]``: ``row_ptr[T*P + 1]``
+    and ``entries[nnz, 4]`` (int32), row ``t*P + p`` holding one entry
+    ``(channel, need_r, need_w, cap)`` per channel that phase ``p`` of task
+    ``t`` reads or writes, in channel order.  A channel a phase does not
+    touch needs nothing, so it drops out of the guard."""
+    import numpy as np
+    n_tasks, n_ph, _ = need_r.shape
+    t, p, c = np.nonzero((need_r != 0) | (need_w != 0))
+    row_ptr = np.zeros(n_tasks * n_ph + 1, np.int32)
+    np.cumsum(np.bincount(t * n_ph + p, minlength=n_tasks * n_ph),
+              out=row_ptr[1:])
+    entries = np.stack([c, need_r[t, p, c], need_w[t, p, c],
+                        np.asarray(caps, np.int64)[c]], axis=1)
+    return row_ptr, entries.astype(np.int32).reshape(-1, 4)
+
+
+def sweep_guards_plain(totals, bounds, row_ptr, entries, sizes, fires,
+                       state, run, fire, phase) -> None:
+    """Plain version of :func:`sweep_guards` (CPU tensors; on the card,
+    the comparison's)."""
+    n_tasks, n_ph = run.shape
+    dev = fires.device
+    ph = (fires[:, None] >= bounds).sum(1, dtype=torch.int32)
+    done = state[0] != 0
+    live = (fires < totals) & ~done
+    owner = torch.repeat_interleave(
+        torch.arange(n_tasks * n_ph, device=dev), row_ptr.diff().long())
+    s = sizes[entries[:, 0].long()]
+    short = (entries[:, 1] > s) | (entries[:, 2] > entries[:, 3] - s)
+    unmet = torch.zeros(n_tasks * n_ph, dtype=torch.int32, device=dev) \
+        .index_add_(0, owner, short.int())
+    ok = live & (unmet.view(n_tasks, n_ph)
+                 .gather(1, ph.long()[:, None])[:, 0] == 0)
+    any_live, any_fire = live.any(), ok.any()
+    fires.add_(ok.int())
+    over = done | ~any_live | ~any_fire | ~(fires < totals).any()
+    state[1:].add_(any_live.int())
+    state[:1].copy_(over.int())
+    fire.copy_(ok)
+    phase.copy_(ph)
+    run.copy_(ok[:, None] & (torch.arange(n_ph, device=dev) == ph[:, None]))
+
+
+class SweepGuards:
+    """One program's sweep-control launch, prepared once.
+
+    Calling it runs one sweep's control (``csrc/ring.cu``,
+    ``sweep_guards_kernel``), from the static tables ``totals[T]``,
+    ``bounds[T, P-1]`` (cumulative phase bounds, padded with int32-max),
+    ``row_ptr``/``entries`` (:func:`sparse_needs`) and the carry
+    ``sizes[C]``, ``fires[T]`` and ``state[2]`` (done, sweeps):
+
+    * ``phase[t]`` = the bounds ``fires[t]`` has passed;
+    * ``fire[t]`` = ``fires[t] < totals[t]`` and, for every entry of row
+      ``(t, phase[t])``, ``need_r <= sizes[c]`` and ``need_w <= cap -
+      sizes[c]``; ``run[t, p]`` = ``fire[t]`` and ``p == phase[t]``;
+    * ``fires += fire``; the sweep is counted (``state[1] += 1``) unless no
+      task was live, and ``state[0]`` (done) is set when no task was live,
+      none fired or none has firings left;
+    * once done is set, every predicate is false and nothing else changes.
+
+    int32 tables and carry, bool ``run``/``fire``, int32 ``phase``, all
+    contiguous on one device.  A CUDA program launches the kernel (one
+    block: at most :data:`MAX_SWEEP_TASKS` tasks of
+    :data:`MAX_SWEEP_PHASES` phases over :data:`MAX_SWEEP_CHANNELS`
+    channels); a CPU one takes :func:`sweep_guards_plain`.
+    """
+
+    __slots__ = ("args", "_kernel", "_fn", "_lib", "_launch", "_ref",
+                 "_stream", "_st")
+
+    def __init__(self, totals, bounds, row_ptr, entries, sizes, fires, state,
+                 run, fire, phase):
+        n_tasks, n_ph = run.shape
+        self.args = (totals, bounds, row_ptr, entries, sizes, fires, state,
+                     run, fire, phase)
+        i32, b = torch.int32, torch.bool
+        for name, x, dt, shape in (
+                ("totals", totals, i32, (n_tasks,)),
+                ("bounds", bounds, i32, (n_tasks, n_ph - 1)),
+                ("row_ptr", row_ptr, i32, (n_tasks * n_ph + 1,)),
+                ("entries", entries, i32, (entries.shape[0], 4)),
+                ("sizes", sizes, i32, (sizes.shape[0],)),
+                ("fires", fires, i32, (n_tasks,)),
+                ("state", state, i32, (2,)), ("run", run, b, (n_tasks, n_ph)),
+                ("fire", fire, b, (n_tasks,)), ("phase", phase, i32,
+                                                (n_tasks,))):
+            if x.dtype != dt or tuple(x.shape) != shape or \
+                    not x.is_contiguous():
+                raise ValueError(f"sweep_guards: {name} must be a contiguous "
+                                 f"{dt}{shape}, got {x.dtype}"
+                                 f"{tuple(x.shape)}")
+        self._kernel = uses_kernel("sweep_guards", *self.args)
+        if not self._kernel:
+            return
+        n_chans = sizes.shape[0]
+        if not (1 <= n_tasks <= MAX_SWEEP_TASKS and n_ph <= MAX_SWEEP_PHASES
+                and n_chans <= MAX_SWEEP_CHANNELS):
+            raise ValueError(
+                f"sweep_guards: {n_tasks} tasks of {n_ph} phases over "
+                f"{n_chans} channels; the kernel runs one block of one "
+                f"thread a task, at most {MAX_SWEEP_TASKS} tasks of "
+                f"{MAX_SWEEP_PHASES} phases over {MAX_SWEEP_CHANNELS} "
+                f"channels")
+        dev = fires.get_device()
+        self._lib = _ring_lib(dev)
+        self._fn = self._lib.sweep_guards
+        self._stream = functools.partial(torch._C._cuda_getCurrentRawStream,
+                                         dev)
+        self._st = self._stream()
+        self._launch = _SweepLaunch(*(x.data_ptr() for x in self.args),
+                                    None, self._st, n_tasks, n_ph, n_chans)
+        self._ref = ctypes.addressof(self._launch)
+
+    def __call__(self) -> None:
+        if not self._kernel:
+            sweep_guards_plain(*self.args)
+            return
+        st = self._stream()
+        if st != self._st:
+            self._launch.stream = self._st = st
+        rc = self._fn(self._ref)
+        if rc:
+            _build.check(self._lib, "ring", "sweep_guards", rc)
+
+
+def sweep_guards(totals, bounds, row_ptr, entries, sizes, fires, state, run,
+                 fire, phase) -> None:
+    """One sweep's control in one op, in place: :class:`SweepGuards` built
+    for the call."""
+    SweepGuards(totals, bounds, row_ptr, entries, sizes, fires, state, run,
+                fire, phase)()
+
+
+class SweepGraph:
+    """A sweep on the card as one CUDA graph, instantiated once
+    (``csrc/ring.cu``, ``sweep_graph_create``): the ``sweep_guards`` kernel
+    of ``guards``, then one conditional node for each (task, phase) body,
+    in the order given, whose body is that body's captured graph.  The
+    kernel sets the condition of the phase that fires; a launch resets
+    every condition to false.  ``bodies`` is ``[(row, cudaGraph_t)]`` with
+    ``row = t * P + p``; the caller keeps each body graph and its memory
+    for the life of this one."""
+
+    def __init__(self, guards: SweepGuards, bodies: list):
+        if not guards._kernel:
+            raise ValueError("SweepGraph: the guards of a program on the card")
+        self._lib = guards._lib
+        run = guards.args[7]
+        n = len(bodies)
+        self._handles = torch.zeros(run.numel(), dtype=torch.int64,
+                                    device=run.device)
+        rows = (ctypes.c_int * n)(*(r for r, _ in bodies))
+        graphs = (ctypes.c_void_p * n)(*(g for _, g in bodies))
+        out = ctypes.c_void_p()
+        rc = self._lib.sweep_graph_create(guards._ref, rows, graphs, n,
+                                          self._handles.data_ptr(),
+                                          ctypes.byref(out))
+        _build.check(self._lib, "ring", "sweep_graph_create", rc)
+        self._graph = out.value
+        self._stream = guards._stream
+
+    def replay(self, k: int) -> None:
+        """``k`` sweeps back to back on the current stream."""
+        rc = self._lib.sweep_graph_replay(self._graph, self._stream(), k)
+        if rc:
+            _build.check(self._lib, "ring", "sweep_graph_replay", rc)
+
+    def close(self) -> None:
+        if self._graph:
+            graph, self._graph = self._graph, None
+            _build.check(self._lib, "ring", "sweep_graph_destroy",
+                         self._lib.sweep_graph_destroy(graph))

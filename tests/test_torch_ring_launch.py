@@ -85,37 +85,23 @@ def test_burst_arg_packs_n_and_the_cluster_size(n, row_bytes, burst):
         n, ring.cluster_blocks(n * row_bytes))
 
 
-@pytest.mark.parametrize("token_bytes,k", [
-    (8192, 256), (4, 256), (0, 256),            # gaussian's 8 KiB rows
-    (100000, 167), (262144, 64),                # a gemm / page_rank token
-    (16 << 20, 1), (20 << 20, 1),               # past 16 MiB: one a slab
-])
-def test_slab_tokens_by_bytes(token_bytes, k):
-    assert ring.slab_tokens(token_bytes) == k
-    assert k * token_bytes <= max(ring.SLAB_BYTES, token_bytes)
-
-
-@pytest.mark.parametrize("key,n,shape", [(3, 3, (3, 2, 2)),
-                                         (None, 1, (2, 2))])
-def test_popped_tokens_come_from_a_shared_slab(monkeypatch, key, n, shape):
-    """The outputs a card's pop takes (here built on the CPU): tokens of
-    one slab, disjoint, the spare ones shared by every ring of the same
-    token type."""
-    monkeypatch.setattr(ring, "_SPARE", {})
-    a = ring.RingHandle(torch.zeros(4, 2, 2), *_counters())
-    b = ring.RingHandle(torch.zeros(8, 2, 2), *_counters())
-    out, ptr = a._refill(n, key)
-    k = ring.slab_tokens(n * 16)
-    spare = ring._SPARE[(shape, torch.float32, -1)]
-    assert out.shape == shape and len(spare) == k - 1
-    assert ptr == out.data_ptr() and all(p == t.data_ptr() for t, p in spare)
-    ptrs = sorted(p for _, p in spare + [(out, ptr)])
-    assert all(q - p == n * 16 for p, q in zip(ptrs, ptrs[1:]))
-    # another ring of the token type takes a spare one before a new slab
-    assert b._refill(n, key)[0].shape == shape and len(spare) == k - 2
-    assert a._spare[key] is b._spare[key] is spare
-    assert a._bursts == {n: n * 16 + 1}
-    assert a._refill(0, 0)[0].shape == (0, 2, 2) and 0 not in a._spare
+@pytest.mark.parametrize("n,one,shape", [(3, False, (3, 2, 2)),
+                                          (1, True, (2, 2)),
+                                          (4, False, (4, 2, 2))])
+def test_popped_tokens_are_new_tensors(n, one, shape):
+    """Each pop returns a tensor of its own elements: no ring and no
+    earlier token shares them, so a later op cannot overwrite it."""
+    buf = torch.arange(16.0).reshape(4, 2, 2)
+    h = ring.RingHandle(buf, *_counters(0, 4))
+    a = h.pop_one() if one else h.pop(n)
+    h.push(torch.full((n, 2, 2), -1.0))
+    b = h.pop_one() if one else h.pop(n)
+    assert a.shape == b.shape == shape
+    ptrs = {buf.untyped_storage().data_ptr(), a.untyped_storage().data_ptr(),
+            b.untyped_storage().data_ptr()}
+    assert len(ptrs) == 3
+    assert torch.equal(a.reshape(-1, 2, 2), torch.arange(16.0)
+                       .reshape(4, 2, 2)[:n])
 
 
 def test_launch_struct_matches_the_c_layout():
