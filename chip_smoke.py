@@ -20,14 +20,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    card, exactly.  ``sweep_guards`` (the sweep's control) at the main
    path's tables (gemm at full size: 88 tasks, 192 channels, 2 phases;
    gaussian's 3-phase stencils), with every task dead, with the done flag
-   set, at T = 1 and T = 1000, ``SWEEP_STATES`` random carries each and 40
+   set, at T = 1 and T = 1000, and with the flags a graph with async ports
+   gives it, ``SWEEP_STATES`` random carries each and 40
    launches back to back on one carry; its times at gemm's tables (per
    call through a prepared handle, device time a launch, plain version)
-   beside its bound.  ``eval_guards`` (the reference API's counterpart)
-   at its shapes.  Pop and push at the main path's shapes and at the edge
-   cases
-   (wraparound, ``n == cap``, ``cap == 1``, int32 and bool elements; the
-   bursts that spread over a cluster of blocks: a wrap of 2 MiB rows, odd
+   beside its bound.  ``service_ports`` (the async ports' latency queues
+   and the sweep's commit) bit for bit on ``SERVICE_STATES`` random port
+   carries a case and 40 chained launches (``SERVICE_CASES``: depths 1, 4
+   and 8; rows of 8 B, 7 B, 60 B, 39 KiB and 256 KiB; response rings full;
+   addresses far out of range; write addresses with no value token; dues
+   past and ahead; the done flag set), and its times at gemm's 16 ports of
+   256 KiB rows beside its bound.  ``eval_guards`` (the reference API's
+   counterpart) at its shapes.  Pop and push at the main path's shapes
+   and at the edge cases (wraparound, ``n == cap``, ``cap == 1``, int32
+   and bool elements; the bursts that spread over a cluster of blocks: a
+   wrap of 2 MiB rows, odd
    row bytes, ``n == cap`` of 256 KiB rows); two chained sequences of
    ``CHAINED_OPS`` pops and pushes on one ring with no sync between
    them, against the same sequence through the plain versions; CUDA-event
@@ -50,14 +57,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    popped and pushed (``CompiledEngine.ring_ops``: each phase's ring ops
    from the counting pass times its firings); the run must have gone
    through the captured sweep (replays, at most one host sync a block and
-   one final read).  Then each app at full size once more,
+   one final read), and its sweep graph must hold the guards, one node a
+   (task, phase) body and, with async ports, the port service.  The same
+   for the async-port graphs (``FULL_ASYNC``: gemm at full width, 96
+   tasks over 280 channels and 16 ports; page_rank cut to 4,096 vertices),
+   where ``service_ports`` must also launch once a replay (and never in a
+   graph without ports).  Then each app at full size once more,
    held against the reference and against the CPU lowering of the same
    graph, relative to the output's scale (``REF_REL_TOL``,
-   ``CPU_REL_TOL``).
+   ``CPU_REL_TOL``); each async graph again on the card, with CUDA events
+   around each block of replays (device time a sweep), and on the CPU:
+   sweeps, fires, channel statistics and port counters equal, outputs
+   within the same limits.
 5. twin vs compiled — each app at a reduced size under the coroutine
    twin and under ``CompiledEngine``, both on the card: bit-identical
    outputs and equal token counts; the sweeps equal those of the CPU
-   (plain-version) lowering of the same graph.
+   (plain-version) lowering of the same graph.  The async-port gemm and
+   page_rank at the test sizes, at depths 1 and 4: bit-identical to the
+   twin, and sweeps, fires, channel statistics and port counters equal
+   to the CPU lowering's.
 6. breakdown — each app at full size twice more: seconds in the app's
    build, the lowering (wiring + counting pass), the sweep loop and its
    capture, replays and host syncs, host ms a sweep; then with CUDA events
@@ -201,6 +219,19 @@ FULL = {
     "page_rank": dict(n_vertices=65536, n_edges=1048576, n_pe=4,
                       n_iters=10),
 }
+# the async-port graphs (build_step_async) through the captured sweep:
+# gemm at phase 4's widths, page_rank cut, since its fetcher moves one 8-byte
+# edge row a firing (>= 16,384 sweeps here, >= 2.6 M at phase 4's graph)
+FULL_ASYNC = {
+    "gemm": dict(P=8, n=256, K=16, mem_latency=4, depth=4),
+    "page_rank": dict(n_vertices=4096, n_edges=16384, n_pe=4, n_iters=4,
+                      edge_latency=4, edge_depth=4),
+}
+# phase 5's async graphs: the test sizes, at depths 1 and 4
+REDUCED_ASYNC = {
+    "gemm": dict(P=2, n=4, K=4),
+    "page_rank": dict(n_vertices=16, n_edges=48, n_pe=2, n_iters=4),
+}
 REDUCED = {
     "gemm": dict(P=2, n=32, K=4),
     "gaussian": dict(h=64, w=64, iters=2),
@@ -213,6 +244,8 @@ REPLACES = {
     "ring_pop": "src/repro/kernels/ring.py:84",
     "ring_push": "src/repro/kernels/ring.py:141",
     "sweep_guards": "src/repro/kernels/ring.py:200",
+    # no Pallas kernel: the reference's per-sweep port service in XLA ops
+    "service_ports": "src/repro/core/synth.py:951",
 }
 SWEEP_STATES = 100          # random carries a sweep_guards case checks
 ATTN_REPLACES = {
@@ -233,6 +266,7 @@ def log(*a) -> None:
 
 
 REPS, WARM = 200, 20
+PROFILE_TRIES = 3            # profiles of one run before a lost record fails
 
 
 def time_ms(fn, reps: int = REPS, warm: int = WARM) -> float:
@@ -445,7 +479,7 @@ def _counted_device_ms(fn, kernel: str, op: str, n: int) -> float:
     for attempt in (1, 2):
         reset_launches()
         try:
-            ms = _kernel_device_ms(fn, kernel, n=n)
+            ms = _kernel_device_ms(fn, kernel, n=n, tries=1)
         except AssertionError as e:
             launched = launch_counts().get(op, 0)
             if attempt == 2 or launched != n:
@@ -516,6 +550,7 @@ def _guard_carry(tab: dict, fires, sizes, state) -> list:
 
 
 def _guard_state(rng, tab: dict, how: str) -> tuple:
+    how = how.split("+")[0]
     totals, caps = tab["totals"], tab["caps"]
     fires = totals.copy() if how == "dead" else rng.integers(0, totals + 1)
     sizes = rng.integers(0, caps + 1)
@@ -532,9 +567,12 @@ def check_sweep_guards(tag: str, tab: dict, how: str, seed: int) -> dict:
     from repro_torch.kernels import ring
     rng = np.random.default_rng(seed)
     fired = 0
+    flags = lambda: [torch.zeros(2, dtype=torch.int32, device="cuda")] \
+        if how.endswith("+flags") else []     # noqa: E731
     for _ in range(SWEEP_STATES):
         st = _guard_state(rng, tab, how)
-        k, p = _guard_carry(tab, *st), _guard_carry(tab, *st)
+        k, p = _guard_carry(tab, *st) + flags(), _guard_carry(tab, *st) + \
+            flags()
         ring.sweep_guards(*k)
         ring.sweep_guards_plain(*p)
         torch.cuda.synchronize()
@@ -543,7 +581,7 @@ def check_sweep_guards(tag: str, tab: dict, how: str, seed: int) -> dict:
                                  f"{how}")
         fired += int(k[8].sum())
     st = _guard_state(rng, tab, how)
-    k, p = _guard_carry(tab, *st), _guard_carry(tab, *st)
+    k, p = _guard_carry(tab, *st) + flags(), _guard_carry(tab, *st) + flags()
     handle = ring.SweepGuards(*k)
     for _ in range(40):
         handle()
@@ -594,7 +632,8 @@ def sweep_guard_phase(timing: dict) -> list:
               for seed, (tag, how) in enumerate([
                   ("gemm", "random"), ("gaussian", "random"),
                   ("gemm", "dead"), ("gemm", "done"), ("T=1", "random"),
-                  ("T=1000", "random"), ("T=1000", "done")])]
+                  ("T=1000", "random"), ("T=1000", "done"),
+                  ("gemm", "random+flags"), ("gemm", "done+flags")])]
     for c in checks:
         log(f"kernels: sweep_guards exact at {c['case']} ({c['tasks']} tasks "
             f"x {c['phases']} phases, {c['channels']} channels, {c['nnz']} "
@@ -618,6 +657,234 @@ def sweep_guard_phase(timing: dict) -> list:
               f"{len(tab['caps'])} channels", ms=ms, device_ms=dev,
         plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
         bytes=nb, ops=ops)]
+    return checks
+
+
+# (tag, ports as (depth, row shape, dtype, rows), what the carries stress)
+SERVICE_CASES = [
+    ("8 B rows, depths 1/4/8", [(1, (2,), torch.int32, 32),
+                                (4, (2,), torch.int32, 32),
+                                (8, (2,), torch.int32, 32)], "random"),
+    ("256 KiB rows", [(4, (256, 256), torch.float32, 4),
+                      (8, (256, 256), torch.float32, 3)], "random"),
+    ("responses full", [(1, (2,), torch.int32, 8),
+                        (4, (5, 3), torch.float32, 6),
+                        (8, (256, 256), torch.float32, 2)], "full"),
+    ("clipped addresses", [(4, (2,), torch.int32, 5),
+                           (8, (7,), torch.bool, 9)], "clip"),
+    ("no value tokens", [(4, (2,), torch.int32, 8),
+                         (1, (256, 256), torch.float32, 2)], "novalue"),
+    ("odd rows", [(8, (7,), torch.bool, 9), (1, (5, 3), torch.float32, 6),
+                  (4, (3, 13001), torch.bool, 3)], "random"),
+    ("done", [(4, (2,), torch.int32, 8), (4, (256, 256), torch.float32, 2)],
+     "done"),
+]
+SERVICE_STATES = 40         # random carries a service_ports case checks
+SERVICE_EXTRA_CHANNELS = 3  # channels no port owns (the maxocc sample)
+
+
+def _rows(rng, shape, dtype) -> torch.Tensor:
+    if dtype == torch.bool:
+        return torch.from_numpy(rng.random(shape) < 0.5)
+    if dtype == torch.int32:
+        return torch.from_numpy(rng.integers(-2**31, 2**31 - 1, shape,
+                                             dtype=np.int32))
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def _service_carry(rng, ports: list, how: str) -> dict:
+    """A random carry of ``ports`` ((depth, row, dtype, rows) each) on the
+    CPU: the rings of port k are channels 5k .. 5k + 4, then
+    ``SERVICE_EXTRA_CHANNELS`` of no port; windows of any size with dues
+    from 3 sweeps past to 5 ahead of the counter, addresses a few rows out
+    of range (``clip``: a thousand), response rings full (``full``), write
+    addresses with no value token (``novalue``), the done flag set
+    (``done``)."""
+    n_ch = 5 * len(ports) + SERVICE_EXTRA_CHANNELS
+    caps = rng.integers(1, 7, n_ch)
+    heads = rng.integers(0, caps)
+    sizes = rng.integers(0, caps + 1)
+    bufs = {c: torch.zeros(int(caps[c]), dtype=torch.int32)
+            for c in range(len(ports) * 5, n_ch)}
+    sweeps = int(rng.integers(0, 60))
+    far = 1000 if how == "clip" else 3
+    out = []
+    for k, (d, row, dt, nrow) in enumerate(ports):
+        ra, rd, wa, wd, wr = range(5 * k, 5 * k + 5)
+        if how == "full":
+            sizes[rd], sizes[wr] = caps[rd], caps[wr]
+        if how == "novalue":
+            sizes[wd], sizes[wa] = 0, max(1, sizes[wa])
+        addr = lambda *n: torch.from_numpy(   # noqa: E731
+            rng.integers(-far, nrow + far, n).astype(np.int32))
+        bufs[ra], bufs[wa] = addr(int(caps[ra])), addr(int(caps[wa]))
+        bufs[rd] = _rows(rng, (int(caps[rd]), *row), dt)
+        bufs[wd] = _rows(rng, (int(caps[wd]), *row), dt)
+        bufs[wr] = torch.from_numpy(rng.random(int(caps[wr])) < 0.5)
+        st = rng.integers(0, 100, 10).astype(np.int32)
+        st[[0, 2]] = rng.integers(0, d, 2)              # heads
+        st[[1, 3]] = rng.integers(0, d + 1, 2)          # sizes
+        st[[8, 9]] = rng.integers(0, d + 1, 2)          # highwater marks
+        win = np.stack([rng.integers(-far, nrow + far, d),
+                        sweeps + rng.integers(-3, 6, d),
+                        rng.integers(-far, nrow + far, d),
+                        sweeps + rng.integers(-3, 6, d)]).astype(np.int32)
+        out.append(dict(depth=d, latency=int(rng.integers(0, 6)),
+                        chans=(ra, rd, wa, wd, wr),
+                        data=_rows(rng, (nrow, *row), dt),
+                        wval=_rows(rng, (d, *row), dt),
+                        st=torch.from_numpy(st), win=torch.from_numpy(win)))
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    return dict(ports=out, bufs=bufs, heads=i32(heads), sizes=i32(sizes),
+                maxocc=i32(rng.integers(0, 8, n_ch)),
+                state=i32([int(how == "done"), sweeps]),
+                flags=i32(rng.integers(0, 2, 2)))
+
+
+def _service_on(carry: dict, device: str = "cuda"):
+    """``ServicePorts`` over a copy of ``carry`` on ``device``, and every
+    tensor it reads or writes."""
+    from repro_torch.kernels import ring
+    on = lambda t: t.clone().to(device)  # noqa: E731
+    pint = torch.stack([q["st"] for q in carry["ports"]]).to(device)
+    qs = []
+    for k, q in enumerate(carry["ports"]):
+        pq = ring.PortQueue(on(q["data"]), pint[k], q["chans"], q["depth"],
+                            q["latency"])
+        pq.win.copy_(q["win"])
+        pq.wval.copy_(q["wval"])
+        qs.append(pq)
+    bufs = {c: on(b) for c, b in carry["bufs"].items()}
+    args = [on(carry[k]) for k in ("heads", "sizes", "maxocc", "state",
+                                   "flags")]
+    svc = ring.ServicePorts(qs, bufs, *args)
+    tensors = [pint, *args] + [bufs[c] for c in sorted(bufs)] + \
+        [x for q in qs for x in (q.data, q.win, q.wval)]
+    return svc, tensors
+
+
+def check_service_ports(tag: str, ports: list, how: str, seed: int) -> dict:
+    """``SERVICE_STATES`` random carries through the kernel and through the
+    plain version on the card, every tensor compared exactly (and the
+    kernel's scratch back at zero); then one carry through 40 launches
+    back to back, the kernel reading what it wrote, against 40 plain
+    calls."""
+    from repro_torch.kernels.ring import service_ports_plain
+    rng = np.random.default_rng(seed)
+    moved = 0
+    for k in range(SERVICE_STATES + 1):
+        carry = _service_carry(rng, ports, how)
+        chain = k == SERVICE_STATES
+        if chain:                           # every sweep fires: no end
+            carry["flags"].fill_(1)
+        kern, kt = _service_on(carry)
+        plain, pt = _service_on(carry)
+        for _ in range(40 if chain else 1):
+            kern()
+            service_ports_plain(plain.ports, plain.bufs, *plain.args)
+        torch.cuda.synchronize()
+        bad = [i for i, (a, b) in enumerate(zip(kt, pt))
+               if not torch.equal(a, b)]
+        if bad or kern.scratch.any():
+            raise AssertionError(f"service_ports differs from plain: {tag}, "
+                                 f"{how}, carry {k}, tensors {bad}, scratch "
+                                 f"{kern.scratch.tolist()}")
+        moved += int(not torch.equal(kt[0].cpu(), torch.stack(
+            [q["st"] for q in carry["ports"]])))
+    return dict(case=tag, carries=how, ports=len(ports),
+                depths=[d for d, *_ in ports],
+                rows=[f"{tuple(r)} {str(dt).split('.')[-1]}"
+                      for _, r, dt, _ in ports],
+                carries_that_moved=moved, blocks=kern.blocks,
+                max_abs_err=0.0)
+
+
+def _gemm_service_carries(n: int):
+    """``n`` carries of gemm's 16 ports at full width (P=8, n=256, K=16,
+    depth 4, latency 4; 280 channels), each in the steady state of a
+    sweep: every read window full with one request due, one address
+    queued; every write window full with one due, one address and one
+    value queued.  The buffers are shared, the counters are each call's
+    own.  Returns the ``ServicePorts`` and the bytes a call moves."""
+    from repro_torch.kernels import ring
+    P, nb, K, d, C = 8, 256, 16, 4, 280
+    f32, i32 = torch.float32, dict(dtype=torch.int32, device="cuda")
+    blk = (nb, nb)
+    datas = [torch.randn((K, *blk), device="cuda") for _ in range(P)] + \
+        [torch.zeros((P, *blk), device="cuda") for _ in range(P)]
+    rows = {5 * k + r: torch.zeros((d, *blk), dtype=f32, device="cuda")
+            for k in range(2 * P) for r in (1, 3)}
+    toks = {5 * k + r: torch.zeros(d, **i32) for k in range(2 * P)
+            for r in (0, 2)}
+    acks = {5 * k + 4: torch.zeros(d, dtype=torch.bool, device="cuda")
+            for k in range(2 * P)}
+    bufs = {**rows, **toks, **acks}
+    bufs.update({c: torch.zeros(2, **i32) for c in range(5 * 2 * P, C)})
+    wvals = [torch.zeros((d, *blk), dtype=f32, device="cuda")
+             for _ in range(2 * P)]
+    sweeps = 100
+    out = []
+    for _ in range(n):
+        sizes = torch.zeros(C, **i32)
+        pint = torch.zeros((2 * P, ring.PORT_WORDS), **i32)
+        qs = []
+        for k in range(2 * P):
+            q = ring.PortQueue(datas[k], pint[k], range(5 * k, 5 * k + 5), d,
+                               4)
+            q.wval = wvals[k]
+            due = sweeps + torch.arange(d, **i32)
+            if k < P:                       # A ports: reads
+                pint[k, ring.P_RSIZE] = d
+                q.win[0] = torch.arange(d, **i32)
+                q.win[1] = due
+                sizes[5 * k] = 1
+            else:                           # C ports: writes
+                pint[k, ring.P_WSIZE] = d
+                q.win[2] = torch.arange(d, **i32)
+                q.win[3] = due
+                sizes[5 * k + 2] = sizes[5 * k + 3] = 1
+            qs.append(q)
+        out.append(ring.ServicePorts(
+            qs, bufs, torch.zeros(C, **i32), sizes, torch.zeros(C, **i32),
+            torch.tensor([0, sweeps], **i32), torch.ones(2, **i32)))
+    row = nb * nb * 4
+    copies = P * 1 + P * 2          # a read delivery; a write delivery and
+    #                                 an acceptance
+    words = 2 * P * (2 * 10 + 2 * 4 * d + 2 * 2 * 5) + 3 * C + 2 * 2 + 2
+    return out, copies * 2 * row + 4 * words
+
+
+def service_ports_phase(timing: dict) -> list:
+    """Phase 3's service_ports part: the kernel against its plain version
+    on random carries (``SERVICE_CASES``), and its times at gemm's full
+    width (a call through a prepared handle, device time a launch, plain
+    version) beside its bound."""
+    checks = [check_service_ports(tag, ports, how, seed)
+              for seed, (tag, ports, how) in enumerate(SERVICE_CASES)]
+    for c in checks:
+        log(f"kernels: service_ports exact at {c['case']} ({c['ports']} "
+            f"ports, depths {c['depths']}, rows {c['rows']}, clusters of "
+            f"{c['blocks']}), {c['carries']} carries: {SERVICE_STATES} "
+            f"carries and 40 chained launches")
+    n = WARM + REPS
+    hs, nb = _gemm_service_carries(n)
+    ms = time_ms(lambda i: hs[i]())
+    hs, _ = _gemm_service_carries(n)
+    dev = _counted_device_ms(lambda i: hs[i](), "service_ports_kernel",
+                             "service_ports", n)
+    hs, _ = _gemm_service_carries(30)
+    from repro_torch.kernels.ring import service_ports_plain
+    plain = time_ms(lambda i: service_ports_plain(hs[i].ports, hs[i].bufs,
+                                                  *hs[i].args),
+                    reps=20, warm=10)
+    if not all(int(h.args[3][1]) == 101 for h in hs):
+        raise AssertionError("service_ports: a timed call did not count its "
+                             "sweep")
+    bnd, by = bound_ms(nb)
+    timing["service_ports"] = [dict(
+        shape="gemm 16 ports of 256 KiB rows, depth 4, 280 channels",
+        ms=ms, device_ms=dev, plain_ms=plain, library_ms=None, bound_ms=bnd,
+        bound_by=by, bytes=nb)]
     return checks
 
 
@@ -660,7 +927,7 @@ def kernel_phase() -> tuple[dict, dict, list]:
              size=4, n=4, push_n=4),
     ]
     errs = {"ring_pop": 0.0, "ring_push": 0.0, "sweep_guards": 0.0,
-            "eval_guards": 0.0}
+            "service_ports": 0.0, "eval_guards": 0.0}
     for c in cases:
         e_pop, e_push = check_pop_push(c, gen)
         errs["ring_pop"] = max(errs["ring_pop"], e_pop)
@@ -689,6 +956,7 @@ def kernel_phase() -> tuple[dict, dict, list]:
     # n free slots), checked again after the timing
     timing = {"ring_pop": [], "ring_push": [], "eval_guards": []}
     guard_checks = sweep_guard_phase(timing)
+    service_checks = service_ports_phase(timing)
     for c in cases[:4]:
         cap, head, size, n = c["cap"], c["head"], c["size"], c["n"]
         buf = _ring(cap, c["elem"], c["dtype"], 0, 0, gen)[0]
@@ -776,32 +1044,48 @@ def kernel_phase() -> tuple[dict, dict, list]:
                 + (f"  public fn {r['public_ms']*1e3:8.2f} us, "
                    f"{r['blocks']} block(s)" if "public_ms" in r else ""))
     return timing, errs, dict(chained_ring_ops=chained,
-                              sweep_guards=guard_checks)
+                              sweep_guards=guard_checks,
+                              service_ports=service_checks)
 
 
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path, and twin vs compiled
 # ---------------------------------------------------------------------------
 
+def _graphs() -> list:
+    """(tag, app, builder, parameters) of every graph phase 4 runs: the
+    step-form apps, then the async-port ones."""
+    return [(name, name, "build_step", kw) for name, kw in FULL.items()] + \
+        [(f"{name}_async", name, "build_step_async", kw)
+         for name, kw in FULL_ASYNC.items()]
+
+
+def _port_stats(rep) -> list:
+    return [(name, stats) for name, kind, stats in rep.interfaces
+            if kind == "async_mmap"]
+
+
 def main_path() -> tuple[dict, dict]:
-    """Each app at full size through ``build_step`` and the compiled
-    engine, as ``run_step`` runs it (build, run, ``check()``), with the
-    engine kept for its counts: the run must go through the captured
-    sweep (replays, at most one host sync a block and one final read).
-    The ring kernels count their own launches on the card: ``sweep_guards``
-    must have launched once a replay, ``ring_pop``/``ring_push`` as often
-    as the run's firings popped and pushed (``eng.ring_ops``), and each at
-    least once."""
+    """Each graph at full size (the async page_rank cut) through its
+    builder and the compiled engine, as ``run_step`` runs it (build, run,
+    ``check()``), with the engine kept for its counts: the run must go
+    through the captured sweep (replays, at most one host sync a block and
+    one final read).  The ring kernels count their own launches on the
+    card: ``sweep_guards`` must have launched once a replay,
+    ``ring_pop``/``ring_push`` as often as the run's firings popped and
+    pushed (``eng.ring_ops``), each at least once, and ``service_ports``
+    once a replay in a graph with ports and never in one without."""
     from repro_torch import ENGINES
     from repro_torch.apps import APPS
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     per_app = {}
     reset_launches()
-    for name, kw in FULL.items():
+    for tag, name, builder, kw in _graphs():
+        ports = builder == "build_step_async"
         before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        top, args, check = APPS[name].build_step(device="cuda", **kw)
+        top, args, check = getattr(APPS[name], builder)(device="cuda", **kw)
         eng = ENGINES["compiled"](device="cuda")
         rep = eng.run(top, *args)
         correct, max_err = check() if rep.ok else (False, float("nan"))
@@ -811,36 +1095,126 @@ def main_path() -> tuple[dict, dict]:
         launches = {k: after.get(k, 0) - before.get(k, 0)
                     for k in REPLACES}
         if not (rep.ok and correct):
-            raise AssertionError(f"{name}: run failed or check() failed: "
+            raise AssertionError(f"{tag}: run failed or check() failed: "
                                  f"{rep.error} correct={correct} "
                                  f"err={max_err}")
         for k, v in launches.items():
-            if v <= 0:
-                raise AssertionError(f"{name}: its run never launched {k}: "
+            if v <= 0 and (ports or k != "service_ports"):
+                raise AssertionError(f"{tag}: its run never launched {k}: "
                                      f"{launches}")
         if not (eng.n_replays > 0 and eng.n_host_syncs <= eng.n_blocks + 1):
             raise AssertionError(
-                f"{name}: not the captured sweep: {eng.n_replays} replays, "
+                f"{tag}: not the captured sweep: {eng.n_replays} replays, "
                 f"{eng.n_blocks} blocks, {eng.n_host_syncs} host syncs")
-        want = dict(eng.ring_ops, sweep_guards=eng.n_replays)
+        steps = [inst.fn for inst in eng.instances
+                 if getattr(inst.fn, "is_step_task", False)]
+        bodies = sum(len(fn.phases()) for fn in steps)
+        if eng.n_graph_nodes != 1 + bodies + ports:
+            raise AssertionError(f"{tag}: a sweep graph of {eng.n_graph_nodes}"
+                                 f" nodes; the guards, {bodies} bodies and "
+                                 f"{int(ports)} port service make "
+                                 f"{1 + bodies + ports}")
+        want = dict(eng.ring_ops, sweep_guards=eng.n_replays,
+                    service_ports=eng.n_replays if ports else 0)
         if launches != want:
             raise AssertionError(
-                f"{name}: the kernels counted {launches} launches on the "
+                f"{tag}: the kernels counted {launches} launches on the "
                 f"card; the run's replays and firings make {want}")
         sweeps = rep.switches
-        per_app[name] = dict(params=kw, check=bool(correct),
-                             max_err=max_err, sweeps=sweeps, wall_s=wall,
-                             sweeps_per_s=sweeps / wall, launches=launches,
-                             capture_s=eng.capture_s,
-                             replays=eng.n_replays, blocks=eng.n_blocks,
-                             host_syncs=eng.n_host_syncs)
-        log(f"main {name}: check {correct} max_err {max_err:.3e} "
+        per_app[tag] = dict(params=kw, check=bool(correct),
+                            max_err=max_err, sweeps=sweeps, wall_s=wall,
+                            sweeps_per_s=sweeps / wall, launches=launches,
+                            capture_s=eng.capture_s, program_s=eng.program_s,
+                            host_ms_per_sweep=eng.program_s / sweeps * 1e3,
+                            tasks=len(steps), channels=rep.n_channels,
+                            replays=eng.n_replays, blocks=eng.n_blocks,
+                            host_syncs=eng.n_host_syncs,
+                            graph_nodes=eng.n_graph_nodes,
+                            port_stats=_port_stats(rep))
+        log(f"main {tag}: check {correct} max_err {max_err:.3e} "
             f"sweeps {sweeps} wall {wall:.3f} s "
-            f"({sweeps / wall:.1f} sweeps/s) capture {eng.capture_s:.3f} s, "
+            f"({sweeps / wall:.1f} sweeps/s; "
+            f"{eng.program_s / sweeps * 1e3:.3f} host ms a sweep) capture "
+            f"{eng.capture_s:.3f} s, "
             f"{eng.n_replays} replays in {eng.n_blocks} blocks, "
-            f"{eng.n_host_syncs} host syncs; launches {launches} (counted "
-            f"on the card; == replays and the firings' ring ops)")
+            f"{eng.n_host_syncs} host syncs, a graph of {eng.n_graph_nodes} "
+            f"nodes ({len(steps)} tasks, {rep.n_channels} channels); "
+            f"launches {launches} (counted on the card; == replays and the "
+            f"firings' ring ops)")
     return per_app, launch_counts()
+
+
+def _async_outputs(name: str, args) -> torch.Tensor:
+    if name == "gemm":
+        return torch.stack([p.data for p in args[2]])
+    return args[1].data
+
+
+def _schedule(rep, eng) -> tuple:
+    """What a compiled run's schedule must equal exactly across devices:
+    sweeps, each task's end state, channel tokens and highwater marks, the
+    ports' request counters."""
+    import re
+    return (rep.switches, re.sub(r"#\d+", "", repr(rep.instances)),
+            rep.channels, sorted(
+        (c.name, c.total_read, c.total_written, c.max_occupancy)
+        for c in eng.channel_set), _port_stats(rep))
+
+
+def async_vs_cpu() -> dict:
+    """Each async-port graph of phase 4 again on the card, with CUDA events
+    around each block of replays (device time a sweep in the sweep's
+    graphs), and on the CPU (the plain versions): the schedule (sweeps,
+    fires, channel stats, port counters) equal, the outputs within
+    ``CPU_REL_TOL`` of the CPU's and ``REF_REL_TOL`` of the reference
+    (relative to max |out|)."""
+    from repro_torch import ENGINES
+    from repro_torch.apps import APPS
+    out = {}
+    for name, kw in FULL_ASYNC.items():
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            top, args, check = APPS[name].build_step_async(device=dev, **kw)
+            eng = ENGINES["compiled"](device=dev)
+            with _TimedReplays() as tr:
+                rep = eng.run(top, *args)
+            if not rep.ok:
+                raise AssertionError(f"{name} async on {dev}: {rep.error}")
+            runs[dev] = dict(y=_async_outputs(name, args).cpu().double(),
+                             schedule=_schedule(rep, eng), eng=eng,
+                             err=check()[1])
+            if dev == "cuda":
+                graph_s = tr.device_s()[0]
+        c, g = runs["cpu"], runs["cuda"]
+        if g["schedule"] != c["schedule"]:
+            raise AssertionError(f"{name} async: the card's schedule "
+                                 f"{g['schedule'][0]} sweeps, ports "
+                                 f"{g['schedule'][4]} differs from the CPU "
+                                 f"lowering's {c['schedule'][0]}, "
+                                 f"{c['schedule'][4]}")
+        scale = float(c["y"].abs().max())
+        rel_ref = g["err"] / scale
+        rel_cpu = float((g["y"] - c["y"]).abs().max()) / scale
+        if not (rel_ref < REF_REL_TOL and rel_cpu <= CPU_REL_TOL[name]):
+            raise AssertionError(
+                f"{name} async: max err / max |out| = {rel_ref:.3e} against "
+                f"the reference (limit {REF_REL_TOL:g}), {rel_cpu:.3e} "
+                f"against the CPU lowering (limit {CPU_REL_TOL[name]:g})")
+        sweeps, eng = g["schedule"][0], g["eng"]
+        out[name] = dict(params=kw, sweeps=sweeps, rel_err_ref=rel_ref,
+                         rel_err_cpu=rel_cpu, graph_device_s=graph_s,
+                         graph_us_per_sweep=graph_s / sweeps * 1e6,
+                         timed_program_s=eng.program_s,
+                         timed_capture_s=eng.capture_s,
+                         cpu_program_s=c["eng"].program_s,
+                         port_stats=g["schedule"][4])
+        log(f"async {name}: schedule == CPU lowering ({sweeps} sweeps, "
+            f"port counters {g['schedule'][4][0]} ...), card vs reference "
+            f"{rel_ref:.3e}, vs CPU {rel_cpu:.3e} of max |out|; device in "
+            f"the sweep's graphs {graph_s:.4f} s = "
+            f"{graph_s / sweeps * 1e6:.1f} us a sweep (events a block; this "
+            f"run's loop {eng.program_s - eng.capture_s:.3f} s)")
+    return out
 
 
 def _outputs(name: str, args) -> torch.Tensor:
@@ -917,6 +1291,39 @@ def twin_vs_compiled() -> dict:
                          sweeps=comp.switches)
         log(f"twin {name}: twin == compiled bitwise on the card, tokens "
             f"{comp.tokens}, sweeps {comp.switches} (== CPU lowering)")
+    for name, kw in REDUCED_ASYNC.items():
+        mod = APPS[name]
+        for depth in (1, 4):
+            k = dict(kw, **({"depth": depth} if name == "gemm"
+                            else {"edge_depth": depth}))
+            top, args, _ = mod.build_step_async(device="cuda", **k)
+            twin = ENGINES["coroutine"](track_stats=True).run(top, *args)
+            y_twin = _async_outputs(name, args).clone()
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                top, args, check = mod.build_step_async(device=dev, **k)
+                eng = ENGINES["compiled"](device=dev)
+                rep = eng.run(top, *args)
+                if not (rep.ok and check()[0]):
+                    raise AssertionError(f"{name} async depth {depth} on "
+                                         f"{dev}: {rep.error}")
+                runs[dev] = (_async_outputs(name, args).clone(),
+                             _schedule(rep, eng), rep.tokens)
+            tag = f"{name}_async depth {depth}"
+            if not twin.ok or not torch.equal(y_twin, runs["cuda"][0]):
+                raise AssertionError(f"{tag}: twin and compiled outputs "
+                                     f"differ on the card ({twin.error})")
+            if runs["cuda"][1] != runs["cpu"][1] or \
+                    twin.tokens != runs["cuda"][2]:
+                raise AssertionError(f"{tag}: the card's schedule "
+                                     f"{runs['cuda'][1]} vs the CPU "
+                                     f"lowering's {runs['cpu'][1]}")
+            sched = runs["cuda"][1]
+            out[f"{name}_async_d{depth}"] = dict(
+                params=k, bitwise=True, sweeps=sched[0], port_stats=sched[4])
+            log(f"twin {tag}: twin == compiled bitwise on the card; sweeps "
+                f"{sched[0]}, fires, channel stats and port counters == CPU "
+                f"lowering")
     return out
 
 
@@ -1289,25 +1696,33 @@ def time_attention() -> dict:
     return out
 
 
-def _kernel_device_ms(fn, kernels, n: int = 2 * LAYERS) -> float:
+def _kernel_device_ms(fn, kernels, n: int = 2 * LAYERS,
+                      tries: int = PROFILE_TRIES) -> float:
     """Mean device ms a call of the kernels named in ``kernels`` (one name,
     or a tuple whose first kernel runs once a call) over ``n`` calls of
-    ``fn`` (the profiler's kernel time: no host path)."""
+    ``fn`` (the profiler's kernel time: no host path).  The profiler on
+    the card now and then loses kernel records, so a profile that shows
+    no launch is taken again on ``n`` new calls, ``tries`` profiles in
+    all, and the last miss fails."""
     from torch.profiler import ProfilerActivity, profile
     names = (kernels,) if isinstance(kernels, str) else tuple(kernels)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-    total, calls = 0.0, 0
-    for e in prof.key_averages():
-        for j, nm in enumerate(names):
-            if nm in e.key:
-                total += e.self_device_time_total
-                calls += e.count if j == 0 else 0
-    if not calls:
-        raise AssertionError(f"the profiler saw no {names[0]} launch")
-    return total / calls / 1e3
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        total, calls = 0.0, 0
+        for e in prof.key_averages():
+            for j, nm in enumerate(names):
+                if nm in e.key:
+                    total += e.self_device_time_total
+                    calls += e.count if j == 0 else 0
+        if calls:
+            return total / calls / 1e3
+        if attempt == tries:
+            raise AssertionError(f"the profiler saw no {names[0]} launch")
+        log(f"the profiler saw none of {n} calls' {names[0]} launches; "
+            f"profiling new calls ({attempt} of {tries} profiles)")
 
 
 # ---------------------------------------------------------------------------
@@ -1461,9 +1876,6 @@ def _device_times(prof) -> tuple[float, dict]:
                     n, t = per.get(op, (0, 0.0))
                     per[op] = (n + (e.count if i == 0 else 0), t + us)
     return total, per
-
-
-PROFILE_TRIES = 3            # profiles of one run before a lost record fails
 
 
 def _profiled(run, check, where: str):
@@ -2377,6 +2789,7 @@ def main() -> int:
     timing, errs, kernel_checks = phase("3 kernels", kernel_phase)
     per_app, counts = phase("4 main path", main_path)
     full = phase("4 full size vs cpu", full_size_vs_cpu)
+    full_async = phase("4 async vs cpu", async_vs_cpu)
     twin = phase("5 twin vs compiled", twin_vs_compiled)
     dev_ms = {k: timing[k][0]["device_ms"] for k in REPLACES}
     brk = phase("6 breakdown", breakdown, dev_ms)
@@ -2440,6 +2853,7 @@ def main() -> int:
                          max_abs_err=errs["eval_guards"],
                          timing=timing["eval_guards"]),
         main_path=per_app, full_size_vs_cpu=full,
+        async_vs_cpu=full_async,
         twin_vs_compiled=twin, breakdown=brk, attention_checks=attn_checks,
         serving=serving, serving_breakdown=serve_brk, serve_cli=cli,
         card_vs_cpu=vs_cpu, ssd_checks=ssd_checks, training=training,

@@ -1,11 +1,13 @@
-"""SODA-style iterative Gaussian-filter dataflow (paper Section 4.1),
-step-function form.
+"""SODA-style iterative Gaussian-filter dataflow (paper Section 4.1).
 
-A chain of ``iters`` stencil stages; each stage holds a line buffer (two
-rows of reuse) and applies the 3x3 Gaussian kernel as soon as its window
-is full — the communication-optimal reuse-buffer microarchitecture SODA
-generates.  The image enters through a read ``mmap`` and the result
-leaves through a write ``mmap``, one row per firing.
+A chain of ``iters`` stencil stages; each stage holds a line buffer and
+applies the 3x3 Gaussian kernel as soon as its window is full — the
+communication-optimal reuse-buffer microarchitecture SODA generates.  The
+image enters through a read ``mmap`` and the result leaves through a
+write ``mmap``.  ``build``/``run`` (the reference's, copied) streams
+pixels through free-form tasks on host numpy buffers for the simulation
+engines; ``build_step`` is the step-function form that ``CompiledEngine``
+synthesizes, one row per firing.
 """
 
 from __future__ import annotations
@@ -31,6 +33,101 @@ def _stencil_ref(img: np.ndarray) -> np.ndarray:
     out[1:h-1, 1:w-1] = acc[1:h-1, 1:w-1]
     return out
 
+
+def Source(img: MMap, out, h: int, w: int):
+    # one mmap burst loads the frame; rows then stream in bursts (the
+    # line buffers downstream consume in row-sized chunks anyway)
+    frame = img.read_burst(0, h)
+    out.write_burst([float(px) for px in np.asarray(frame).reshape(-1)])
+    out.close()
+
+
+def Stencil(inp, out, h: int, w: int):
+    """Line-buffered 3x3 stencil over a row-major pixel stream.
+
+    A centre pixel's window completes when its south-east neighbour
+    (linear index centre + w + 1) arrives, so the stage emits with a
+    fixed latency of w+2 pixels — the SODA reuse-buffer schedule.
+    Pixels move in row-sized bursts; emitted pixels are staged in a
+    local list and flushed with one ``write_burst`` per input burst.
+    """
+    buf: list[float] = []
+    pending: list[float] = []
+
+    def emit(cy: int) -> None:
+        y, x = divmod(cy, w)
+        if 1 <= y < h - 1 and 1 <= x < w - 1:
+            win = (K[0, 0] * buf[cy-w-1] + K[0, 1] * buf[cy-w] +
+                   K[0, 2] * buf[cy-w+1] +
+                   K[1, 0] * buf[cy-1] + K[1, 1] * buf[cy] +
+                   K[1, 2] * buf[cy+1] +
+                   K[2, 0] * buf[cy+w-1] + K[2, 1] * buf[cy+w] +
+                   K[2, 2] * buf[cy+w+1])
+            pending.append(float(win))
+        else:
+            pending.append(buf[cy])
+
+    while True:
+        chunk = inp.read_burst(w)
+        for px in chunk:
+            buf.append(px)
+            cy = len(buf) - w - 2   # centre whose window just completed
+            if cy >= 0:
+                emit(cy)
+        if pending:
+            out.write_burst(pending)
+            pending.clear()
+        if len(chunk) < w:          # EoT reached
+            break
+    inp.open()
+    for cy in range(max(len(buf) - w - 1, 0), len(buf)):
+        emit(cy)                    # tail pixels (all boundary)
+    if pending:
+        out.write_burst(pending)
+    out.close()
+
+
+def Sink(inp, result: MMap, h: int, w: int):
+    flat = inp.read_transaction()
+    result.write_burst(0, np.asarray(flat, np.float32).reshape(h, w))
+
+
+def build(h: int = 12, w: int = 12, iters: int = 4, lanes: int = 1,
+          seed: int = 0):
+    rng = np.random.default_rng(seed)
+    img = rng.standard_normal((h, w)).astype(np.float32)
+    result = np.zeros_like(img)
+
+    img_mm = mmap(img, "img")
+    res_mm = mmap(result, "result")
+
+    def Top(src: MMap, dst: MMap):
+        chans = [channel(capacity=2 * w + 4, name=f"s{i}")
+                 for i in range(iters + 1)]
+        t = task().invoke(Source, src, chans[0], h, w)
+        for i in range(iters):
+            t = t.invoke(Stencil, chans[i], chans[i + 1], h, w,
+                         name=f"Stencil{i}")
+        t.invoke(Sink, chans[iters], dst, h, w)
+
+    def check():
+        ref = img
+        for _ in range(iters):
+            ref = _stencil_ref(ref)
+        err = float(np.max(np.abs(result - ref)))
+        return err < 1e-4, err
+
+    return Top, (img_mm, res_mm), check
+
+
+def run(engine: str = "coroutine", **kw) -> AppResult:
+    top, args, check = build(**kw)
+    return simulate("gaussian", top, args, engine, check)
+
+
+# ---------------------------------------------------------------------------
+# step-function form (whole-graph synthesis)
+# ---------------------------------------------------------------------------
 
 def build_step(h: int = 12, w: int = 12, iters: int = 4, seed: int = 0,
                device=None):

@@ -14,7 +14,11 @@ reference package's ``core/synth.py`` (single device):
 * bursts become ring transfers (:mod:`repro_torch.kernels.ring`: the
   ``ring_pop``/``ring_push`` kernels on a CUDA device);
 * mmap buffers become device tensors, written back to the host buffers
-  after the run.
+  after the run;
+* every bounded ``async_mmap`` port becomes a **latency queue** on the
+  device: its five member streams are ordinary rings, and the queue is
+  serviced once a sweep, after the task bodies
+  (:class:`~repro_torch.kernels.ring.ServicePorts`).
 
 The synthesizable subset is the **step-function form**: a leaf task is a
 :class:`StepTask` whose phases are functions ``state, *port_views ->
@@ -41,8 +45,9 @@ the task/channel* (:class:`~repro_torch.core.errors.SynthesisError`),
 never miscompiled: non-step leaf tasks, channels without a declared
 element spec, data-dependent I/O rates, wrong token shapes or dtypes,
 reads or writes beyond capacity, unstable state specs, EoT-closing tasks,
-and mmaps both written and read across tasks.  ``async_mmap`` ports are
-refused too: their synthesis is not ported yet.
+mmaps both written and read across tasks, ``async_mmap`` ports with an
+unbounded window (``depth=None``), ports both read and written, and
+``read_pipelined`` in a phase body.
 """
 
 from __future__ import annotations
@@ -66,7 +71,10 @@ from .graph import extract_graph
 from .interface import AsyncMMap, MMap
 from .task import (AutoStream, TaskInstance, bind_streams,
                    builder_stack_depth, join_pending_builders)
-from ..kernels.ring import (MAX_SWEEP_CHANNELS, MAX_SWEEP_TASKS, RingHandle,
+from ..kernels.ring import (MAX_PORT_DEPTH, MAX_SWEEP_CHANNELS,
+                            MAX_SWEEP_TASKS, P_ACC_R,
+                            P_ACC_W, P_DEL_R, P_DEL_W, P_MAX_R, P_MAX_W,
+                            PORT_WORDS, PortQueue, RingHandle, ServicePorts,
                             SweepGraph, SweepGuards, sparse_needs)
 
 # JAX's canonicalization with 64-bit mode off, which the reference
@@ -625,6 +633,68 @@ class _MMapRef:
         self.mi = mi
 
 
+class _PortRef:
+    __slots__ = ("pi", "cis")
+
+    def __init__(self, pi: int, cis: tuple):
+        self.pi = pi
+        self.cis = cis      # (raddr, rdata, waddr, wdata, wresp) chan ids
+
+
+class _SynthAsyncPort:
+    """Synthesis view of an async memory port: the five member streams
+    are ordinary :class:`_SynthStream` views over their rings, so port I/O
+    gets guards and static-rate counting as any stream does, while the
+    memory side is the latency queue the sweep services once a sweep
+    (:class:`_SweepProgram`)."""
+
+    __slots__ = ("_port", "_inst", "read_addr", "read_data", "write_addr",
+                 "write_data", "write_resp")
+
+    def __init__(self, ctx: _Ctx, cis: tuple, port: AsyncMMap,
+                 inst: TaskInstance, rec: Optional[_Recorder],
+                 plan: "_Plan"):
+        self._port = port
+        self._inst = inst
+        views = [_SynthStream(ctx, ci, plan.channels[ci], inst, rec)
+                 for ci in cis]
+        (self.read_addr, self.read_data, self.write_addr, self.write_data,
+         self.write_resp) = views
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self._port.shape)
+
+    @property
+    def dtype(self):
+        return self._port.dtype
+
+    @property
+    def latency(self) -> int:
+        return self._port.latency
+
+    @property
+    def depth(self):
+        return self._port.depth
+
+    @property
+    def name(self) -> str:
+        return self._port.name
+
+    def __len__(self) -> int:
+        return len(self._port)
+
+    def read_pipelined(self, addrs):
+        raise SynthesisError(
+            f"task {self._inst.name!r} used read_pipelined on async_mmap "
+            f"{self._port.name!r}: its issue/drain interleaving is "
+            f"availability-routed (try_write/select), outside the static-"
+            f"rate subset.  Software-pipeline it instead: issue addresses "
+            f"with write/write_burst on read_addr and drain read_data with "
+            f"read/read_burst across warmup/step/flush phases (see "
+            f"docs/synthesis.md, kernel lowering)")
+
+
 @dataclass
 class _PhasePlan:
     label: str
@@ -670,6 +740,10 @@ class _Plan:
         self._chan_idx: dict[int, int] = {}
         self.mmaps: list[MMap] = []
         self._mmap_idx: dict[int, int] = {}
+        self.ports: list[AsyncMMap] = []
+        self._port_idx: dict[int, int] = {}
+        self.port_chan_ids: dict[int, tuple] = {}   # pi -> 5 member cis
+        self.port_dirs: list[set] = []              # pi -> {"read","write"}
         self.tasks: list[_TaskPlan] = []
         self.consts: dict = {}      # the phases' host constants, on the CPU
 
@@ -685,6 +759,14 @@ class _Plan:
         if i is None:
             i = self._mmap_idx[id(m)] = len(self.mmaps)
             self.mmaps.append(m)
+        return i
+
+    def port_index(self, p: AsyncMMap) -> int:
+        i = self._port_idx.get(id(p))
+        if i is None:
+            i = self._port_idx[id(p)] = len(self.ports)
+            self.ports.append(p)
+            self.port_dirs.append(set())
         return i
 
 
@@ -703,11 +785,22 @@ def _build_template(v: Any, plan: _Plan, tp: _TaskPlan) -> Any:
             tp.mmap_ids.append(mi)
         return _MMapRef(mi)
     if isinstance(v, AsyncMMap):
-        raise SynthesisError(
-            f"task {tp.inst.name!r} binds async_mmap {v.name!r}: "
-            f"async-port synthesis (the latency-queue lowering) is not yet "
-            f"ported to repro_torch; run this graph on a simulation "
-            f"engine, or read the buffer through an mmap")
+        if not isinstance(v.depth, int):
+            raise SynthesisError(
+                f"task {tp.inst.name!r} binds async_mmap {v.name!r} with "
+                f"an unbounded in-flight window (depth=None): synthesis "
+                f"sizes the latency queue in the sweep's carry from a "
+                f"static depth — give the port a bounded depth (e.g. "
+                f"depth=4) or run on a simulation engine")
+        pi = plan.port_index(v)
+        cis = []
+        for ch in v.channels():
+            ci = plan.chan_index(ch)
+            if ci not in tp.chan_ids:
+                tp.chan_ids.append(ci)
+            cis.append(ci)
+        plan.port_chan_ids[pi] = tuple(cis)
+        return _PortRef(pi, tuple(cis))
     if isinstance(v, (list, tuple)):
         conv = [_build_template(x, plan, tp) for x in v]
         return type(v)(conv) if isinstance(v, tuple) else conv
@@ -720,6 +813,9 @@ def _instantiate(t: Any, ctx: _Ctx, plan: _Plan, inst: TaskInstance,
         return _SynthStream(ctx, t.ci, plan.channels[t.ci], inst, rec)
     if isinstance(t, _MMapRef):
         return _SynthMMap(ctx, t.mi, plan.mmaps[t.mi], inst, rec)
+    if isinstance(t, _PortRef):
+        return _SynthAsyncPort(ctx, t.cis, plan.ports[t.pi], inst, rec,
+                               plan)
     if isinstance(t, (list, tuple)):
         conv = [_instantiate(x, ctx, plan, inst, rec) for x in t]
         return type(t)(conv) if isinstance(t, tuple) else conv
@@ -865,7 +961,8 @@ class _Capture:
     on a side stream), all in one memory pool: a body's temporaries are
     dead when it ends, and the sweep runs the bodies one after another,
     so they may share memory.  ``graphs`` holds ``(row, graph)`` with
-    ``row = t * P + p``."""
+    ``row = t * P + p``; ``tail`` the graph of the port service (a graph
+    with async ports), which runs after the bodies unconditionally."""
 
     def __init__(self, plan: _Plan, device: torch.device, mode: str,
                  n_ph: int):
@@ -873,15 +970,15 @@ class _Capture:
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
         self.graphs: list = []
+        self.tail = None
 
     @contextlib.contextmanager
-    def body(self, key: tuple):
-        ti, pi = key
+    def _graph(self, what: str):
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.stream(self.stream):
             graph.capture_begin(pool=self.pool, capture_error_mode=self.mode)
             try:
-                yield
+                yield graph
             except BaseException:
                 with contextlib.suppress(RuntimeError):   # already invalid
                     graph.capture_end()
@@ -889,12 +986,24 @@ class _Capture:
             try:
                 graph.capture_end()
             except RuntimeError as e:
-                tp = self.plan.tasks[ti]
                 raise SynthesisError(
-                    f"task {tp.inst.name!r}: phase {tp.phases[pi].label!r} "
-                    f"failed to capture into the sweep's CUDA graph: "
+                    f"{what} failed to capture into the sweep's CUDA graph: "
                     f"{e}") from e
+
+    @contextlib.contextmanager
+    def body(self, key: tuple):
+        ti, pi = key
+        tp = self.plan.tasks[ti]
+        with self._graph(f"task {tp.inst.name!r}: phase "
+                         f"{tp.phases[pi].label!r}") as graph:
+            yield
         self.graphs.append((ti * self.n_ph + pi, graph))
+
+    @contextlib.contextmanager
+    def port_service(self):
+        with self._graph("the port service") as graph:
+            yield
+        self.tail = graph
 
 
 class _Carry:
@@ -904,11 +1013,14 @@ class _Carry:
     ``sizes`` entries), ``maxocc``, the firing counters ``fires`` and the
     sweep state ``state`` (int32: done, sweeps), each task's state in
     static buffers (``states``; a firing copies its returned state into
-    them) and the mmaps.  ``run``/``fire``/``phase`` are the guards'
-    outputs for the sweep in progress, not carried across sweeps."""
+    them), the mmaps and each async port's latency queue (``ports``:
+    :class:`PortQueue`, its counters the rows of ``pint``).
+    ``run``/``fire``/``phase`` and ``flags`` (any fired, any left) are the
+    guards' outputs for the sweep in progress, not carried across
+    sweeps."""
 
     def __init__(self, plan: _Plan, device: torch.device, states0: tuple,
-                 mmaps0: tuple, n_ph: int):
+                 mmaps0: tuple, n_ph: int, ports0: tuple = ()):
         n_chans, n_tasks = len(plan.channels), len(plan.tasks)
         zeros = functools.partial(torch.zeros, dtype=torch.int32,
                                   device=device)
@@ -928,39 +1040,58 @@ class _Carry:
         self.mmaps = list(mmaps0)
         self.ctx = _Ctx(self.rings, dict(enumerate(self.mmaps)), device,
                         {k: v.to(device) for k, v in plan.consts.items()})
+        self.flags = zeros(2)
+        self.pint = torch.zeros((len(plan.ports), PORT_WORDS),
+                                dtype=torch.int32, device=device)
+        self.ports = [PortQueue(data, self.pint[pi], plan.port_chan_ids[pi],
+                                p.depth, p.latency)
+                      for pi, (p, data) in enumerate(zip(plan.ports, ports0))]
 
     def tensors(self) -> list:
         """Every carried tensor."""
         return [r.buf for r in self.rings.values()] + [
             self.heads, self.sizes, self.maxocc, self.fires, self.state] + \
-            [x for st in self.states for x in _leaves(st)] + self.mmaps
+            [x for st in self.states for x in _leaves(st)] + self.mmaps + \
+            [self.pint] + [x for q in self.ports
+                           for x in (q.data, q.win, q.wval)]
 
 
 class _SweepProgram:
     """The whole graph as one sweep loop on ``device``.
 
-    ``program(states0, mmaps0)`` runs the graph to completion (or to a
-    stall) and returns ``(mmaps, fires, sweeps, maxocc, sizes)``.  One
-    sweep (:meth:`_sweep`) gives every task instance one guarded chance to
-    fire:
+    ``program(states0, mmaps0, ports0)`` runs the graph to completion (or
+    to a stall) and returns ``(mmaps, fires, sweeps, maxocc, sizes,
+    (port_counters, port_buffers))``.  One sweep (:meth:`_sweep`) gives
+    every task instance one guarded chance to fire, then every async port
+    one service step:
 
     1. one ``sweep_guards`` launch (:class:`SweepGuards`) derives every
        task's phase and liveness from the firing counters, evaluates every
        guard from the start-of-sweep occupancy vector over sparse need
        tables, writes the predicate ``run[t, p]`` of each (task, phase),
        commits ``fires += fire``, counts the sweep and sets the done flag;
+       in a graph with ports it leaves the count and the done flag to
+       step 3;
     2. each (task, phase) body runs in task order behind its predicate
-       (:func:`_if_node`): the phase function through the task's stream
-       and mmap views, bound once (ring ops and mmap stores update the
+       (:func:`_if_node`): the phase function through the task's stream,
+       mmap and port views, bound once (ring ops and mmap stores update the
        device tensors in place), its returned state copied into the task's
        static state buffers, and the occupancy highwater marks sampled
        after the firing (a sweep-boundary sample would always see drained
-       FIFOs).
+       FIFOs);
+    3. in a graph with ports, one ``service_ports`` launch
+       (:class:`ServicePorts`) services every latency queue against the
+       sweep counter as it stands before this sweep is counted, samples
+       the highwater marks over every channel and commits the sweep: the
+       run goes on while it made progress (a body fired, a request moved,
+       or one is due later) and work is left (firings, or a window that is
+       not empty), as the reference's loop condition reads.
 
     On the card the sweep is one CUDA graph (:class:`SweepGraph`): the
     guards kernel, then one conditional node a (task, phase) whose body is
-    that body's captured graph (:class:`_Capture`); the kernel sets the
-    condition of the phase that fires.  The host replays it in blocks of
+    that body's captured graph (:class:`_Capture`), then the port
+    service's captured graph; the kernel sets the condition of the phase
+    that fires.  The host replays it in blocks of
     :data:`SWEEP_BLOCKS` with no sync inside a block, reads the done flag
     once a block (one copy into pinned memory) and everything else once
     at the end.  A body
@@ -979,7 +1110,8 @@ class _SweepProgram:
 
     After a run: ``capture_s`` (host seconds capturing, 0 on the CPU),
     ``n_replays`` (sweeps replayed, those past the end included),
-    ``n_blocks`` and ``n_host_syncs`` (one a block and one final read).
+    ``n_blocks`` and ``n_host_syncs`` (one a block and one final read),
+    ``n_graph_nodes`` (the sweep graph's top-level nodes, 0 on the CPU).
     On the card the ring kernels count their own launches, replayed ones
     included (:mod:`..kernels.dispatch`).
     """
@@ -996,6 +1128,12 @@ class _SweepProgram:
                 f"{len(plan.channels)} channels; the captured sweep's guards "
                 f"run one block of one thread a task, at most "
                 f"{MAX_SWEEP_TASKS} tasks over {MAX_SWEEP_CHANNELS} channels")
+        for p in plan.ports:
+            if device.type == "cuda" and p.depth > MAX_PORT_DEPTH:
+                raise SynthesisError(
+                    f"async_mmap {p.name!r} has depth {p.depth}; the port "
+                    f"service on the card keeps at most {MAX_PORT_DEPTH} "
+                    f"requests in flight a direction")
         if bounds is None:
             bounds = np.zeros((n_tasks, 0), np.int32)
         row_ptr, entries = sparse_needs(need_r, need_w, caps)
@@ -1005,13 +1143,18 @@ class _SweepProgram:
         self.carry: Optional[_Carry] = None
         self.capture_s = 0.0
         self.n_replays = self.n_blocks = self.n_host_syncs = 0
+        self.n_graph_nodes = 0
         self._graph = self._flag = None
 
-    def __call__(self, states0: tuple, mmaps0: tuple):
+    def __call__(self, states0: tuple, mmaps0: tuple, ports0: tuple = ()):
         c = self.carry = _Carry(self.plan, self.device, states0, mmaps0,
-                                self.n_ph)
+                                self.n_ph, ports0)
         self._guards = SweepGuards(*self._tables, c.sizes, c.fires, c.state,
-                                   c.run, c.fire, c.phase)
+                                   c.run, c.fire, c.phase,
+                                   c.flags if c.ports else None)
+        self._service = ServicePorts(c.ports, c.rings, c.heads, c.sizes,
+                                     c.maxocc, c.state, c.flags) \
+            if c.ports else None
         self._views = [_bind_views(self.plan, tp, c.ctx, None)
                        for tp in self.plan.tasks]
         self._bodies = [(ti, pi, c.run[ti, pi])
@@ -1048,14 +1191,18 @@ class _SweepProgram:
         self.n_blocks += 1
 
     def _sweep(self, capture: Optional[_Capture] = None) -> None:
-        """One sweep; on the card (``capture``) it captures the bodies,
-        and the guards are the graph's first node."""
+        """One sweep; on the card (``capture``) it captures the bodies and
+        the port service, and the guards are the graph's first node."""
         if capture is None:
             self._guards()
         for ti, pi, pred in self._bodies:
             with _if_node(pred, capture, (ti, pi)) as taken:
                 if taken:
                     self._fire(ti, pi, capture is not None)
+        if self._service is not None:
+            with capture.port_service() if capture is not None else \
+                    contextlib.nullcontext():
+                self._service()
 
     def _fire(self, ti: int, pi: int, capturing: bool) -> None:
         tp, c = self.plan.tasks[ti], self.carry
@@ -1107,8 +1254,12 @@ class _SweepProgram:
         for mode in ("relaxed", "global"):
             capture = _Capture(self.plan, self.device, mode, self.n_ph)
             self._sweep(capture)
-        self._graph = SweepGraph(self._guards, [(row, g.raw_cuda_graph())
-                                                for row, g in capture.graphs])
+        self._graph = SweepGraph(
+            self._guards, [(row, g.raw_cuda_graph())
+                           for row, g in capture.graphs],
+            capture.tail.raw_cuda_graph() if capture.tail is not None
+            else None)
+        self.n_graph_nodes = self._graph.nodes
         self.capture_s = time.perf_counter() - t0
 
     def _done(self) -> bool:
@@ -1124,19 +1275,31 @@ class _SweepProgram:
 
     def _read(self) -> tuple:
         """The run's results in one read: ``(mmaps, fires, sweeps, maxocc,
-        sizes)``, all but the mmaps on the host."""
+        sizes, (port_counters, port_buffers))``, all but the mmaps on the
+        host: ``port_counters[port, PORT_WORDS]`` and the buffer of each
+        port the graph writes (``{port: tensor}``)."""
         c = self.carry
-        vec = torch.cat([c.fires, c.state, c.maxocc, c.sizes])
+        vec = torch.cat([c.fires, c.state, c.maxocc, c.sizes,
+                         c.pint.view(-1)])
+        written = {pi: c.ports[pi].data
+                   for pi, dirs in enumerate(self.plan.port_dirs)
+                   if "write" in dirs}
         if self._flag is not None:
             host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
             host.copy_(vec, non_blocking=True)
+            for pi, x in written.items():
+                written[pi] = torch.empty(x.shape, dtype=x.dtype,
+                                          pin_memory=True)
+                written[pi].copy_(x, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
             vec = host
         self.n_host_syncs += 1
         t, n = len(c.fires), len(c.sizes)
         fires = vec[:t].numpy().astype(np.int64)
+        counters = vec[t + 2 + 2 * n:].view(-1, PORT_WORDS).numpy()
         return (tuple(c.mmaps), fires, int(vec[t + 1]),
-                vec[t + 2:t + 2 + n], vec[t + 2 + n:])
+                vec[t + 2:t + 2 + n], vec[t + 2 + n:t + 2 + 2 * n],
+                (counters, written))
 
 
 # ---------------------------------------------------------------------------
@@ -1176,13 +1339,15 @@ class CompiledEngine(EngineBase):
         # (_SweepProgram): the capture's host seconds (capture_s, 0 on the
         # CPU), sweeps replayed (n_replays, those past the end included),
         # blocks and host syncs (n_host_syncs: one a block and one final
-        # read); the ring pops and pushes the firings made (ring_ops: on the
-        # card, the kernel launches the run should count)
+        # read), the sweep graph's top-level nodes (n_graph_nodes); the ring
+        # pops and pushes the firings made (ring_ops: on the card, the
+        # kernel launches the run should count)
         self.n_sweeps = 0
         self.lower_s = 0.0
         self.program_s = 0.0
         self.capture_s = 0.0
         self.n_replays = self.n_blocks = self.n_host_syncs = 0
+        self.n_graph_nodes = 0
         self.ring_ops: dict = {}
 
     # -- runtime protocol: any live stream op means "not step form" ----------
@@ -1294,6 +1459,31 @@ class CompiledEngine(EngineBase):
             if not tp.phases:
                 raise SynthesisError(
                     f"task {tp.inst.name!r} has zero total firings")
+        # async ports: record each port's direction from its member-channel
+        # traffic, and refuse read+write ports — a read racing an in-flight
+        # write to the same buffer resolves by response timing, which the
+        # sweep schedule must not be allowed to decide
+        for tp in plan.tasks:
+            for ph in tp.phases:
+                for ci in list(ph.reads) + list(ph.writes):
+                    c = plan.channels[ci]
+                    pi = plan._port_idx.get(id(c.iface)) \
+                        if c.iface is not None else None
+                    if pi is None:
+                        continue
+                    p = plan.ports[pi]
+                    if c is p._raddr or c is p._rdata:
+                        plan.port_dirs[pi].add("read")
+                    else:
+                        plan.port_dirs[pi].add("write")
+        for pi, dirs in enumerate(plan.port_dirs):
+            if dirs >= {"read", "write"}:
+                raise SynthesisError(
+                    f"async_mmap {plan.ports[pi].name!r} is both read and "
+                    f"written in the synthesized graph: read-after-write "
+                    f"through an async port depends on response timing; "
+                    f"use one port per direction (or route the value "
+                    f"through a channel)")
         # schedule-independence: an mmap written by one task and read by
         # another would make results depend on sweep order — refuse
         readers: dict[int, set] = {}
@@ -1347,11 +1537,17 @@ class CompiledEngine(EngineBase):
                             for tp in plan.tasks)
             mmaps0 = tuple(_as_canon(m.data, self.device).clone()
                            for m in plan.mmaps)
+            ports0 = tuple(_as_canon(p.data, self.device).clone()
+                           for p in plan.ports)
             program = _SweepProgram(plan, self.device)
-            mm_final, fires, sweeps, maxocc, sizes = program(states0, mmaps0)
+            mm_final, fires, sweeps, maxocc, sizes, (counters, written) = \
+                program(states0, mmaps0, ports0)
             self.capture_s = program.capture_s
             self.n_replays, self.n_blocks, self.n_host_syncs = \
                 program.n_replays, program.n_blocks, program.n_host_syncs
+            self.n_graph_nodes = program.n_graph_nodes
+            self._writeback_ports(plan, written)
+            self._fill_port_stats(plan, counters)
             rep = self._finish(plan, mm_final, fires, sweeps, maxocc, sizes,
                                result, t0)
             self.program_s = time.perf_counter() - t1
@@ -1410,6 +1606,37 @@ class CompiledEngine(EngineBase):
                 np.copyto(m.data, out.cpu().numpy())
             else:
                 m.data = out
+
+    def _writeback_ports(self, plan: _Plan, written: dict) -> None:
+        """Copy the buffer of every port the graph writes back into the
+        port's own buffer (``written``: port index -> host tensor)."""
+        for pi, out in written.items():
+            p = plan.ports[pi]
+            if isinstance(p.data, torch.Tensor):
+                p.data.copy_(out)
+            elif isinstance(p.data, np.ndarray):
+                np.copyto(p.data, out.numpy())
+            else:
+                p.data = out
+
+    def _fill_port_stats(self, plan: _Plan, counters: np.ndarray) -> None:
+        """Fill each port's request counters from the compiled carry, so
+        ``SimReport.interfaces`` carries real numbers — the compiled twin
+        of ``AsyncMMap.pump``'s bookkeeping."""
+        for p, pc in zip(plan.ports, counters):
+            p.read_reqs = int(pc[P_ACC_R])
+            p.read_resps = int(pc[P_DEL_R])
+            p.write_reqs = int(pc[P_ACC_W])
+            p.write_resps = int(pc[P_DEL_W])
+            p.max_outstanding_reads = int(pc[P_MAX_R])
+            p.max_outstanding_writes = int(pc[P_MAX_W])
+            # service-side member-channel totals (the task side is
+            # reconstructed from firing counters in _fill_stats)
+            p._raddr.total_read += p.read_reqs
+            p._rdata.total_written += p.read_resps
+            p._waddr.total_read += p.write_reqs
+            p._wdata.total_read += p.write_reqs
+            p._wresp.total_written += p.write_resps
 
     def _fill_stats(self, plan: _Plan, fires: np.ndarray,
                     maxocc: np.ndarray) -> None:

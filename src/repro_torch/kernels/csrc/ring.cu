@@ -12,6 +12,8 @@
 //                 fires += fire, the sweep count and the done flag
 //   eval_guards   fire[t] = live[t] & all_c(need_r[t,c] <= sizes[c])
 //                                    & all_c(need_w[t,c] <= caps[c] - sizes[c])
+//   service_ports every async_mmap port's latency queue, once a sweep, then
+//                 the sweep's commit (its count and done flag)
 //
 // They replace the Pallas kernels _pop_kernel, _push_kernel and
 // _guard_kernel of the reference package (src/repro/kernels/ring.py):
@@ -45,7 +47,8 @@
 //   channels and __all_sync reduces.  Integer compares only, so the result
 //   is exact.
 //
-// * Each launch of ring_pop, ring_push or sweep_guards adds one to its entry
+// * Each launch of ring_pop, ring_push, sweep_guards or service_ports adds
+//   one to its entry
 //   of ring_launches, on the device (block 0, thread 0, one atomicAdd):
 //   a launch is counted where it runs, whether the host launched it or a
 //   replayed CUDA graph did.  The host reads the counters
@@ -72,6 +75,34 @@
 // memory, so an entry costs one load from device memory after the phase is
 // known: two round trips in all, as eval_guards' compare.
 // __syncthreads_or gives any(live), any(fire) and any(left).
+//
+// service_ports is the reference's per-sweep port service
+// (_service_ports, src/repro/core/synth.py:951; XLA ops there, no Pallas
+// kernel) as one launch after the sweep's bodies.  Each bounded async_mmap
+// port is a latency queue: a read window and a write window of `depth`
+// in-flight requests, each stamped due `latency` sweeps after it was
+// accepted.  The step, per port, in the reference's order: deliver due reads
+// in FIFO order while the response ring has room (a row copy from the
+// buffer at the clipped address), deliver due writes the same way (a row
+// copy into the buffer, `true` into write_resp), accept queued reads into
+// free window slots, accept queued writes (an address and a value token
+// each).  Ports touch disjoint rings and buffers, so each port has a cluster
+// of its own.  Bound: bytes, the rows it copies (up to 256 KiB each on
+// gemm's ports, 8 B on page_rank's).  The decisions are a short chain of
+// dependent integer steps; every block's thread 0 makes the same chain from
+// the same start-of-launch state into shared memory, so the blocks need not
+// exchange them, and then the cluster copies the rows, a phase at a time:
+// read deliveries, write deliveries (the last one to each address only:
+// the earlier ones are overwritten in the same step), write acceptances
+// (which may reuse a window slot a delivery just freed), with a cluster
+// barrier between phases.  Block 0 writes the state back after the
+// barriers, when every block has read it.  The commit needs every port's
+// outcome: the block that finishes last (a ticket, as in CUDA's
+// threadFenceReduction sample) samples the occupancy highwater marks over
+// every channel, counts the sweep and sets done unless the sweep made
+// progress (a body fired, a request moved, or one is due later) and work
+// is left (a task has firings left or a window is not empty).  With the
+// done flag set at its start, a launch changes nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,6 +140,10 @@ struct SweepLaunch {
   bool* run;                // [T, P] out: the phase that fires
   bool* fire;               // [T] out
   int32_t* phase;           // [T] out
+  // [2] out: any task fired, any has firings left; set for a graph with
+  // async ports, whose sweep service_ports commits: then the kernel leaves
+  // state alone.  Null for a graph without ports.
+  int32_t* flags;
   // [T * P] the conditional handle of each (task, phase) body in the
   // sweep's graph, 0 where the task has no such phase; null outside it
   const unsigned long long* handles;
@@ -118,14 +153,51 @@ struct SweepLaunch {
   int C;
 };
 
-// Launches of ring_pop, ring_push and sweep_guards (in that order) since
-// the host last zeroed them.  Outside the anonymous namespace: an extern
-// "C" entry returns its address.
-__device__ unsigned long long ring_launches[3];
+// One async_mmap port's latency queue, prepared once by the Python wrapper
+// (kernels/ring.py, class _PortLaunch) into a device array the kernel
+// reads.  Rings by role: 0 read_addr, 1 read_data, 2 write_addr,
+// 3 write_data, 4 write_resp.
+struct PortLaunch {
+  void* data;               // [nrow, row] the port's buffer
+  void* wval;               // [depth, row] values of the write window
+  int32_t* win;             // [4, depth] read addr, read due, write addr,
+                            // write due
+  int32_t* st;              // [10] the port's counters (kP* below)
+  void* buf[5];             // each ring's buffer
+  long long row_bytes;
+  int nrow;
+  int depth;
+  int latency;
+  int word;                 // copy word dividing the row and every buffer
+  int chan[5];              // each ring's channel (its heads/sizes entry)
+  int cap[5];
+};
+
+// One program's service launch, prepared once by the Python wrapper (class
+// _ServiceLaunch) and passed to the kernel by value.
+struct ServiceLaunch {
+  const PortLaunch* ports;  // [n], device memory
+  int32_t* heads;           // [C]
+  int32_t* sizes;           // [C]
+  int32_t* maxocc;          // [C]
+  int32_t* state;           // [2] done, sweeps
+  const int32_t* flags;     // [2] sweep_guards' any fired, any left
+  int32_t* scratch;         // [3] ticket, progress, pending; zero between
+                            // launches
+  void* stream;
+  int n;
+  int C;
+  int blocks;               // the cluster of one port
+};
+
+// Launches of ring_pop, ring_push, sweep_guards and service_ports (in that
+// order) since the host last zeroed them.  Outside the anonymous
+// namespace: an extern "C" entry returns its address.
+__device__ unsigned long long ring_launches[4];
 
 namespace {
 
-enum { kPopLaunches, kPushLaunches, kSweepLaunches };
+enum { kPopLaunches, kPushLaunches, kSweepLaunches, kServiceLaunches };
 
 constexpr int kCopyThreads = 512;
 constexpr int kUnroll = 4;
@@ -279,6 +351,10 @@ __global__ void eval_guards_kernel(const int32_t* __restrict__ sizes,
 // all-zero predicates and changes nothing, so replays past the end are
 // harmless.  fires is committed here and not after the task bodies: within
 // a sweep nothing reads it again (each body learns its phase from run).
+// With a.flags set (a graph with async ports) the kernel writes any(fire)
+// and any(left) there and leaves the sweep count and the done flag to
+// service_ports, which runs after the bodies: a sweep that fires nothing
+// may still move a port's requests.
 __global__ void __launch_bounds__(kMaxSweepTasks)
 sweep_guards_kernel(const SweepLaunch a) {
   extern __shared__ int32_t occ[];   // sizes[C], staged once a launch
@@ -331,10 +407,228 @@ sweep_guards_kernel(const SweepLaunch a) {
   }
   if (t == 0) {
     atomicAdd(&ring_launches[kSweepLaunches], 1ull);
-    if (!done) {
+    if (a.flags) {
+      a.flags[0] = any_fire;
+      a.flags[1] = any_left;
+    } else if (!done) {
       if (any_live) a.state[1] += 1;
       if (!any_live || !any_fire || !any_left) a.state[0] = 1;
     }
+  }
+}
+
+// The port counters' layout (st), as the reference's port carry holds them.
+enum { kRHead, kRSize, kWHead, kWSize, kAccR, kDelR, kAccW, kDelW, kMaxR,
+       kMaxW, kPortWords };
+constexpr int kMaxDepth = 64;   // a port's in-flight window
+
+// What a service step decides for one port, made by each block's thread 0.
+struct PortStep {
+  int st[kPortWords];
+  int win[4][kMaxDepth];
+  int head[5], size[5];
+  int n_rd, rd_src[kMaxDepth], rd_dst[kMaxDepth];   // data row -> rd slot
+  int n_wd, wd_src[kMaxDepth], wd_dst[kMaxDepth];   // wval slot -> data row
+  int n_wa, wa_src[kMaxDepth], wa_dst[kMaxDepth];   // wd slot -> wval slot
+  int wr_first, n_wr;                                // write_resp slots
+  int done, moved, waiting, pending;
+};
+
+// The reference's _service_ports for one port, step for step, on ints.
+__device__ void decide(const PortLaunch& p, const int32_t* heads,
+                       const int32_t* sizes, int sweeps, PortStep& s) {
+  const int d = p.depth;
+  for (int k = 0; k < kPortWords; ++k) s.st[k] = p.st[k];
+  for (int r = 0; r < 4; ++r)
+    for (int k = 0; k < d; ++k) s.win[r][k] = p.win[r * d + k];
+  for (int r = 0; r < 5; ++r) {
+    s.head[r] = heads[p.chan[r]];
+    s.size[r] = sizes[p.chan[r]];
+  }
+  int* st = s.st;
+  int moved = 0;
+  // 1. deliver due reads, FIFO, while read_data has room
+  s.n_rd = 0;
+  while (st[kRSize] > 0 && s.win[1][st[kRHead]] <= sweeps &&
+         s.size[1] < p.cap[1]) {
+    const int addr = min(max(s.win[0][st[kRHead]], 0), p.nrow - 1);
+    s.rd_src[s.n_rd] = addr;
+    s.rd_dst[s.n_rd++] = (s.head[1] + s.size[1]) % p.cap[1];
+    s.size[1] += 1;
+    st[kRHead] = (st[kRHead] + 1) % d;
+    st[kRSize] -= 1;
+    st[kDelR] += 1;
+    moved = 1;
+  }
+  // 2. deliver due writes, FIFO, while write_resp has room
+  s.n_wd = 0;
+  s.wr_first = (s.head[4] + s.size[4]) % p.cap[4];
+  while (st[kWSize] > 0 && s.win[3][st[kWHead]] <= sweeps &&
+         s.size[4] < p.cap[4]) {
+    s.wd_src[s.n_wd] = st[kWHead];
+    s.wd_dst[s.n_wd++] = min(max(s.win[2][st[kWHead]], 0), p.nrow - 1);
+    s.size[4] += 1;
+    st[kWHead] = (st[kWHead] + 1) % d;
+    st[kWSize] -= 1;
+    st[kDelW] += 1;
+    moved = 1;
+  }
+  s.n_wr = s.n_wd;
+  // 3. accept queued reads into the read window
+  const int32_t* ra = static_cast<const int32_t*>(p.buf[0]);
+  while (s.size[0] > 0 && st[kRSize] < d) {
+    const int slot = (st[kRHead] + st[kRSize]) % d;
+    s.win[0][slot] = ra[s.head[0]];
+    s.win[1][slot] = sweeps + p.latency;
+    s.head[0] = (s.head[0] + 1) % p.cap[0];
+    s.size[0] -= 1;
+    st[kRSize] += 1;
+    st[kAccR] += 1;
+    moved = 1;
+  }
+  st[kMaxR] = max(st[kMaxR], st[kRSize]);
+  // 4. accept queued writes: an address and a value token each
+  const int32_t* wa = static_cast<const int32_t*>(p.buf[2]);
+  s.n_wa = 0;
+  while (s.size[2] > 0 && s.size[3] > 0 && st[kWSize] < d) {
+    const int slot = (st[kWHead] + st[kWSize]) % d;
+    s.win[2][slot] = wa[s.head[2]];
+    s.win[3][slot] = sweeps + p.latency;
+    s.wa_src[s.n_wa] = s.head[3];
+    s.wa_dst[s.n_wa++] = slot;
+    s.head[2] = (s.head[2] + 1) % p.cap[2];
+    s.size[2] -= 1;
+    s.head[3] = (s.head[3] + 1) % p.cap[3];
+    s.size[3] -= 1;
+    st[kWSize] += 1;
+    st[kAccW] += 1;
+    moved = 1;
+  }
+  st[kMaxW] = max(st[kMaxW], st[kWSize]);
+  // 5. an in-flight request due after this sweep keeps the run going
+  int waiting = 0;
+  for (int i = 0; i < st[kRSize]; ++i)
+    waiting |= s.win[1][(st[kRHead] + i) % d] > sweeps;
+  for (int i = 0; i < st[kWSize]; ++i)
+    waiting |= s.win[3][(st[kWHead] + i) % d] > sweeps;
+  s.moved = moved;
+  s.waiting = waiting;
+  s.pending = st[kRSize] > 0 || st[kWSize] > 0;
+  // a write delivery that a later one to the same address overwrites
+  // within this step is not copied
+  int kept = 0;
+  for (int i = 0; i < s.n_wd; ++i) {
+    bool last = true;
+    for (int j = i + 1; j < s.n_wd; ++j) last &= s.wd_dst[j] != s.wd_dst[i];
+    if (last) {
+      s.wd_src[kept] = s.wd_src[i];
+      s.wd_dst[kept++] = s.wd_dst[i];
+    }
+  }
+  s.n_wd = kept;
+}
+
+// Rows src[i] -> dst[i] of `row_words` words of W, i < n, spread over the
+// cluster's threads.
+template <typename W>
+__device__ void copy_rows(char* dst_base, const int* dst, const char* src_base,
+                          const int* src, int n, long long row_bytes,
+                          long long tid, long long nthreads) {
+  const long long words = row_bytes / static_cast<long long>(sizeof(W));
+  for (int i = 0; i < n; ++i) {
+    W* out = reinterpret_cast<W*>(dst_base + dst[i] * row_bytes);
+    const W* in = reinterpret_cast<const W*>(src_base + src[i] * row_bytes);
+    for (long long k0 = tid; k0 < words; k0 += nthreads * kUnroll) {
+      W v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long k = k0 + u * nthreads;
+        if (k < words) v[u] = in[k];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long k = k0 + u * nthreads;
+        if (k < words) out[k] = v[u];
+      }
+    }
+  }
+}
+
+__device__ void copy_rows_any(int word, char* dst_base, const int* dst,
+                              const char* src_base, const int* src, int n,
+                              long long row_bytes, long long tid,
+                              long long nthreads) {
+  if (word == 16)
+    copy_rows<uint4>(dst_base, dst, src_base, src, n, row_bytes, tid,
+                     nthreads);
+  else if (word == 4)
+    copy_rows<uint32_t>(dst_base, dst, src_base, src, n, row_bytes, tid,
+                        nthreads);
+  else
+    copy_rows<uint8_t>(dst_base, dst, src_base, src, n, row_bytes, tid,
+                       nthreads);
+}
+
+// One service step for every port (cluster p = blockIdx.x / blocks), then
+// the sweep's commit by the block that finishes last.
+__global__ void __launch_bounds__(kCopyThreads)
+service_ports_kernel(const ServiceLaunch a) {
+  __shared__ PortStep s;
+  __shared__ int last;
+  const int rank = blockIdx.x % a.blocks;
+  const PortLaunch& p = a.ports[blockIdx.x / a.blocks];
+  if (threadIdx.x == 0) {
+    if (blockIdx.x == 0) atomicAdd(&ring_launches[kServiceLaunches], 1ull);
+    s.done = a.state[0];
+    if (!s.done) decide(p, a.heads, a.sizes, a.state[1], s);
+  }
+  __syncthreads();
+  if (s.done) return;   // the whole grid returns: no barrier is left waiting
+  const long long nthreads = (long long)a.blocks * blockDim.x;
+  const long long tid = (long long)rank * blockDim.x + threadIdx.x;
+  char* data = static_cast<char*>(p.data);
+  char* wval = static_cast<char*>(p.wval);
+  cluster_arrive();     // every block's thread 0 has read the state
+  cluster_wait();
+  copy_rows_any(p.word, static_cast<char*>(p.buf[1]), s.rd_dst, data,
+                s.rd_src, s.n_rd, p.row_bytes, tid, nthreads);
+  cluster_arrive();     // the read deliveries have read the buffer
+  cluster_wait();
+  copy_rows_any(p.word, data, s.wd_dst, wval, s.wd_src, s.n_wd, p.row_bytes,
+                tid, nthreads);
+  cluster_arrive();     // the write deliveries have read their slots
+  cluster_wait();
+  copy_rows_any(p.word, wval, s.wa_dst, static_cast<char*>(p.buf[3]),
+                s.wa_src, s.n_wa, p.row_bytes, tid, nthreads);
+  if (rank != 0) return;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kPortWords; ++k) p.st[k] = s.st[k];
+    for (int r = 0; r < 4; ++r)
+      for (int k = 0; k < p.depth; ++k) p.win[r * p.depth + k] = s.win[r][k];
+    bool* wr = static_cast<bool*>(p.buf[4]);
+    for (int i = 0; i < s.n_wr; ++i) wr[(s.wr_first + i) % p.cap[4]] = true;
+    for (int r = 0; r < 5; ++r) {
+      a.heads[p.chan[r]] = s.head[r];
+      a.sizes[p.chan[r]] = s.size[r];
+    }
+    if (s.moved || s.waiting) atomicOr(&a.scratch[1], 1);
+    if (s.pending) atomicOr(&a.scratch[2], 1);
+    __threadfence();    // this port's writes before its ticket
+    last = atomicAdd(&a.scratch[0], 1) == a.n - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  volatile const int32_t* sizes = a.sizes;   // other blocks wrote them
+  for (int c = threadIdx.x; c < a.C; c += blockDim.x)
+    a.maxocc[c] = max(a.maxocc[c], sizes[c]);
+  if (threadIdx.x == 0) {
+    volatile int32_t* scratch = a.scratch;
+    const int progress = a.flags[0] || scratch[1];
+    const int left = a.flags[1] || scratch[2];
+    a.state[1] += 1;
+    a.state[0] = !(progress && left);
+    scratch[0] = scratch[1] = scratch[2] = 0;
   }
 }
 
@@ -400,6 +694,28 @@ int eval_guards(const void* sizes, const void* caps, const void* need_r,
   return static_cast<int>(cudaGetLastError());
 }
 
+// service_ports: `s` is the program's prepared ServiceLaunch (its stream
+// the one to launch on); n >= 1 ports, each depth <= 64, in clusters of
+// 1 <= blocks <= 8.
+int service_ports(const ServiceLaunch* s) {
+  if (s->n < 1 || s->blocks < 1 || s->blocks > kMaxCluster || s->C < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s->n * s->blocks, 1, 1);
+  cfg.blockDim = dim3(kCopyThreads, 1, 1);
+  cfg.stream = static_cast<cudaStream_t>(s->stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s->blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = s->blocks > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, service_ports_kernel, *s);
+  const cudaError_t last = cudaGetLastError();   // and clear it
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
 static bool sweep_args_ok(const SweepLaunch* s) {
   return s->T >= 1 && s->T <= kMaxSweepTasks && s->P >= 1 &&
          s->P <= kMaxPhases && s->C >= 0 && s->C <= kMaxSweepChannels;
@@ -420,16 +736,19 @@ int sweep_guards(const SweepLaunch* s) {
 // device array of T * P) and then, chained in the order given, one
 // conditional IF node for each of the n bodies that holds any node: row
 // rows[i] = t * P + p, body the captured graph bodies[i] (a cudaGraph_t
-// the caller keeps with its memory), added as a child graph.  *out
+// the caller keeps with its memory), added as a child graph; last, when
+// `tail` is not null, the captured graph `tail` as an unconditional child
+// graph (a graph with async ports: its service_ports launch).  *out
 // receives the SweepGraph.
 struct SweepGraph {
   cudaGraph_t graph;
   cudaGraphExec_t exec;
+  int nodes;   // the top-level nodes: the guards, the IF nodes, the tail
 };
 
 int sweep_graph_create(const SweepLaunch* s, const int* rows,
-                       void* const* bodies, int n, unsigned long long* handles,
-                       void** out) {
+                       void* const* bodies, int n, void* tail,
+                       unsigned long long* handles, void** out) {
   *out = nullptr;
   if (!sweep_args_ok(s) || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -454,6 +773,7 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
   a.handles = handles;
   void* args[] = {&a};
   cudaGraphNode_t prev = nullptr;
+  int nodes = 0;
   if (e == cudaSuccess) {
     cudaKernelNodeParams kp = {};
     kp.func = reinterpret_cast<void*>(sweep_guards_kernel);
@@ -462,6 +782,7 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
     kp.sharedMemBytes = s->C * sizeof(int32_t);
     kp.kernelParams = args;
     e = cudaGraphAddKernelNode(&prev, g, nullptr, 0, &kp);
+    nodes += 1;
   }
   for (int i = 0; e == cudaSuccess && i < n; ++i) {
     size_t body_nodes = 0;
@@ -475,11 +796,18 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
     cp.conditional.size = 1;
     cudaGraphNode_t node, child;
     e = cudaGraphAddNode(&node, g, &prev, 1, &cp);
+    nodes += 1;
     if (e == cudaSuccess)
       e = cudaGraphAddChildGraphNode(&child, cp.conditional.phGraph_out[0],
                                      nullptr, 0,
                                      static_cast<cudaGraph_t>(bodies[i]));
     prev = node;
+  }
+  if (e == cudaSuccess && tail) {
+    cudaGraphNode_t node;
+    e = cudaGraphAddChildGraphNode(&node, g, &prev, 1,
+                                   static_cast<cudaGraph_t>(tail));
+    nodes += 1;
   }
   if (e == cudaSuccess) e = cudaGraphInstantiate(&exec, g, 0);
   if (e != cudaSuccess) {
@@ -487,9 +815,13 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
     cudaGetLastError();   // clear it
     return static_cast<int>(e);
   }
-  *out = new SweepGraph{g, exec};
+  *out = new SweepGraph{g, exec, nodes};
   return 0;
 }
+
+// sweep_graph_nodes: the sweep graph's top-level nodes (a count, not an
+// error code).
+int sweep_graph_nodes(void* sg) { return static_cast<SweepGraph*>(sg)->nodes; }
 
 // k launches of the sweep's graph on `stream`, back to back.
 int sweep_graph_replay(void* sg, void* stream, int k) {
@@ -511,8 +843,8 @@ int sweep_graph_destroy(void* sg) {
 }
 
 // ring_launch_counters: *out receives the device address of
-// ring_launches[3] (pop, push, sweep_guards; unsigned 64-bit) on the
-// current device.
+// ring_launches[4] (pop, push, sweep_guards, service_ports; unsigned
+// 64-bit) on the current device.
 int ring_launch_counters(void** out) {
   return static_cast<int>(cudaGetSymbolAddress(out, ring_launches));
 }

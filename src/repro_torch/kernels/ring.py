@@ -14,7 +14,10 @@ those entries).  The ops of the sweep loop:
   (task, phase) body, the firing counters, the sweep count and the done
   flag; the head of the captured sweep (``core/synth.py``);
 * :func:`eval_guards` — every task's fire predicate in one op, the
-  counterpart of the reference's API.
+  counterpart of the reference's API;
+* :class:`ServicePorts` (``service_ports``) — every ``async_mmap``
+  port's latency queue, serviced once a sweep after the bodies, and the
+  commit of a sweep of a graph with ports (its count and done flag).
 
 Each has a hand-written CUDA kernel for Hopper (``csrc/ring.cu``, built at
 first use by :mod:`._build`) and, beside it, a plain PyTorch version of
@@ -30,10 +33,11 @@ that depends only on the ring, so an op on the card is the output (pop),
 one ctypes call of three plain arguments and nothing else.
 :func:`ring_pop`/:func:`ring_push` build a handle per call.
 
-``ring_pop``, ``ring_push`` and ``sweep_guards`` count their launches on
-the card (:data:`DEVICE_COUNTED`): each launch adds one to a counter in
-the library's device memory, also where a replayed CUDA graph launches
-it, and :func:`.dispatch.launch_counts` reads the counters.
+``ring_pop``, ``ring_push``, ``sweep_guards`` and ``service_ports`` count
+their launches on the card (:data:`DEVICE_COUNTED`): each launch adds one
+to a counter in the library's device memory, also where a replayed CUDA
+graph launches it, and :func:`.dispatch.launch_counts` reads the
+counters.
 
 Source notes, per kernel (the card's bound and what the design does):
 
@@ -56,6 +60,14 @@ Source notes, per kernel (the card's bound and what the design does):
   Bound by the launch at every size the port runs (``T*C`` int32
   compares, a few tens of KiB); one warp per task row, ``__all_sync`` over
   the channels.
+* ``service_ports`` has no Pallas counterpart: it is the reference's
+  per-sweep ``_service_ports`` (``src/repro/core/synth.py:951``, XLA ops
+  in the reference's loop body), moved onto the card so that a sweep of a
+  graph with ports stays one captured program.  Bound by bytes: the rows
+  it copies (256 KiB each on gemm's ports, 8 B on page_rank's).  One
+  cluster a port (ports touch disjoint rings); every block's thread 0
+  makes the port's chain of decisions, the cluster copies the rows; the
+  block that finishes last commits the sweep.
 """
 
 from __future__ import annotations
@@ -80,9 +92,11 @@ _ARGTYPES = {
     "ring_push": [_VP, _VP, ctypes.c_longlong],
     "eval_guards": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
     "sweep_guards": [_VP],          # the program's _SweepLaunch by reference
-    "sweep_graph_create": [_VP, _VP, _VP, _INT, _VP, _VP],
+    "service_ports": [_VP],         # the program's _ServiceLaunch
+    "sweep_graph_create": [_VP, _VP, _VP, _INT, _VP, _VP, _VP],
     "sweep_graph_replay": [_VP, _VP, _INT],
     "sweep_graph_destroy": [_VP],
+    "sweep_graph_nodes": [_VP],
     "ring_launch_counters": [_VP],
 }
 # csrc/ring.cu: kCopyThreads threads a block, each moving kUnroll 16-byte
@@ -92,12 +106,17 @@ COPY_THREADS, UNROLL, MAX_CLUSTER = 512, 4, 8
 BLOCK_BYTES = COPY_THREADS * UNROLL * 16        # 32 KiB: one block's pass
 # the kernels that count their own launches on the card, in the order of
 # csrc/ring.cu's ring_launches
-DEVICE_COUNTED = ("ring_pop", "ring_push", "sweep_guards")
+DEVICE_COUNTED = ("ring_pop", "ring_push", "sweep_guards", "service_ports")
 _counted: set = set()       # devices whose counters dispatch reads
 # csrc/ring.cu: sweep_guards runs one block of one thread a task, for
 # tasks of at most 4 phases, with the occupancy vector in 48 KiB of shared
 # memory
 MAX_SWEEP_TASKS, MAX_SWEEP_PHASES, MAX_SWEEP_CHANNELS = 1024, 4, 12288
+# csrc/ring.cu: a port's counters (the reference's port carry, PortQueue.st)
+# and its largest in-flight window
+(P_RHEAD, P_RSIZE, P_WHEAD, P_WSIZE, P_ACC_R, P_DEL_R, P_ACC_W, P_DEL_W,
+ P_MAX_R, P_MAX_W) = range(10)
+PORT_WORDS, MAX_PORT_DEPTH = 10, 64
 
 
 def _launched(lib: ctypes.CDLL, op: str, rc: int) -> None:
@@ -447,8 +466,8 @@ class _SweepLaunch(ctypes.Structure):
     _fields_ = [("totals", _VP), ("bounds", _VP), ("row_ptr", _VP),
                 ("entries", _VP), ("sizes", _VP), ("fires", _VP),
                 ("state", _VP), ("run", _VP), ("fire", _VP), ("phase", _VP),
-                ("handles", _VP), ("stream", _VP), ("T", _INT), ("P", _INT),
-                ("C", _INT)]
+                ("flags", _VP), ("handles", _VP), ("stream", _VP),
+                ("T", _INT), ("P", _INT), ("C", _INT)]
 
 
 def sparse_needs(need_r, need_w, caps) -> tuple:
@@ -470,7 +489,7 @@ def sparse_needs(need_r, need_w, caps) -> tuple:
 
 
 def sweep_guards_plain(totals, bounds, row_ptr, entries, sizes, fires,
-                       state, run, fire, phase) -> None:
+                       state, run, fire, phase, flags=None) -> None:
     """Plain version of :func:`sweep_guards` (CPU tensors; on the card,
     the comparison's)."""
     n_tasks, n_ph = run.shape
@@ -488,9 +507,13 @@ def sweep_guards_plain(totals, bounds, row_ptr, entries, sizes, fires,
                  .gather(1, ph.long()[:, None])[:, 0] == 0)
     any_live, any_fire = live.any(), ok.any()
     fires.add_(ok.int())
-    over = done | ~any_live | ~any_fire | ~(fires < totals).any()
-    state[1:].add_(any_live.int())
-    state[:1].copy_(over.int())
+    any_left = (fires < totals).any()
+    if flags is not None:
+        flags.copy_(torch.stack([any_fire, any_left]).int())
+    else:
+        over = done | ~any_live | ~any_fire | ~any_left
+        state[1:].add_(any_live.int())
+        state[:1].copy_(over.int())
     fire.copy_(ok)
     phase.copy_(ph)
     run.copy_(ok[:, None] & (torch.arange(n_ph, device=dev) == ph[:, None]))
@@ -512,7 +535,10 @@ class SweepGuards:
     * ``fires += fire``; the sweep is counted (``state[1] += 1``) unless no
       task was live, and ``state[0]`` (done) is set when no task was live,
       none fired or none has firings left;
-    * once done is set, every predicate is false and nothing else changes.
+    * once done is set, every predicate is false and nothing else changes;
+    * given ``flags`` (int32 ``[2]``, a graph with async ports) it writes
+      any(fire) and any(firings left) there and leaves ``state`` to
+      :class:`ServicePorts`, which commits the sweep after the bodies.
 
     int32 tables and carry, bool ``run``/``fire``, int32 ``phase``, all
     contiguous on one device.  A CUDA program launches the kernel (one
@@ -521,15 +547,21 @@ class SweepGuards:
     channels); a CPU one takes :func:`sweep_guards_plain`.
     """
 
-    __slots__ = ("args", "_kernel", "_fn", "_lib", "_launch", "_ref",
-                 "_stream", "_st")
+    __slots__ = ("args", "flags", "_kernel", "_fn", "_lib", "_launch",
+                 "_ref", "_stream", "_st")
 
     def __init__(self, totals, bounds, row_ptr, entries, sizes, fires, state,
-                 run, fire, phase):
+                 run, fire, phase, flags=None):
         n_tasks, n_ph = run.shape
         self.args = (totals, bounds, row_ptr, entries, sizes, fires, state,
                      run, fire, phase)
+        self.flags = flags
         i32, b = torch.int32, torch.bool
+        if flags is not None and (flags.dtype != i32 or tuple(flags.shape)
+                                  != (2,) or not flags.is_contiguous()):
+            raise ValueError(f"sweep_guards: flags must be a contiguous "
+                             f"{i32}(2,), got {flags.dtype}"
+                             f"{tuple(flags.shape)}")
         for name, x, dt, shape in (
                 ("totals", totals, i32, (n_tasks,)),
                 ("bounds", bounds, i32, (n_tasks, n_ph - 1)),
@@ -545,7 +577,9 @@ class SweepGuards:
                 raise ValueError(f"sweep_guards: {name} must be a contiguous "
                                  f"{dt}{shape}, got {x.dtype}"
                                  f"{tuple(x.shape)}")
-        self._kernel = uses_kernel("sweep_guards", *self.args)
+        self._kernel = uses_kernel(
+            "sweep_guards", *self.args, *([flags] if flags is not None
+                                          else []))
         if not self._kernel:
             return
         n_chans = sizes.shape[0]
@@ -563,13 +597,15 @@ class SweepGuards:
         self._stream = functools.partial(torch._C._cuda_getCurrentRawStream,
                                          dev)
         self._st = self._stream()
-        self._launch = _SweepLaunch(*(x.data_ptr() for x in self.args),
-                                    None, self._st, n_tasks, n_ph, n_chans)
+        self._launch = _SweepLaunch(
+            *(x.data_ptr() for x in self.args),
+            None if flags is None else flags.data_ptr(), None, self._st,
+            n_tasks, n_ph, n_chans)
         self._ref = ctypes.addressof(self._launch)
 
     def __call__(self) -> None:
         if not self._kernel:
-            sweep_guards_plain(*self.args)
+            sweep_guards_plain(*self.args, flags=self.flags)
             return
         st = self._stream()
         if st != self._st:
@@ -580,24 +616,28 @@ class SweepGuards:
 
 
 def sweep_guards(totals, bounds, row_ptr, entries, sizes, fires, state, run,
-                 fire, phase) -> None:
+                 fire, phase, flags=None) -> None:
     """One sweep's control in one op, in place: :class:`SweepGuards` built
     for the call."""
     SweepGuards(totals, bounds, row_ptr, entries, sizes, fires, state, run,
-                fire, phase)()
+                fire, phase, flags)()
 
 
 class SweepGraph:
     """A sweep on the card as one CUDA graph, instantiated once
     (``csrc/ring.cu``, ``sweep_graph_create``): the ``sweep_guards`` kernel
     of ``guards``, then one conditional node for each (task, phase) body,
-    in the order given, whose body is that body's captured graph.  The
-    kernel sets the condition of the phase that fires; a launch resets
-    every condition to false.  ``bodies`` is ``[(row, cudaGraph_t)]`` with
-    ``row = t * P + p``; the caller keeps each body graph and its memory
-    for the life of this one."""
+    in the order given, whose body is that body's captured graph, then,
+    given ``tail`` (a captured ``cudaGraph_t``: a graph with async ports'
+    :class:`ServicePorts` launch), that graph unconditionally.  The kernel
+    sets the condition of the phase that fires; a launch resets every
+    condition to false.  ``bodies`` is ``[(row, cudaGraph_t)]`` with
+    ``row = t * P + p``; the caller keeps each body graph, the tail and
+    their memory for the life of this one.  ``nodes``: the graph's
+    top-level nodes (the guards, one a body that holds any node, the
+    tail)."""
 
-    def __init__(self, guards: SweepGuards, bodies: list):
+    def __init__(self, guards: SweepGuards, bodies: list, tail=None):
         if not guards._kernel:
             raise ValueError("SweepGraph: the guards of a program on the card")
         self._lib = guards._lib
@@ -608,11 +648,12 @@ class SweepGraph:
         rows = (ctypes.c_int * n)(*(r for r, _ in bodies))
         graphs = (ctypes.c_void_p * n)(*(g for _, g in bodies))
         out = ctypes.c_void_p()
-        rc = self._lib.sweep_graph_create(guards._ref, rows, graphs, n,
+        rc = self._lib.sweep_graph_create(guards._ref, rows, graphs, n, tail,
                                           self._handles.data_ptr(),
                                           ctypes.byref(out))
         _build.check(self._lib, "ring", "sweep_graph_create", rc)
         self._graph = out.value
+        self.nodes = self._lib.sweep_graph_nodes(self._graph)
         self._stream = guards._stream
 
     def replay(self, k: int) -> None:
@@ -626,3 +667,274 @@ class SweepGraph:
             graph, self._graph = self._graph, None
             _build.check(self._lib, "ring", "sweep_graph_destroy",
                          self._lib.sweep_graph_destroy(graph))
+
+
+# ---------------------------------------------------------------------------
+# async_mmap ports: the latency queues' service step and the sweep's commit
+# ---------------------------------------------------------------------------
+
+class PortQueue:
+    """One ``async_mmap`` port's latency queue on a device, as the
+    reference's port carry (``_port_carry0``, ``src/repro/core/synth.py``)
+    holds it: the port's buffer ``data[nrow, *row]``; the read and write
+    windows ``win[4, depth]`` (read address, read due, write address, write
+    due) and the write window's values ``wval[depth, *row]``; the counters
+    ``st[10]`` (``P_RHEAD`` .. ``P_MAX_W``: each window's head and size, the
+    accepted and delivered reads and writes, and each window's highwater
+    mark).  ``chans`` are the channel indices of its five rings (read_addr,
+    read_data, write_addr, write_data, write_resp): int32 addresses, rows
+    of ``data``, int32 addresses, rows, bools.  ``win``, ``wval`` and ``st``
+    start at zero (``st`` may be a row of a larger tensor)."""
+
+    __slots__ = ("data", "win", "wval", "st", "chans", "depth", "latency")
+
+    def __init__(self, data: torch.Tensor, st: torch.Tensor, chans: tuple,
+                 depth: int, latency: int):
+        self.data, self.st, self.chans = data, st, tuple(chans)
+        self.depth, self.latency = int(depth), int(latency)
+        self.win = torch.zeros((4, self.depth), dtype=torch.int32,
+                               device=data.device)
+        self.wval = torch.zeros((self.depth, *data.shape[1:]),
+                                dtype=data.dtype, device=data.device)
+
+
+def _service_one(q: PortQueue, bufs, hs: list, ss: list,
+                 sweeps: int) -> tuple:
+    """The reference's ``_service_ports`` for one port, step for step, on
+    host ints (``hs``/``ss``: every channel's head and size, updated in
+    place) and row copies.  Returns (moved, waiting, pending)."""
+    d, lat, nrow = q.depth, q.latency, q.data.shape[0]
+    ra, rd, wa, wd, wr = q.chans
+    cap = {c: bufs[c].shape[0] for c in q.chans}
+    st = q.st.tolist()
+    r_addr, r_due, w_addr, w_due = q.win.tolist()
+    moved = False
+    # 1. deliver due reads, FIFO, while read_data has room
+    while st[P_RSIZE] > 0 and r_due[st[P_RHEAD]] <= sweeps and \
+            ss[rd] < cap[rd]:
+        addr = min(max(r_addr[st[P_RHEAD]], 0), nrow - 1)
+        bufs[rd][(hs[rd] + ss[rd]) % cap[rd]] = q.data[addr]
+        ss[rd] += 1
+        st[P_RHEAD] = (st[P_RHEAD] + 1) % d
+        st[P_RSIZE] -= 1
+        st[P_DEL_R] += 1
+        moved = True
+    # 2. deliver due writes, FIFO, while write_resp has room
+    while st[P_WSIZE] > 0 and w_due[st[P_WHEAD]] <= sweeps and \
+            ss[wr] < cap[wr]:
+        addr = min(max(w_addr[st[P_WHEAD]], 0), nrow - 1)
+        q.data[addr] = q.wval[st[P_WHEAD]]
+        bufs[wr][(hs[wr] + ss[wr]) % cap[wr]] = True
+        ss[wr] += 1
+        st[P_WHEAD] = (st[P_WHEAD] + 1) % d
+        st[P_WSIZE] -= 1
+        st[P_DEL_W] += 1
+        moved = True
+    # 3. accept queued reads into the read window
+    if ss[ra] > 0 and st[P_RSIZE] < d:
+        toks = bufs[ra].tolist()
+        while ss[ra] > 0 and st[P_RSIZE] < d:
+            slot = (st[P_RHEAD] + st[P_RSIZE]) % d
+            r_addr[slot], r_due[slot] = toks[hs[ra]], sweeps + lat
+            hs[ra] = (hs[ra] + 1) % cap[ra]
+            ss[ra] -= 1
+            st[P_RSIZE] += 1
+            st[P_ACC_R] += 1
+            moved = True
+    st[P_MAX_R] = max(st[P_MAX_R], st[P_RSIZE])
+    # 4. accept queued writes: an address and a value token each
+    if ss[wa] > 0 and ss[wd] > 0 and st[P_WSIZE] < d:
+        toks = bufs[wa].tolist()
+        while ss[wa] > 0 and ss[wd] > 0 and st[P_WSIZE] < d:
+            slot = (st[P_WHEAD] + st[P_WSIZE]) % d
+            w_addr[slot], w_due[slot] = toks[hs[wa]], sweeps + lat
+            q.wval[slot] = bufs[wd][hs[wd]]
+            hs[wa] = (hs[wa] + 1) % cap[wa]
+            ss[wa] -= 1
+            hs[wd] = (hs[wd] + 1) % cap[wd]
+            ss[wd] -= 1
+            st[P_WSIZE] += 1
+            st[P_ACC_W] += 1
+            moved = True
+    st[P_MAX_W] = max(st[P_MAX_W], st[P_WSIZE])
+    # 5. an in-flight request due after this sweep keeps the run going
+    waiting = any(r_due[(st[P_RHEAD] + i) % d] > sweeps
+                  for i in range(st[P_RSIZE])) or \
+        any(w_due[(st[P_WHEAD] + i) % d] > sweeps
+            for i in range(st[P_WSIZE]))
+    dev = q.st.device
+    q.st.copy_(torch.tensor(st, dtype=torch.int32, device=dev))
+    q.win.copy_(torch.tensor([r_addr, r_due, w_addr, w_due],
+                             dtype=torch.int32, device=dev))
+    return moved, waiting, st[P_RSIZE] > 0 or st[P_WSIZE] > 0
+
+
+def service_ports_plain(ports: list, bufs, heads, sizes, maxocc, state,
+                        flags) -> None:
+    """Plain version of :func:`service_ports` (CPU tensors; on the card,
+    the comparison's).  ``bufs`` maps a channel index to its ring
+    buffer."""
+    done, sweeps = state.tolist()
+    if done:
+        return
+    fired, left = flags.tolist()
+    progress, work = bool(fired), bool(left)
+    hs, ss = heads.tolist(), sizes.tolist()
+    for q in ports:
+        moved, waiting, pending = _service_one(q, bufs, hs, ss, sweeps)
+        progress |= moved or waiting
+        work |= pending
+    i32 = dict(dtype=torch.int32, device=heads.device)
+    heads.copy_(torch.tensor(hs, **i32))
+    sizes.copy_(torch.tensor(ss, **i32))
+    torch.maximum(maxocc, sizes, out=maxocc)
+    state.copy_(torch.tensor([int(not (progress and work)), sweeps + 1],
+                             **i32))
+
+
+class _PortLaunch(ctypes.Structure):
+    """``csrc/ring.cu``'s ``struct PortLaunch``: one port's queue."""
+    _fields_ = [("data", _VP), ("wval", _VP), ("win", _VP), ("st", _VP),
+                ("buf", _VP * 5), ("row_bytes", ctypes.c_longlong),
+                ("nrow", _INT), ("depth", _INT), ("latency", _INT),
+                ("word", _INT), ("chan", _INT * 5), ("cap", _INT * 5)]
+
+
+class _ServiceLaunch(ctypes.Structure):
+    """``csrc/ring.cu``'s ``struct ServiceLaunch``: one program's ports,
+    carry and scratch, and the stream of its last launch."""
+    _fields_ = [("ports", _VP), ("heads", _VP), ("sizes", _VP),
+                ("maxocc", _VP), ("state", _VP), ("flags", _VP),
+                ("scratch", _VP), ("stream", _VP), ("n", _INT), ("C", _INT),
+                ("blocks", _INT)]
+
+
+class ServicePorts:
+    """One program's port service, prepared once.
+
+    Calling it runs, unless the done flag ``state[0]`` is set, one service
+    step of every port (:class:`PortQueue`) against the sweep counter
+    ``state[1]`` as it stands before this sweep is counted, in the
+    reference's order: deliver due reads in FIFO order while read_data has
+    room (the address clipped to ``[0, nrow - 1]``), deliver due writes the
+    same way (``True`` into write_resp), accept queued reads into free
+    window slots (due ``sweeps + latency``), accept queued writes (an
+    address and a value token each).  Then it commits the sweep: the
+    highwater marks ``maxocc`` over every channel, ``state[1] += 1`` and
+    ``state[0]`` = not (progress and work left), where progress is a task
+    fired (``flags[0]``, from :class:`SweepGuards`), a request moved, or
+    one is due after this sweep, and work left is a task with firings left
+    (``flags[1]``) or a window that is not empty.  ``rings`` maps each
+    channel index to its ring (:class:`RingHandle` or its buffer).
+
+    A CUDA program launches the kernel (one cluster a port, windows of at
+    most :data:`MAX_PORT_DEPTH`); a CPU one takes
+    :func:`service_ports_plain`, at any depth.
+    """
+
+    __slots__ = ("ports", "bufs", "args", "_kernel", "_fn", "_lib", "_launch",
+                 "_ref", "_stream", "_st", "_table", "scratch", "blocks")
+
+    def __init__(self, ports: list, rings: dict, heads, sizes, maxocc, state,
+                 flags):
+        self.ports = list(ports)
+        self.bufs = {ci: getattr(r, "buf", r) for ci, r in rings.items()}
+        self.args = (heads, sizes, maxocc, state, flags)
+        i32 = torch.int32
+        n_chans = heads.shape[0]
+        for name, x, n in (("heads", heads, n_chans),
+                           ("sizes", sizes, n_chans),
+                           ("maxocc", maxocc, n_chans), ("state", state, 2),
+                           ("flags", flags, 2)):
+            if x.dtype != i32 or tuple(x.shape) != (n,) or \
+                    not x.is_contiguous():
+                raise ValueError(f"service_ports: {name} must be a "
+                                 f"contiguous {i32}({n},), got {x.dtype}"
+                                 f"{tuple(x.shape)}")
+        if not self.ports:
+            raise ValueError("service_ports: a program with no ports")
+        tensors = list(self.args)
+        for q in self.ports:
+            self._check(q, n_chans)
+            tensors += [q.data, q.win, q.wval, q.st] + \
+                [self.bufs[c] for c in q.chans]
+        self._kernel = uses_kernel("service_ports", *tensors)
+        if not self._kernel:
+            return
+        for q in self.ports:
+            if q.depth > MAX_PORT_DEPTH:
+                raise ValueError(f"service_ports: depth {q.depth} above the "
+                                 f"kernel's {MAX_PORT_DEPTH}")
+        dev = heads.get_device()
+        self._lib = _ring_lib(dev)
+        self._fn = self._lib.service_ports
+        table = (_PortLaunch * len(self.ports))()
+        rows = []
+        for k, q in enumerate(self.ports):
+            bufs = [self.bufs[c] for c in q.chans]
+            rb = math.prod(q.data.shape[1:]) * q.data.element_size()
+            rows.append(rb)
+            table[k] = _PortLaunch(
+                q.data.data_ptr(), q.wval.data_ptr(), q.win.data_ptr(),
+                q.st.data_ptr(), (_VP * 5)(*(b.data_ptr() for b in bufs)),
+                rb, q.data.shape[0], q.depth, q.latency,
+                copy_word(rb, q.data.data_ptr(), q.wval.data_ptr(),
+                          bufs[1].data_ptr(), bufs[3].data_ptr()),
+                (_INT * 5)(*q.chans), (_INT * 5)(*(b.shape[0] for b in bufs)))
+        self._table = torch.frombuffer(bytearray(table), dtype=torch.uint8) \
+            .to(heads.device)
+        self.scratch = torch.zeros(3, dtype=i32, device=heads.device)
+        self.blocks = max(cluster_blocks(rb) for rb in rows)
+        self._stream = functools.partial(torch._C._cuda_getCurrentRawStream,
+                                         dev)
+        self._st = self._stream()
+        self._launch = _ServiceLaunch(
+            self._table.data_ptr(), *(x.data_ptr() for x in self.args),
+            self.scratch.data_ptr(), self._st, len(self.ports), n_chans,
+            self.blocks)
+        self._ref = ctypes.addressof(self._launch)
+
+    def _check(self, q: PortQueue, n_chans: int) -> None:
+        i32, b = torch.int32, torch.bool
+        d, row = q.depth, tuple(q.data.shape[1:])
+        if d < 1 or q.latency < 0:
+            raise ValueError(f"service_ports: depth {d} < 1 or latency "
+                             f"{q.latency} < 0")
+        if q.data.dim() < 1 or q.data.shape[0] < 1 or \
+                not q.data.is_contiguous():
+            raise ValueError(f"service_ports: a port's buffer must be a "
+                             f"contiguous [nrow >= 1, *row], got "
+                             f"{tuple(q.data.shape)}")
+        if not all(0 <= c < n_chans for c in q.chans) or \
+                len(set(q.chans)) != 5:
+            raise ValueError(f"service_ports: channels {q.chans} are not five "
+                             f"distinct channels of {n_chans}")
+        want = [(i32, ()), (q.data.dtype, row), (i32, ()),
+                (q.data.dtype, row), (b, ())]
+        for c, (dt, elem) in zip(q.chans, want):
+            x = self.bufs[c]
+            if x.dtype != dt or tuple(x.shape[1:]) != elem or \
+                    not x.is_contiguous():
+                raise ValueError(f"service_ports: ring {c} must be a "
+                                 f"contiguous [cap, *{elem}] of {dt}, got "
+                                 f"{x.dtype}{tuple(x.shape)}")
+        for name, x, dt, shape in (("win", q.win, i32, (4, d)),
+                                   ("wval", q.wval, q.data.dtype, (d, *row)),
+                                   ("st", q.st, i32, (PORT_WORDS,))):
+            if x.dtype != dt or tuple(x.shape) != shape or \
+                    not x.is_contiguous():
+                raise ValueError(f"service_ports: {name} must be a "
+                                 f"contiguous {dt}{shape}, got {x.dtype}"
+                                 f"{tuple(x.shape)}")
+
+    def __call__(self) -> None:
+        if not self._kernel:
+            service_ports_plain(self.ports, self.bufs, *self.args)
+            return
+        st = self._stream()
+        if st != self._st:
+            self._launch.stream = self._st = st
+        rc = self._fn(self._ref)
+        if rc:
+            _build.check(self._lib, "ring", "service_ports", rc)
+

@@ -216,18 +216,19 @@ def test_cpu_sweep_guards_takes_the_plain_version(monkeypatch):
 
 
 def test_sweep_launch_struct_matches_the_c_layout():
-    # csrc/ring.cu's struct SweepLaunch: twelve pointers, then T, P and C
+    # csrc/ring.cu's struct SweepLaunch: thirteen pointers, then T, P and C
     f = ring._SweepLaunch
     names = ["totals", "bounds", "row_ptr", "entries", "sizes", "fires",
-             "state", "run", "fire", "phase", "handles", "stream"]
+             "state", "run", "fire", "phase", "flags", "handles", "stream"]
     assert [(n, getattr(f, n).offset) for n, _ in f._fields_] == \
-        [(n, 8 * i) for i, n in enumerate(names)] + [("T", 96), ("P", 100),
-                                                     ("C", 104)]
-    assert ctypes.sizeof(f) == 112
+        [(n, 8 * i) for i, n in enumerate(names)] + [("T", 104), ("P", 108),
+                                                     ("C", 112)]
+    assert ctypes.sizeof(f) == 120
     vp = ctypes.c_void_p
     assert ring._ARGTYPES["sweep_guards"] == [vp]
+    # launch, rows, bodies, n, tail, handles, out
     assert ring._ARGTYPES["sweep_graph_create"] == [vp, vp, vp, ctypes.c_int,
-                                                    vp, vp]
+                                                    vp, vp, vp]
     assert (ring.MAX_SWEEP_TASKS, ring.MAX_SWEEP_PHASES,
             ring.MAX_SWEEP_CHANNELS) == (1024, 4, 12288)
 
@@ -474,19 +475,23 @@ def test_device_counters_are_read_and_zeroed(monkeypatch):
 def test_device_counter_layout_matches_the_c_source():
     """``ring.DEVICE_COUNTED`` names csrc/ring.cu's ``ring_launches``
     entries in order, each kernel adds to its own, and the counters are
-    handed to torch as three int64 words."""
+    handed to torch as four int64 words."""
     src = (_build.CSRC / "ring.cu").read_text()
-    assert "enum { kPopLaunches, kPushLaunches, kSweepLaunches };" in src
-    assert ring.DEVICE_COUNTED == ("ring_pop", "ring_push", "sweep_guards")
+    assert "__device__ unsigned long long ring_launches[4];" in src
+    assert "enum { kPopLaunches, kPushLaunches, kSweepLaunches, " \
+        "kServiceLaunches };" in src
+    assert ring.DEVICE_COUNTED == ("ring_pop", "ring_push", "sweep_guards",
+                                   "service_ports")
     for kernel, entry in (("ring_pop_kernel", "kPopLaunches"),
                           ("ring_push_kernel", "kPushLaunches"),
-                          ("sweep_guards_kernel", "kSweepLaunches")):
+                          ("sweep_guards_kernel", "kSweepLaunches"),
+                          ("service_ports_kernel", "kServiceLaunches")):
         body = src[src.index(f"\n{kernel}("):]
         body = body[:body.index("\n}\n")]
         assert body.count(f"atomicAdd(&ring_launches[{entry}], 1ull)") == 1
     assert ring._ARGTYPES["ring_launch_counters"] == [ctypes.c_void_p]
-    words = ring._DeviceWords(4096, 3).__cuda_array_interface__
-    assert words == dict(shape=(3,), typestr="<i8", data=(4096, False),
+    words = ring._DeviceWords(4096, 4).__cuda_array_interface__
+    assert words == dict(shape=(4,), typestr="<i8", data=(4096, False),
                          version=3)
 
 

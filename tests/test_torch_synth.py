@@ -176,20 +176,6 @@ def test_refuses_unspecced_channel():
         compiled().run(top, *args)
 
 
-def test_refuses_async_mmap_not_yet_ported():
-    S = StepTask(lambda state, port: state, steps=1, name="S")
-    port = repro_torch.async_mmap(np.zeros(4, np.float32), depth=2,
-                                  name="edges")
-
-    def Top(port):
-        repro_torch.task().invoke(S, port)
-
-    with pytest.raises(SynthesisError,
-                       match=r"'S#\d+' binds async_mmap 'edges'.*"
-                             r"not yet ported"):
-        compiled().run(Top, port)
-
-
 def test_refuses_data_dependent_burst_size():
     def bad(k, inp, out):
         n = inp.read()
