@@ -155,6 +155,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    share (every SSD launch of the step must show as ``ssd_state_mma``, by
    kernel name), the top device operations; the backward's recompute
    alone.
+16. recovery — each of phase 4's five graphs at phase 4's size through
+   ``repro_torch.ft.run_supervised`` on the card (``RECOVERY``: gemm every
+   8 sweeps, gaussian 256, page_rank 4, gemm async 8, page_rank async
+   2048), crashed once between two chunks: outputs bit-identical to an
+   uninterrupted ``CompiledEngine`` run, the chunks' sweeps equal to its
+   sweeps and to the abstract schedule's, the sweep graph captured once
+   an attempt, exactly one restart, resumed from the last snapshot saved
+   before the crash, ``sweep_guards`` (and ``service_ports``) counted once
+   a replay and the ring ops equal to the uninterrupted run's; a snapshot
+   with a full channel (gemm) and one with a request in flight (page_rank
+   async).  Recorded: chunks, snapshots and their bytes, ms a snapshot
+   read (device to host), a store save and a restore, replays and host
+   syncs, seconds against the uninterrupted run.  Then at phase 5's sizes
+   a crash under ``compiled`` finished under ``coroutine`` and the
+   reverse, bit-identical, and a port graph refused under ``coroutine``.
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -2684,6 +2699,227 @@ def train_breakdown() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: crash recovery at full width
+# ---------------------------------------------------------------------------
+
+# (tag, app, builder, parameters, snapshot_every, crash): phase 4's five
+# graphs at phase 4's sizes, each cut into 4-11 chunks and crashed once
+# between two of them
+RECOVERY = [
+    ("gemm", "gemm", "build_step", FULL["gemm"], 8, {"chunk": 2}),
+    ("gaussian", "gaussian", "build_step", FULL["gaussian"], 256,
+     {"chunk": 3}),
+    ("page_rank", "page_rank", "build_step", FULL["page_rank"], 4,
+     {"chunk": 2}),
+    ("gemm_async", "gemm", "build_step_async", FULL_ASYNC["gemm"], 8,
+     {"chunk": 2}),
+    ("page_rank_async", "page_rank", "build_step_async",
+     FULL_ASYNC["page_rank"], 2048, {"chunk": 3}),
+]
+
+
+def _buffers(args) -> list:
+    """Every mmap's and async port's buffer of a graph's arguments, as
+    host copies, in argument order."""
+    from repro_torch.core.interface import AsyncMMap, MMap
+    out = []
+
+    def walk(v):
+        if isinstance(v, (MMap, AsyncMMap)):
+            out.append(torch.as_tensor(v.data).detach().cpu().clone())
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                walk(x)
+    walk(args)
+    return out
+
+
+def _recover_graph(tag, name, builder, kw, every, crash, tmp: Path) -> dict:
+    """One graph of phase 16: the uninterrupted compiled run on the card,
+    then ``run_supervised`` on the card with a snapshot store and one
+    crash between chunks; bit-identical outputs, the schedule's sweeps,
+    one capture an attempt, one restart from the last snapshot saved
+    before the crash, and the launches the sweeps and firings make."""
+    from repro_torch import ENGINES
+    from repro_torch.apps import APPS
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.synth import elaborate_step_graph
+    from repro_torch.ft.recovery import (RestartPolicy, SnapshotStore,
+                                         _abstract_schedule, run_supervised)
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    build = getattr(APPS[name], builder)
+    top, args, _ = build(device="cuda", **kw)
+    eng = ENGINES["compiled"](device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = eng.run(top, *args)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not rep.ok:
+        raise AssertionError(f"recovery {tag}: the uninterrupted run "
+                             f"failed: {rep.error}")
+    golden = _buffers(args)
+
+    top, args, check = build(device="cuda", **kw)
+    plan, _, _ = elaborate_step_graph(top, *args)
+    cuts, stalled = _abstract_schedule(plan)
+    store = SnapshotStore(tmp / tag, keep=3)
+    attempts = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = run_supervised("compiled", top, *args, store=store,
+                         snapshot_every=every, faults=FaultPlan(crash=crash),
+                         policy=RestartPolicy(max_restarts=1, backoff_s=0.0),
+                         device="cuda", log=attempts)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    launches = {k: launch_counts().get(k, 0) for k in REPLACES}
+    ok, err = check() if rec.ok else (False, float("nan"))
+    got = _buffers(args)
+    saves = [s for a in attempts for s in a.saves]
+    sweeps = sum(sum(a.chunks) for a in attempts)
+    replays = sum(a.replays for a in attempts)
+    ports = builder == "build_step_async"
+    want = dict(eng.ring_ops, sweep_guards=replays,
+                service_ports=replays if ports else 0)
+    fails = []
+    if not (rec.ok and ok):
+        fails.append(f"run {rec.error}, check {ok} ({err})")
+    if len(got) != len(golden) or not all(
+            torch.equal(a, b) for a, b in zip(got, golden)):
+        fails.append("outputs differ from the uninterrupted run's")
+    if stalled or not sweeps == rep.switches == len(cuts) - 1:
+        fails.append(f"{sweeps} sweeps over the chunks, {rep.switches} "
+                     f"uninterrupted, the schedule {len(cuts) - 1} "
+                     f"(stalled {stalled})")
+    if [a.crashed for a in attempts] != [True, False]:
+        fails.append(f"attempts crashed {[a.crashed for a in attempts]}")
+    elif not attempts[1].start_sweep == attempts[0].saves[-1]["sweep"] > 0:
+        fails.append(f"resumed at sweep {attempts[1].start_sweep}, the last "
+                     f"snapshot before the crash was at "
+                     f"{attempts[0].saves[-1]['sweep']}")
+    if [a.captures for a in attempts] != [1] * len(attempts):
+        fails.append(f"captures an attempt {[a.captures for a in attempts]}")
+    if launches != want:
+        fails.append(f"launches counted on the card {launches}; the "
+                     f"replays and firings make {want}")
+    if tag == "page_rank_async" and not any(s["inflight"] for s in saves):
+        fails.append("no snapshot holds an in-flight request")
+    if tag == "gemm" and not any(s["full_channels"] for s in saves):
+        fails.append("no snapshot holds a full channel")
+    if fails:
+        raise AssertionError(f"recovery {tag}: " + "; ".join(fails))
+    snap = [s for s in saves if s["read_ms"] is not None]
+    out = dict(
+        params=kw, snapshot_every=every, crash=crash, sweeps=sweeps,
+        chunks=[len(a.chunks) for a in attempts],
+        start_sweeps=[a.start_sweep for a in attempts],
+        snapshots_saved=len(saves), snapshot_bytes=max(
+            s["bytes"] for s in saves),
+        read_ms=[s["read_ms"] for s in snap],
+        save_ms=[s["save_ms"] for s in saves],
+        restore_ms=[a.restore_ms for a in attempts],
+        replays=[a.replays for a in attempts],
+        host_syncs=[a.host_syncs for a in attempts],
+        plain_replays=eng.n_replays, plain_host_syncs=eng.n_host_syncs,
+        full_channels=max(s["full_channels"] for s in saves),
+        inflight=max(s["inflight"] for s in saves),
+        launches=launches, recoverable_s=rec_s, uninterrupted_s=plain_s)
+    log(f"recovery {tag}: bit-identical after a crash at {crash} and a "
+        f"resume from sweep {attempts[1].start_sweep}; {sweeps} sweeps in "
+        f"{out['chunks']} chunks; {len(saves)} snapshots of "
+        f"{out['snapshot_bytes'] / 2**20:.1f} MiB, read "
+        f"{np.median(out['read_ms']):.2f} ms, saved "
+        f"{np.median(out['save_ms']):.1f} ms (medians), restore "
+        f"{attempts[1].restore_ms:.1f} ms; replays {out['replays']}, host "
+        f"syncs {out['host_syncs']} (uninterrupted {eng.n_replays}, "
+        f"{eng.n_host_syncs}); {rec_s:.3f} s recoverable against "
+        f"{plain_s:.3f} s uninterrupted; launches {launches}")
+    return out
+
+
+def _cross_engine(name: str, kw: dict, tmp: Path) -> dict:
+    """At phase 5's reduced size on the card: crash under one engine,
+    finish under the other from the same store, both ways; bit-identical
+    to the uninterrupted compiled run."""
+    from repro_torch import ENGINES
+    from repro_torch.apps import APPS
+    from repro_torch.core import CrashFault
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.ft.recovery import SnapshotStore, run_recoverable
+    top, args, _ = APPS[name].build_step(device="cuda", **kw)
+    if not ENGINES["compiled"](device="cuda").run(top, *args).ok:
+        raise AssertionError(f"recovery {name}: the uninterrupted run failed")
+    golden = _buffers(args)
+    out = {}
+    for first, second in (("compiled", "coroutine"),
+                          ("coroutine", "compiled")):
+        store = SnapshotStore(tmp / f"{name}_{first}", keep=3)
+        top, args, _ = APPS[name].build_step(device="cuda", **kw)
+        try:
+            run_recoverable(first, top, *args, store=store, snapshot_every=2,
+                            faults=FaultPlan(crash={"chunk": 2}),
+                            device="cuda")
+        except CrashFault:
+            pass
+        else:
+            raise AssertionError(f"recovery {name}: {first} did not crash")
+        top, args, check = APPS[name].build_step(device="cuda", **kw)
+        attempts = []
+        rep = run_recoverable(second, top, *args, store=store,
+                              snapshot_every=2, device="cuda", log=attempts)
+        same = all(torch.equal(a, b) for a, b in zip(_buffers(args), golden))
+        if not (rep.ok and check()[0] and same
+                and attempts[0].start_sweep == 4):
+            raise AssertionError(
+                f"recovery {name}: crash under {first}, finish under "
+                f"{second}: ok {rep.ok} ({rep.error}), bit-identical {same}, "
+                f"resumed at {attempts[0].start_sweep}")
+        out[f"{first}_then_{second}"] = dict(params=kw, bitwise=True,
+                                             resumed_at=4)
+        log(f"recovery {name}: crash under {first}, finish under {second} "
+            f"from sweep 4: bit-identical on the card")
+    return out
+
+
+def recovery_phase() -> dict:
+    """Phase 16: each of phase 4's five graphs through ``run_supervised``
+    on the card with one crash (:func:`_recover_graph`), then the
+    cross-engine restores at phase 5's sizes and the refusal of a port
+    graph under a Python engine.  The stores live in a temporary
+    directory under ``build/``, deleted at the end."""
+    import shutil
+    import tempfile
+    from repro_torch.apps import APPS
+    from repro_torch.core import SynthesisError
+    from repro_torch.ft.recovery import SnapshotStore, run_recoverable
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="recovery_", dir=ROOT / "build"))
+    try:
+        out = {tag: _recover_graph(tag, *rest, tmp)
+               for tag, *rest in RECOVERY}
+        out["cross_engine"] = {name: _cross_engine(name, REDUCED[name], tmp)
+                               for name in ("gemm", "page_rank")}
+        top, args, _ = APPS["gemm"].build_step_async(
+            device="cuda", **REDUCED_ASYNC["gemm"])
+        try:
+            run_recoverable("coroutine", top, *args,
+                            store=SnapshotStore(tmp / "refused"),
+                            device="cuda")
+        except SynthesisError as e:
+            if "async_mmap ports" not in str(e):
+                raise
+        else:
+            raise AssertionError("recovery: a port graph under coroutine "
+                                 "was not refused")
+        log("recovery: a port graph under coroutine refused")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernel_resources() -> list:
     """Phase 2: each kernel's registers, shared memory and spills as
     ``ptxas -v`` reported them, and the dynamic shared memory a block asks
@@ -2813,6 +3049,9 @@ def main() -> int:
     train_cpu = phase("14 train card vs cpu", train_vs_cpu)
     train_brk = phase("15 train breakdown", train_breakdown)
 
+    # 16: crash recovery on the synthesis path
+    recovery = phase("16 recovery", recovery_phase)
+
     kernels = []
     for name in REPLACES:
         rows = timing[name]
@@ -2858,7 +3097,8 @@ def main() -> int:
         serving=serving, serving_breakdown=serve_brk, serve_cli=cli,
         card_vs_cpu=vs_cpu, ssd_checks=ssd_checks, training=training,
         qwen_training=qwen, train_card_vs_cpu=train_cpu,
-        train_breakdown=train_brk, kernel_resources=resources,
+        train_breakdown=train_brk, recovery=recovery,
+        kernel_resources=resources,
         phase_seconds=seconds), indent=1))
     print(smi)
     line = json.dumps({"kernels": kernels})

@@ -36,7 +36,10 @@ phase) body in task order behind its predicate.  On the card the sweep is
 captured once as a CUDA graph whose bodies sit in conditional nodes, and
 the host replays it in blocks (:data:`SWEEP_BLOCKS`), reading the done
 flag once a block; on the CPU the same sweep runs with Python branches.
-A sweep that fires nothing ends the run as a stall.
+A sweep that fires nothing ends the run as a stall.  A resumable run
+(crash recovery, :mod:`repro_torch.ft.recovery`) prepares the same program
+once, restores a snapshot into its carry in place, and replays it for an
+exact budget of sweeps a chunk.
 
 Rates and refusals come from a **counting pass**: one firing of every
 phase on ``meta`` tensors, where the ring ops take their shape-only plain
@@ -57,7 +60,7 @@ import functools
 import inspect
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -74,6 +77,7 @@ from .task import (AutoStream, TaskInstance, bind_streams,
 from ..kernels.ring import (MAX_PORT_DEPTH, MAX_SWEEP_CHANNELS,
                             MAX_SWEEP_TASKS, P_ACC_R,
                             P_ACC_W, P_DEL_R, P_DEL_W, P_MAX_R, P_MAX_W,
+                            P_RHEAD, P_RSIZE, P_WSIZE,
                             PORT_WORDS, PortQueue, RingHandle, ServicePorts,
                             SweepGraph, SweepGuards, sparse_needs)
 
@@ -136,6 +140,25 @@ def _leaves(tree: Any) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+def _unflatten(template: Any, leaves: list) -> Any:
+    """The pytree of ``template``'s structure whose leaves, in
+    :func:`_leaves` order, are ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            got = {k: build(t[k]) for k in sorted(t, key=str)}
+            return {k: got[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+    return build(template)
 
 
 def _as_canon(x: Any, device: Any = None) -> torch.Tensor:
@@ -912,6 +935,62 @@ def _guard_tables(plan: _Plan):
     return need_r_np, need_w_np, bounds_np, n_ph_max
 
 
+# A port's latency queue in the reference's carry layout (its 16-entry
+# ``_port_carry0`` tuple), which snapshots use: the buffer; the read
+# window's addresses and dues, head and size; the write window's
+# addresses, dues and values, head and size; the six request counters.
+# ``PortQueue`` keeps the windows' four int32 rows in ``win`` and the ten
+# words in ``st``: their entries of the tuple are these.
+_P_DATA, _P_WVAL = 0, 7
+_WIN_ENTRIES = (1, 2, 5, 6)
+_ST_ENTRIES = (3, 4, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def port_rows(data: np.ndarray, win: np.ndarray, wval: np.ndarray,
+              st) -> list:
+    """One port's queue (``PortQueue``'s ``data``, ``win``, ``wval`` and
+    ``st``, as host arrays) in the reference's 16-entry carry layout."""
+    rows = [None] * 16
+    rows[_P_DATA], rows[_P_WVAL] = data, wval
+    for k, e in enumerate(_WIN_ENTRIES):
+        rows[e] = win[k]
+    for w, e in enumerate(_ST_ENTRIES):
+        rows[e] = np.asarray(st[w], np.int32)
+    return rows
+
+
+def _port_carry0(port: AsyncMMap) -> list:
+    """The initial queue of ``port`` in the reference's carry layout: a
+    copy of its buffer, empty windows, zero counters."""
+    data = _as_canon(port.data, "cpu").numpy().copy()
+    d = int(port.depth)
+    return port_rows(data, np.zeros((4, d), np.int32),
+                     np.zeros((d,) + data.shape[1:], data.dtype),
+                     np.zeros(PORT_WORDS, np.int32))
+
+
+def _host_tensor(a: Any) -> torch.Tensor:
+    """A host array as a CPU tensor, without a copy where numpy allows."""
+    a = np.asarray(a)
+    if a.flags.writeable and a.flags.c_contiguous:
+        return torch.from_numpy(a)
+    return torch.tensor(a)
+
+
+def _rebase_port_dues(q: PortQueue, sweeps: torch.Tensor) -> None:
+    """Rewrite ``q``'s due stamps, in place, from the chunk's sweep counter
+    to "sweeps remaining": ``due - sweeps`` in a slot in use, 0 in a free
+    one (the reference's ``_rebase_port_dues``), so that the next chunk,
+    whose counter starts at 0, delivers each request at the same point of
+    the run."""
+    d = q.depth
+    iota = torch.arange(d, dtype=torch.int32, device=q.win.device)
+    hs = q.st[P_RHEAD:P_WSIZE + 1].view(2, 2)    # (head, size) a window
+    used = ((iota - hs[:, :1]) % d) < hs[:, 1:]
+    dues = q.win[1::2]
+    dues.copy_(torch.where(used, dues - sweeps, 0))
+
+
 # Sweeps replayed between two reads of the done flag on the card, one block
 # after another; the last size repeats.  Doubling from 1 keeps what a short
 # run replays past its end below its own sweeps (gemm: 33 sweeps in 63
@@ -1046,6 +1125,7 @@ class _Carry:
         self.ports = [PortQueue(data, self.pint[pi], plan.port_chan_ids[pi],
                                 p.depth, p.latency)
                       for pi, (p, data) in enumerate(zip(plan.ports, ports0))]
+        self.totals = np.asarray([tp.total for tp in plan.tasks], np.int64)
 
     def tensors(self) -> list:
         """Every carried tensor."""
@@ -1054,6 +1134,72 @@ class _Carry:
             [x for st in self.states for x in _leaves(st)] + self.mmaps + \
             [self.pint] + [x for q in self.ports
                            for x in (q.data, q.win, q.wval)]
+
+    def load(self, fires, chans: list, states: list, mmaps: list,
+             ports: list) -> None:
+        """Restore a snapshot's rows into this carry, in place: every
+        tensor keeps its address, since the captured sweep and the
+        :class:`RingHandle`\\ s point at them.  ``chans`` are (buffer,
+        size) rows, head-normalized, so each head becomes 0; ``states``
+        each task's state pytree (leaves in :func:`_leaves` order);
+        ``ports`` each port's queue in the reference's 16-entry layout
+        (:func:`port_rows`).  The done flag is the reference's loop
+        condition on the restored carry: set when no task has firings left
+        and every port's window is empty, so a carry restored at the end
+        of a run takes no sweep.  The sweep counter, the guards' flags and
+        the highwater marks start at 0, as a fresh chunk's do."""
+        fires = np.asarray(fires, np.int64)
+        if len(chans) != len(self.rings) or len(states) != len(
+                self.states) or len(mmaps) != len(self.mmaps) or \
+                len(ports) != len(self.ports) or fires.shape != \
+                self.totals.shape:
+            raise ValueError("snapshot rows of another graph")
+        for ci, (buf, _) in enumerate(chans):
+            self.rings[ci].buf.copy_(_host_tensor(buf))
+        self.heads.zero_()
+        self.sizes.copy_(torch.tensor([int(n) for _, n in chans],
+                                      dtype=torch.int32))
+        self.fires.copy_(torch.from_numpy(fires.astype(np.int32)))
+        for ti, st in enumerate(states):
+            dst, src = _leaves(self.states[ti]), _leaves(st)
+            if len(dst) != len(src):
+                raise ValueError(f"a snapshot state of {len(src)} leaves "
+                                 f"for task {ti}'s {len(dst)}")
+            for d, s in zip(dst, src):
+                d.copy_(_host_tensor(s).reshape(d.shape))
+        for m, saved in zip(self.mmaps, mmaps):
+            m.copy_(_host_tensor(saved).reshape(m.shape))
+        pending = False
+        for q, rows in zip(self.ports, ports):
+            q.data.copy_(_host_tensor(rows[_P_DATA]))
+            q.win.copy_(torch.from_numpy(np.stack(
+                [np.asarray(rows[e], np.int32) for e in _WIN_ENTRIES])))
+            q.wval.copy_(_host_tensor(rows[_P_WVAL]))
+            st = [int(rows[e]) for e in _ST_ENTRIES]
+            q.st.copy_(torch.tensor(st, dtype=torch.int32))
+            pending |= st[P_RSIZE] > 0 or st[P_WSIZE] > 0
+        done = not (bool(np.any(fires < self.totals)) or pending)
+        self.state.copy_(torch.tensor([int(done), 0], dtype=torch.int32))
+        self.flags.zero_()
+        self.maxocc.zero_()
+
+
+class ChunkRead(NamedTuple):
+    """A resumable run's carry on the host after a chunk
+    (:meth:`_SweepProgram.run_chunk`): the chunk's ``sweeps``, the done
+    flag, ``progress`` (False after a stall: done with work left, as the
+    reference's resumable loop reports it), the firing counters,
+    ``chans`` as (buffer, head, size), ``states`` as each task's state
+    pytree, ``mmaps``, and ``ports`` in the reference's 16-entry layout
+    with their due stamps rebased, all numpy."""
+    sweeps: int
+    done: bool
+    progress: bool
+    fires: np.ndarray
+    chans: list
+    states: list
+    mmaps: list
+    ports: list
 
 
 class _SweepProgram:
@@ -1108,10 +1254,22 @@ class _SweepProgram:
     has spent its firing budget, or after a sweep that fired nothing (the
     compiled analogue of the engines' deadlock detection).
 
+    A run is :meth:`prepare` (the carry, the guards, the port service,
+    the views and, on the card, the capture), the replays, and
+    :meth:`close`; ``program(...)`` runs them to completion.  A resumable
+    run (:mod:`repro_torch.ft.recovery`, the counterpart of the
+    reference's ``_build_program(resumable=True)``) prepares once, loads
+    a snapshot into the carry in place (:meth:`_Carry.load`), and runs
+    :meth:`run_chunk` for each chunk: an exact budget of sweeps on a
+    chunk-local sweep counter, then the due stamps rebased and the carry
+    read to the host.
+
     After a run: ``capture_s`` (host seconds capturing, 0 on the CPU),
-    ``n_replays`` (sweeps replayed, those past the end included),
-    ``n_blocks`` and ``n_host_syncs`` (one a block and one final read),
-    ``n_graph_nodes`` (the sweep graph's top-level nodes, 0 on the CPU).
+    ``n_captures`` (0 on the CPU), ``n_replays`` (sweeps replayed, those
+    past the end included), ``n_blocks`` and ``n_host_syncs`` (one a block
+    and one final read; a resumable run also syncs once before each
+    chunk's read), ``n_graph_nodes`` (the sweep graph's top-level nodes, 0
+    on the CPU), ``read_s`` (host seconds of the last :meth:`read`).
     On the card the ring kernels count their own launches, replayed ones
     included (:mod:`..kernels.dispatch`).
     """
@@ -1143,10 +1301,27 @@ class _SweepProgram:
         self.carry: Optional[_Carry] = None
         self.capture_s = 0.0
         self.n_replays = self.n_blocks = self.n_host_syncs = 0
-        self.n_graph_nodes = 0
+        self.n_graph_nodes = self.n_captures = 0
+        self.read_s = 0.0
         self._graph = self._flag = None
 
     def __call__(self, states0: tuple, mmaps0: tuple, ports0: tuple = ()):
+        self.prepare(states0, mmaps0, ports0)
+        try:
+            for k in self._blocks:
+                self.block(k)
+                if self._done():
+                    break
+            return self._read()
+        finally:
+            self.close()
+
+    def prepare(self, states0: tuple, mmaps0: tuple,
+                ports0: tuple = ()) -> None:
+        """Build the carry from ``states0``/``mmaps0``/``ports0``, the
+        guards, the port service and the bodies' views, and, on the card,
+        capture the sweep's graph: once for a run, however many chunks it
+        takes (:meth:`run_chunk`).  :meth:`close` ends it."""
         c = self.carry = _Carry(self.plan, self.device, states0, mmaps0,
                                 self.n_ph, ports0)
         self._guards = SweepGuards(*self._tables, c.sizes, c.fires, c.state,
@@ -1162,22 +1337,89 @@ class _SweepProgram:
                         for pi in range(len(tp.phases))]
         self._own = [{x.untyped_storage().data_ptr() for x in _leaves(st)}
                      for st in c.states]
+        self._blocks = _block_sizes()
         if self.device.type == "cuda":
             self._flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
             self._build_graph()
-        try:
-            for k in _block_sizes():
-                self.block(k)
-                if self._done():
-                    break
-            out = self._read()
-        except BaseException:
-            if self._graph is not None:     # no replay may outlive its graph
-                torch.cuda.synchronize(self.device)
-            raise
-        finally:
-            if self._graph is not None:
-                self._graph.close()
+
+    def close(self) -> None:
+        """Destroy the sweep's graph once the device is idle: no replay may
+        outlive its graph."""
+        if self._graph is not None:
+            torch.cuda.synchronize(self.device)
+            graph, self._graph = self._graph, None
+            graph.close()
+
+    def run_chunk(self, budget: int) -> "ChunkRead":
+        """One chunk of a resumable run: at most ``budget`` sweeps from the
+        carry as it stands, then its read (:meth:`read`).
+
+        The sweep counter starts at 0 (chunk-local, as the reference's
+        resumable loop counts), the sweeps replay in blocks of
+        :data:`SWEEP_BLOCKS` cut to what is left of the budget, with one
+        read of the done flag between two blocks, and the chunk stops
+        early once the flag is set: a replay after it changes nothing.
+        Then every port's due stamps are rebased to "sweeps remaining"
+        (:func:`_rebase_port_dues`), on the device, so that the live carry
+        and a snapshot of it both go on at the next chunk's counter 0.  On
+        the card the stream is synchronized before the read, so that
+        ``read_s`` times the read alone."""
+        c = self.carry
+        c.state[1:].zero_()
+        c.maxocc.zero_()
+        left = int(budget)
+        while left > 0:
+            k = min(next(self._blocks), left)
+            self.block(k)
+            left -= k
+            if left and self._done():
+                break
+        for q in c.ports:
+            _rebase_port_dues(q, c.state[1])
+        if self._flag is not None:      # the read's time is its own
+            torch.cuda.current_stream(self.device).synchronize()
+            self.n_host_syncs += 1
+        return self.read()
+
+    def read(self) -> "ChunkRead":
+        """The carry on the host in one read: on the card every carried
+        tensor is copied into pinned memory, then one sync."""
+        t0 = time.perf_counter()
+        c = self.carry
+        small = torch.cat([c.fires, c.state, c.heads, c.sizes,
+                           c.pint.view(-1)])
+        big = [r.buf for r in c.rings.values()] + \
+            [x for st in c.states for x in _leaves(st)] + c.mmaps + \
+            [x for q in c.ports for x in (q.data, q.win, q.wval)]
+        if self._flag is not None:
+            host = []
+            for x in [small] + big:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                host.append(h)
+            torch.cuda.current_stream(self.device).synchronize()
+        else:
+            host = [x.clone() for x in [small] + big]
+        self.n_host_syncs += 1
+        t, n = len(c.fires), len(c.sizes)
+        vec = host[0].numpy()
+        fires, (done, sweeps) = vec[:t].copy(), vec[t:t + 2].tolist()
+        heads, sizes = vec[t + 2:t + 2 + n], vec[t + 2 + n:t + 2 + 2 * n]
+        pint = vec[t + 2 + 2 * n:].reshape(-1, PORT_WORDS)
+        left = bool(np.any(fires < c.totals)) or bool(
+            np.any(pint[:, [P_RSIZE, P_WSIZE]] > 0))
+        it = iter(x.numpy() for x in host[1:])
+        out = ChunkRead(
+            sweeps=int(sweeps), done=bool(done),
+            progress=not (done and left), fires=fires,
+            chans=[(next(it), int(heads[ci]), int(sizes[ci]))
+                   for ci in range(len(c.rings))],
+            states=[_unflatten(st, [next(it) for _ in _leaves(st)])
+                    for st in c.states],
+            mmaps=[next(it) for _ in c.mmaps],
+            ports=[port_rows(next(it), next(it), next(it), pint[pi])
+                   for pi in range(len(c.ports))])
+        self.read_s = time.perf_counter() - t0
         return out
 
     def block(self, k: int) -> None:
@@ -1260,6 +1502,7 @@ class _SweepProgram:
             capture.tail.raw_cuda_graph() if capture.tail is not None
             else None)
         self.n_graph_nodes = self._graph.nodes
+        self.n_captures += 1
         self.capture_s = time.perf_counter() - t0
 
     def _done(self) -> bool:
