@@ -170,6 +170,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    syncs, seconds against the uninterrupted run.  Then at phase 5's sizes
    a crash under ``compiled`` finished under ``coroutine`` and the
    reverse, bit-identical, and a port graph refused under ``coroutine``.
+17. codegen — hierarchical code generation on the card: stage graphs
+   compiled through ``compile_stages`` into AOTInductor packages (no
+   hand-written kernel runs here; the programs run inductor's generated
+   code), each store under a temporary ``build/codegen_*``, deleted.
+   First the ``CODEGEN_WORKERS`` compile processes start, one compile
+   each (their one-time start-up, timed apart).
+   Gaussian's chain at phase 4's width (``torch_stages``, 6 instances of
+   3 definitions): monolithic 6 compiles; hierarchical cold on an empty
+   root 3; warm from a fresh ``python`` process on that root 0, every
+   definition from disk; incremental after an in-place edit of the
+   stencil's weights with ``prev`` 1 compiled, 2 reused; the program
+   within ``GAUSSIAN_TOL`` of the eager stages on the card and of
+   ``_stencil_ref`` on the host (in the fresh process too).  The codegen
+   benchmark's cache graph (``CODEGEN_GRAPH``: 515 instances of 15
+   definitions): cold 15 compiles, warm 15 disk hits, incremental 1
+   compiled and 14 reused, each definition's output against eager.  cnn
+   (17 instances, 2 definitions) and gcn (9, 3; a 64 MiB adjacency)
+   through ``compile_app``, within ``APP_TOL`` of their ``ref``, and a
+   rerun with re-created closures compiling nothing.  Gaussian's
+   ``compile_app`` at 64 x 64 (elaboration is the per-pixel simulation)
+   and ``invoke(target="compiled")`` on a graph of gaussian's stage
+   definitions through the default cache: 3 compiles, then 3 memory
+   hits.  Recorded, not gated: per-definition export, compile and load
+   seconds, each mode's wall seconds, monolithic/hierarchical and
+   cold/warm ratios, package bytes, each program's run ms (CUDA events).
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -183,6 +208,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2920,6 +2946,366 @@ def recovery_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: hierarchical code generation on the card
+# ---------------------------------------------------------------------------
+
+# gaussian's stage chain at phase 4's width (6 instances of 3 definitions)
+CODEGEN_GAUSSIAN = dict(h=2048, w=2048, iters=4)
+# the codegen benchmark's cache graph (benchmarks/codegen_time.py
+# cache_bench): 515 instances of 15 definitions on a 96 x 96 input
+CODEGEN_GRAPH = dict(n_instances=515, n_defs=15, dim=96)
+# compile processes of a hierarchical compile: a process's first compile
+# took 134-136 s with 8 starting at once on the H100 host's 8 cores and
+# 92-103 s with 4 (PERF.md §6), so 4 keep the phase near 5 minutes
+CODEGEN_WORKERS = 4
+CODEGEN_APPS = {"cnn": dict(ci=64, co=64, hw=32, k=3, P=4),
+                "gcn": dict(n_vertices=4096, n_edges=16384, n_parts=4)}
+# max |out - ref| / max |ref| of gaussian's chain: the reference test's
+# bar; max |out - ref| of cnn and gcn: the reference test's atol
+GAUSSIAN_TOL = 1e-4
+APP_TOL = 1e-3
+RUN_REPS = 20               # timed calls of a compiled program
+
+# a fresh process warm-starting gaussian's chain from the store: every
+# definition from disk, and the chain's output against its eager stages
+WARM_START = """
+import json, sys, time, torch
+from repro_torch.apps import gaussian
+from repro_torch.core.hier_compile import build_dataflow, compile_stages
+kw = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+insts, wiring = gaussian.torch_stages(**kw)
+rep = compile_stages(insts, device="cuda")
+wall = time.perf_counter() - t0
+gen = torch.Generator().manual_seed(1)
+img = torch.randn((kw["h"], kw["w"]), generator=gen).cuda()
+out = build_dataflow(insts, wiring)(img)
+want = img
+for i in insts:
+    want = i.fn(want)
+err = float((out - want).abs().max() / want.abs().max())
+print(json.dumps({"n_compiled": rep.n_compiled,
+                  "n_cache_hits": rep.n_cache_hits,
+                  "sources": sorted(set(rep.sources.values())), "wall_s": wall,
+                  "load_ms": [e.timing["load_s"] * 1e3
+                              for e in rep.executables.values()],
+                  "rel_err": err}))
+"""
+
+
+def _counts(rep) -> dict:
+    return dict(wall_s=rep.wall_s, n_instances=rep.n_instances,
+                n_unique=rep.n_unique, n_compiled=rep.n_compiled,
+                n_cache_hits=rep.n_cache_hits, n_reused=rep.n_reused,
+                sources=sorted(set(rep.sources.values())))
+
+
+def _expect(what: str, rep, **want) -> dict:
+    got = _counts(rep)
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"codegen {what}: (got, want) {bad}")
+    log(f"codegen {what}: {rep.wall_s:.2f} s, {rep.n_instances} instances, "
+        f"{rep.n_unique} unique, compiled {rep.n_compiled}, hits "
+        f"{rep.n_cache_hits}, reused {rep.n_reused}")
+    return got
+
+
+def _per_def(rep) -> list:
+    """Each definition's export, package compile and load seconds and its
+    package's bytes (a compiled one), or its probe's seconds (a hit)."""
+    rows = []
+    for key, src in rep.sources.items():
+        exe = rep.executables[key]
+        rows.append(dict(key=key[:12], source=src, s=rep.per_key_s[key],
+                         bytes=len(exe.payload), **exe.timing))
+    log("codegen   per definition (source, export s, compile s, load ms, "
+        "bytes): " + "; ".join(
+            f"{r['source']} {r['export_s']:.2f} {r['compile_s']:.2f} "
+            f"{r['load_s'] * 1e3:.1f} {r['bytes']}" for r in rows))
+    return rows
+
+
+def _run_ms(prog, *inputs) -> float:
+    return time_ms(lambda i: prog(*inputs), reps=RUN_REPS, warm=2)
+
+
+def _rel(out: torch.Tensor, want) -> float:
+    want = torch.as_tensor(want, device=out.device)
+    return float((out - want).abs().max() / want.abs().max())
+
+
+def _codegen_gaussian(tmp: Path) -> dict:
+    """Gaussian's chain at phase 4's width: monolithic, hierarchical cold
+    on an empty root, warm from a fresh process, incremental after an
+    edit of the stencil's weights; the output against the eager stages on
+    the card and against ``_stencil_ref`` on the host."""
+    import inspect
+    from repro_torch.apps import gaussian
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.hier_compile import build_dataflow, compile_stages
+    kw = CODEGEN_GAUSSIAN
+    n = kw["iters"] + 2
+    insts, wiring = gaussian.torch_stages(**kw)
+    mono = compile_stages(insts, mode="monolithic", device="cuda")
+    out = dict(monolithic=_expect("gaussian monolithic", mono, n_instances=n,
+                                  n_unique=3, n_compiled=n))
+    out["monolithic"]["per_instance_s"] = mono.per_key_s
+    root = tmp / "gaussian"
+    insts, wiring = gaussian.torch_stages(**kw)
+    cold = compile_stages(insts, cache=CompileCache(root=root),
+                          max_workers=CODEGEN_WORKERS, device="cuda")
+    out["cold"] = _expect("gaussian cold", cold, n_unique=3, n_compiled=3)
+    out["cold"]["per_def"] = _per_def(cold)
+    out["monolithic_over_hierarchical"] = mono.wall_s / cold.wall_s
+
+    def eager(t):
+        for inst in insts:
+            t = inst.fn(t)
+        return t
+
+    prog = build_dataflow(insts, wiring)
+    img = np.random.default_rng(0).standard_normal(
+        (kw["h"], kw["w"])).astype(np.float32)
+    x = torch.from_numpy(img).cuda()
+    got, want = prog(x), eager(x)
+    ref = img
+    for _ in range(kw["iters"]):
+        ref = gaussian._stencil_ref(ref)
+    errs = dict(vs_eager=_rel(got, want), vs_stencil_ref=_rel(got, ref))
+    if max(errs.values()) > GAUSSIAN_TOL:
+        raise AssertionError(f"codegen gaussian: {errs} over {GAUSSIAN_TOL}")
+    out["rel_err"] = errs
+    out["run_ms"] = _run_ms(prog, x)
+    out["eager_ms"] = _run_ms(eager, x)
+    log(f"codegen gaussian: monolithic / hierarchical "
+        f"{out['monolithic_over_hierarchical']:.2f}x; program "
+        f"{out['run_ms']:.3f} ms a call (eager stages {out['eager_ms']:.3f}"
+        f" ms); errors {errs}")
+
+    r = subprocess.run(
+        [sys.executable, "-c", WARM_START, json.dumps(kw)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "REPRO_TORCH_COMPILE_CACHE": str(root)})
+    if r.returncode != 0:
+        raise AssertionError(f"codegen warm start failed:\n{r.stderr[-3000:]}")
+    warm = json.loads(r.stdout.strip().splitlines()[-1])
+    if warm["n_compiled"] != 0 or warm["sources"] != ["disk"] or \
+            warm["rel_err"] > GAUSSIAN_TOL:
+        raise AssertionError(f"codegen gaussian warm start: {warm}")
+    log(f"codegen gaussian warm (fresh process): {warm['wall_s']:.2f} s, "
+        f"compiled 0, all {warm['n_cache_hits']} from disk, load ms "
+        f"{[round(v, 2) for v in warm['load_ms']]}, err {warm['rel_err']:.2e}")
+    out["warm"] = warm
+    out["cold_over_warm"] = cold.wall_s / warm["wall_s"]
+    log(f"codegen gaussian: cold / fresh-process warm "
+        f"{out['cold_over_warm']:.2f}x")
+
+    edited, _ = gaussian.torch_stages(**kw)
+    KJ = inspect.getclosurevars(edited[1].fn).nonlocals["KJ"]
+    KJ[1][1] += 1.0 / 64          # the QoR loop's in-place weight edit
+    inc = compile_stages(edited, cache=CompileCache(root=tmp / "gauss_inc"),
+                         prev=cold, max_workers=CODEGEN_WORKERS,
+                         device="cuda")
+    out["incremental"] = _expect("gaussian incremental", inc, n_compiled=1,
+                                 n_reused=2)
+    out["incremental"]["per_def"] = _per_def(inc)
+    return out
+
+
+def _codegen_defs(n_defs: int, edit: int = -1) -> list:
+    """``benchmarks/codegen_time.py``'s ``_gaussian_style_defs`` in torch:
+    ``n_defs`` definitions differing in closure constants, re-created on
+    every call; ``edit`` bumps one definition's coefficient."""
+    def make(i: int, coef: float):
+        def stage(x):
+            y = torch.tanh(x @ x.T) * coef
+            return y + torch.roll(x, (i % 3) + 1, dims=0) * (0.1 * (i + 1))
+        return stage
+    return [make(i, 0.5 + 0.1 * i + (1.0 if i == edit else 0.0))
+            for i in range(n_defs)]
+
+
+def _codegen_cache_graph(tmp: Path) -> dict:
+    """The codegen benchmark's cold / warm / incremental cycle on the card:
+    15 compiles, then 15 disk hits after the memory level is dropped and
+    the closures re-created, then one edited definition compiled with the
+    other 14 reused from the warm report."""
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.hier_compile import StageInstance, compile_stages
+    n, k, dim = (CODEGEN_GRAPH[f] for f in ("n_instances", "n_defs", "dim"))
+    x = torch.ones((dim, dim), dtype=torch.float32, device="cuda")
+
+    def instances(defs):
+        return [StageInstance(fn=defs[i % len(defs)], args=(x,),
+                              name=f"inst{i}") for i in range(n)]
+
+    cache = CompileCache(root=tmp / "graph")
+    out = {}
+    cold = compile_stages(instances(_codegen_defs(k)), cache=cache,
+                          max_workers=CODEGEN_WORKERS, device="cuda")
+    out["cold"] = _expect("cache graph cold", cold, n_instances=n,
+                          n_unique=k, n_compiled=k)
+    out["cold"]["per_def"] = _per_def(cold)
+    cache.clear_memory()
+    defs = _codegen_defs(k)
+    warm = compile_stages(instances(defs), cache=cache, device="cuda")
+    out["warm"] = _expect("cache graph warm", warm, n_compiled=0,
+                          n_cache_hits=k, sources=["disk"])
+    out["warm"]["per_def"] = _per_def(warm)
+    errs = [_rel(warm.executables[key](x), fn(x)) for key, fn in
+            zip(warm.sources, defs)]
+    if max(errs) > GAUSSIAN_TOL:
+        raise AssertionError(f"codegen cache graph: errors {errs}")
+    out["rel_err_max"] = max(errs)
+    inc = compile_stages(instances(_codegen_defs(k, edit=0)),
+                         cache=CompileCache(root=tmp / "graph_inc"),
+                         prev=warm, max_workers=CODEGEN_WORKERS,
+                         device="cuda")
+    out["incremental"] = _expect("cache graph incremental", inc,
+                                 n_compiled=1, n_reused=k - 1)
+    out["incremental"]["per_def"] = _per_def(inc)
+    out["cold_over_warm"] = cold.wall_s / warm.wall_s
+    out["cold_over_incremental"] = cold.wall_s / inc.wall_s
+    log(f"codegen cache graph: cold / warm {out['cold_over_warm']:.1f}x, "
+        f"cold / incremental {out['cold_over_incremental']:.2f}x, max error "
+        f"{out['rel_err_max']:.2e}")
+    return out
+
+
+def _codegen_apps(tmp: Path) -> dict:
+    """cnn and gcn through ``compile_app`` on the card: outputs against
+    their ``ref``, then a rerun with re-created closures from the same
+    root that compiles nothing."""
+    from repro_torch.apps import cnn, gcn
+    from repro_torch.core.compile_cache import CompileCache
+    out = {}
+    for name, mod, n_inst, n_uniq in (("cnn", cnn, 17, 2),
+                                      ("gcn", gcn, 9, 3)):
+        kw = CODEGEN_APPS[name]
+        root = tmp / name
+        rep, prog, ref = mod.compile_app(cache=CompileCache(root=root),
+                                         device="cuda", **kw)
+        row = _expect(f"{name} cold", rep, n_instances=n_inst,
+                      n_unique=n_uniq, n_compiled=n_uniq)
+        got = prog()
+        err = float((got - torch.as_tensor(ref, device="cuda")).abs().max())
+        if err > APP_TOL:
+            raise AssertionError(f"codegen {name}: max |out - ref| {err}")
+        rep2, _, _ = mod.compile_app(cache=CompileCache(root=root),
+                                     device="cuda", **kw)
+        _expect(f"{name} rerun", rep2, n_compiled=0, sources=["disk"])
+        out[name] = dict(params=kw, cold=row, per_def=_per_def(rep),
+                         rerun=_counts(rep2), max_abs_err=err,
+                         run_ms=_run_ms(prog))
+        log(f"codegen {name}: max |out - ref| {err:.2e}, program "
+            f"{out[name]['run_ms']:.3f} ms a call")
+    return out
+
+
+def _codegen_invoke(tmp: Path) -> dict:
+    """``gaussian.compile_app`` at 64 x 64 (elaboration: the per-pixel
+    coroutine simulation) and ``invoke(target="compiled")`` on a graph
+    whose leaf tasks are gaussian's stage definitions, through the
+    process's default cache: 3 compiles, then none."""
+    import repro_torch
+    from repro_torch.apps import gaussian
+    from repro_torch.core.compile_cache import (CompileCache,
+                                                set_default_cache)
+    h = w = 64
+    graph, rep, prog = gaussian.compile_app(
+        h=h, w=w, cache=CompileCache(root=tmp / "g64"), device="cuda")
+    out = dict(compile_app=_expect("gaussian 64x64 compile_app", rep,
+                                   n_instances=6, n_unique=3, n_compiled=3))
+    if not graph.report.ok:
+        raise AssertionError(f"codegen: elaboration failed "
+                             f"{graph.report.error}")
+    img = np.random.default_rng(0).standard_normal((h, w)).astype(np.float32)
+    ref = img
+    for _ in range(4):
+        ref = gaussian._stencil_ref(ref)
+    out["compile_app"]["rel_err"] = _rel(prog(img), ref)
+    if out["compile_app"]["rel_err"] > GAUSSIAN_TOL:
+        raise AssertionError(f"codegen gaussian 64x64: {out['compile_app']}")
+
+    insts, _ = gaussian.torch_stages(h=h, w=w)
+    x = torch.from_numpy(img).cuda()
+
+    def Top(t):
+        b = repro_torch.task()
+        for inst in insts:
+            b = b.invoke(inst.fn, t, name=inst.name)
+        return "done"
+
+    cache = CompileCache(root=tmp / "invoke")
+    set_default_cache(cache)
+    try:
+        for turn, want in enumerate((3, 0)):
+            t0 = time.perf_counter()
+            res = repro_torch.invoke(Top, x, target="compiled",
+                                     device="cuda")
+            dt = time.perf_counter() - t0
+            if res != "done" or cache.stats.puts != 3:
+                raise AssertionError(f"codegen invoke: result {res!r}, "
+                                     f"stats {cache.stats}")
+            out[f"invoke_{turn}"] = dict(s=dt, **cache.stats.as_dict())
+            log(f"codegen invoke(target='compiled') turn {turn}: {dt:.2f} s, "
+                f"{cache.stats.as_dict()}")
+    finally:
+        set_default_cache(None)
+    if cache.stats.misses != 3 or cache.stats.mem_hits != 3:
+        raise AssertionError(f"codegen invoke: {cache.stats}")
+    return out
+
+
+def _codegen_workers(tmp: Path) -> dict:
+    """Start the ``CODEGEN_WORKERS`` package-compile processes with one
+    compile each (distinct definitions, no store): their one-time start-up
+    (imports, the toolchain's probes) is measured here, apart from the
+    modes' compiles, which then run in warm processes."""
+    from repro_torch.core.hier_compile import StageInstance, compile_stages
+    x = torch.ones((8, 8), device="cuda")
+
+    def make(c):
+        def stage(t):
+            return t * c
+        return stage
+
+    rep = compile_stages([StageInstance(fn=make(float(i)), args=(x,))
+                          for i in range(CODEGEN_WORKERS)], cache=False,
+                         max_workers=CODEGEN_WORKERS, device="cuda")
+    return dict(_expect("worker start-up", rep, n_compiled=CODEGEN_WORKERS),
+                per_def=_per_def(rep))
+
+
+def codegen_phase() -> dict:
+    """Phase 17: hierarchical code generation on the card (AOTInductor
+    packages through the compile cache, roots under a temporary
+    ``build/codegen_*``, deleted; the compile processes stopped)."""
+    import shutil
+    import tempfile
+    from repro_torch.core.compile_cache import shutdown_workers
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="codegen_", dir=ROOT / "build"))
+    out = {}
+    try:
+        for name, fn in (("workers", _codegen_workers),
+                         ("gaussian", _codegen_gaussian),
+                         ("cache_graph", _codegen_cache_graph),
+                         ("apps", _codegen_apps),
+                         ("invoke", _codegen_invoke)):
+            t0 = time.perf_counter()
+            out[name] = fn(tmp)
+            out[name]["phase_s"] = time.perf_counter() - t0
+            log(f"codegen {name}: {out[name]['phase_s']:.1f} s")
+    finally:
+        shutdown_workers()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernel_resources() -> list:
     """Phase 2: each kernel's registers, shared memory and spills as
     ``ptxas -v`` reported them, and the dynamic shared memory a block asks
@@ -3052,6 +3438,9 @@ def main() -> int:
     # 16: crash recovery on the synthesis path
     recovery = phase("16 recovery", recovery_phase)
 
+    # 17: hierarchical code generation
+    codegen = phase("17 codegen", codegen_phase)
+
     kernels = []
     for name in REPLACES:
         rows = timing[name]
@@ -3097,7 +3486,7 @@ def main() -> int:
         serving=serving, serving_breakdown=serve_brk, serve_cli=cli,
         card_vs_cpu=vs_cpu, ssd_checks=ssd_checks, training=training,
         qwen_training=qwen, train_card_vs_cpu=train_cpu,
-        train_breakdown=train_brk, recovery=recovery,
+        train_breakdown=train_brk, recovery=recovery, codegen=codegen,
         kernel_resources=resources,
         phase_seconds=seconds), indent=1))
     print(smi)

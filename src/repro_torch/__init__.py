@@ -29,10 +29,14 @@ The public API mirrors the reference's::
 Step-form graphs (:class:`StepTask` leaves) also run under
 ``CompiledEngine``, which synthesizes them to ring buffers on the card
 (``device=None`` means CUDA; pass ``device="cpu"`` to run on the CPU).
+``invoke(Top, ..., target="compiled")`` and ``compile_stages`` compile a
+graph's stage definitions once each through the compile cache
+(AOTInductor packages on the card, exported programs on the CPU).
 """
 
 from .core import (EOT, Channel, IStream, OStream, channel, select, run,
-                   task, MMap, AsyncMMap, Scalar, mmap, async_mmap, scalar,
+                   task, invoke, StageInstance, compile_stages,
+                   DataflowProgram, MMap, AsyncMMap, Scalar, mmap, async_mmap, scalar,
                    elaborate, Graph, InterfaceInfo, SimReport, ENGINES,
                    Deadlock, DeadlockError, DeadlockReport,
                    SequentialSimulationError, EndOfTransaction,
@@ -41,7 +45,8 @@ from .core import (EOT, Channel, IStream, OStream, channel, select, run,
 
 __all__ = [
     "EOT", "Channel", "IStream", "OStream", "channel", "select", "run",
-    "task", "MMap", "AsyncMMap", "Scalar", "mmap", "async_mmap", "scalar",
+    "task", "invoke", "StageInstance", "compile_stages", "DataflowProgram",
+    "MMap", "AsyncMMap", "Scalar", "mmap", "async_mmap", "scalar",
     "elaborate", "Graph", "InterfaceInfo", "SimReport", "ENGINES",
     "Deadlock", "DeadlockError", "DeadlockReport",
     "SequentialSimulationError", "EndOfTransaction", "ChannelMisuse",

@@ -7,15 +7,14 @@ neighbour features per destination vertex, a Dense task applies the weight
 matrix, and a Sink collects rows.  Vertex feature vectors cross channels as
 whole tokens; the per-partition update streams are EoT-delimited
 transactions (the UpdateHandler pattern from the paper's Listing 2).
-
-The reference's ``jax_stages``/``compile_app`` (hierarchical compilation
-through the compile cache) are not ported: they wait for the port's
-compile cache.
+``torch_stages``/``compile_app`` lower the same decomposition to stage
+programs compiled hierarchically through the compile cache.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core import channel, task
 from .base import AppResult, simulate
@@ -92,3 +91,78 @@ def build(n_vertices: int = 64, n_edges: int = 256, fin: int = 16,
 def run(engine: str = "coroutine", **kw) -> AppResult:
     top, args, check = build(**kw)
     return simulate("gcn", top, args, engine, check)
+
+
+def torch_stages(n_vertices: int = 64, n_edges: int = 256, fin: int = 16,
+                 fout: int = 8, n_parts: int = 4, seed: int = 0,
+                 device=None):
+    """The GCN layer as torch stages (the counterpart of the reference's
+    ``jax_stages``): per-partition Gather and Dense instances (one
+    definition each) plus a concatenating sink — the same decomposition
+    the streaming version simulates, with the adjacency slice bound per
+    Gather instance as a tensor on the device (an input of the compiled
+    stage)."""
+    from ..core.hier_compile import StageInstance
+    from ..core.synth import resolve_device
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_vertices, n_edges)
+    dst = rng.integers(0, n_vertices, n_edges)
+    H = rng.standard_normal((n_vertices, fin)).astype(np.float32)
+    W = (rng.standard_normal((fin, fout)) / np.sqrt(fin)).astype(np.float32)
+    deg = np.bincount(dst, minlength=n_vertices) + 1.0
+    A = np.zeros((n_vertices, n_vertices), np.float32)
+    for s, d in zip(src, dst):
+        A[d, s] += 1.0
+    A += np.eye(n_vertices, dtype=np.float32)
+    A /= deg[:, None].astype(np.float32)
+    part = n_vertices // n_parts
+
+    def gather(a_rows, feats):
+        return a_rows @ feats
+
+    def dense(agg, w):
+        return torch.clamp_min(agg @ w, 0.0)
+
+    def concat(*rows):
+        return torch.cat(rows, dim=0)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def aval(rows, cols):
+        return torch.empty((rows, cols), dtype=torch.float32, device="meta")
+
+    bounds = [(p * part,
+               n_vertices if p == n_parts - 1 else (p + 1) * part)
+              for p in range(n_parts)]
+    Ht, Wt = on_dev(H), on_dev(W)
+    insts = [StageInstance(fn=gather, args=(on_dev(A[lo:hi]), Ht),
+                           name=f"Gather{p}")
+             for p, (lo, hi) in enumerate(bounds)]
+    insts += [StageInstance(fn=dense, args=(aval(hi - lo, fin), Wt),
+                            name=f"Dense{p}")
+              for p, (lo, hi) in enumerate(bounds)]
+    insts.append(StageInstance(
+        fn=concat, args=tuple(aval(hi - lo, fout) for lo, hi in bounds),
+        name="Concat"))
+    wiring = {n_parts + p: [p] for p in range(n_parts)}
+    wiring[2 * n_parts] = [n_parts + p for p in range(n_parts)]
+    ref = np.maximum(A @ H @ W, 0.0)
+    return insts, wiring, ref
+
+
+def compile_app(n_vertices: int = 64, n_parts: int = 4, *, cache=None,
+                prev=None, device=None, **kw):
+    """Hierarchically compile the GCN layer on ``device`` (the card unless
+    the caller names another) through the compile cache and return
+    ``(report, program, ref)``."""
+    from ..core.hier_compile import build_dataflow, compile_stages
+
+    insts, wiring, ref = torch_stages(n_vertices=n_vertices,
+                                      n_parts=n_parts, device=device, **kw)
+    report = compile_stages(insts, mode="hierarchical", cache=cache,
+                            prev=prev, device=device)
+    program = build_dataflow(insts, wiring, source_indices=[])
+    return report, program, ref

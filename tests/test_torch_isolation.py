@@ -46,6 +46,21 @@ mods = sorted(m for m in sys.modules
 print(json.dumps({"rc": rc, "mods": mods}))
 """
 
+CODEGEN = """
+import json, sys, tempfile
+import numpy as np
+from repro_torch.apps import gaussian
+from repro_torch.core import CompileCache
+with tempfile.TemporaryDirectory() as d:
+    g, rep, prog = gaussian.compile_app(cache=CompileCache(root=d),
+                                        device="cpu")
+    out = prog(np.ones((12, 12), np.float32)).numpy()
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"compiled": rep.n_compiled,
+                  "ok": bool(np.allclose(out, 1.0)), "mods": mods}))
+"""
+
 
 def _run(prog: str) -> dict:
     out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
@@ -69,6 +84,28 @@ def test_training_on_cpu_imports_neither_jax_nor_reference():
     """``repro_torch.launch.train --device cpu`` trains the reduced Mamba2
     through the kernels' path and never imports jax, jaxlib or repro."""
     assert _run(TRAIN) == {"rc": 0, "mods": []}
+
+
+def test_codegen_on_cpu_imports_neither_jax_nor_reference():
+    """Compiling gaussian's stage chain through the compile cache and
+    running its program on the CPU never imports jax, jaxlib or repro."""
+    assert _run(CODEGEN) == {"compiled": 3, "ok": True, "mods": []}
+
+
+def test_codegen_defaults_to_cuda(monkeypatch):
+    """With no device, ``compile_stages``, ``compile_app`` and the keys
+    go to the card, and raise where there is none."""
+    from repro_torch.apps import gaussian
+    from repro_torch.core import StageInstance, compile_stages
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inst = StageInstance(fn=lambda x: x + 1, args=(torch.ones(2),))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        compile_stages([inst], cache=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        inst.key
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        gaussian.compile_app(cache=False)
+    assert inst.executable is None
 
 
 def test_train_defaults_to_cuda(monkeypatch, tmp_path):
