@@ -97,10 +97,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    zeros, lse -1e30), S=2048 with window 100, hd 64 with group 4; decode
    at 8 slots of a 2048-row cache with ragged lengths, 0 and 2048
    included, the edges of its 64-row splits (kv_len and S_max at 63, 64
-   and 65) and groups 1, 4 and 8).  Limits, relative to the plain
+   and 65) and groups 1, 4 and 8); then Phi-3-vision's head width 96: 32
+   query and 32 KV heads, prefill lengths 128-2048 (its 576-patch prefix,
+   a 1,500-token prompt), a GQA group of 8 with a window, Sq < Sk; decode
+   at 8 slots of 2048 rows with a dead slot and a full row, random
+   lengths, groups 8 and 4.  Limits, relative to the plain
    output's largest magnitude: ``ATTN_REL_TOL``; flash's ``lse`` within
-   ``LSE_ABS_TOL``; exact zeros where ``kv_len == 0``.  CUDA-event times
-   (B=1 S=1024 and 2048, B=8 S=256, B=4 S=1024 for flash) of kernel, plain version and
+   ``LSE_ABS_TOL``; exact zeros where ``kv_len == 0``; the largest error
+   of each op, head width and dtype is printed.  CUDA-event times
+   (``FLASH_TIMES``: Qwen3's B=1 S=1024 and 2048, B=8 S=256, B=4 S=1024,
+   Phi-3's B=1 S=1024 and 2048; ``DECODE_TIMES``: both models' packed
+   caches) of kernel, plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
    port), each kernel's device time a call, reading a different layer's
    tensors on each call as the model does, so the 50 MB L2 holds none of them.
@@ -195,6 +202,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    hits.  Recorded, not gated: per-definition export, compile and load
    seconds, each mode's wall seconds, monolithic/hierarchical and
    cold/warm ratios, package bytes, each program's run ms (CUDA events).
+18. granite-moe-1b-a400m at full width (24 layers, 32 experts top-8,
+   bf16, random weights from a seed) served as phase 8 serves Qwen3
+   (``SERVE``, ``attn_impl="kernel"``), with phase 8's gates: the
+   parameter count equal to ``cfg.param_count()``, ``max_new`` tokens a
+   request, no NaN logit, flash launches = layers x prefill calls,
+   flash-decode launches = layers x decode steps; tok/s, prefill s, ms a
+   decode step and peak GB printed.  Then ``launch.serve --full --arch
+   granite-moe-1b-a400m`` at its defaults (flash-decode at every layer).
+19. phi-3-vision-4.2b at full width (32 layers, MHA 32 heads of 96) the
+   same way, then one bf16 prefill of a ``VLM_PROMPT``-token prompt with
+   576 random patches: finite logits that the patches move, flash once a
+   layer; then its ``launch.serve --full``.
+20. card vs CPU, as phase 9, for both models at 2 float32 layers of full
+   width: phi-3's prompts (600-1024 tokens, a 1024 bucket) carry patches;
+   granite's expert choices are compared before its logits, layer by
+   layer: a choice that differs where the token's K + 1 largest router
+   probabilities are closer than ``ROUTE_MARGIN`` is float-class,
+   reported, and its row (and any row whose kept copies it displaced) is
+   left out of the logit comparison from then on; any other difference
+   fails.
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -242,6 +269,11 @@ LSE_ABS_TOL = 1e-5
 # Card (kernels, cuBLAS) vs CPU (plain versions) on the same float32
 # weights: max |card - cpu| / max |cpu| over the logits.
 LOGIT_REL_TOL = 1e-4
+# An MoE token's expert choice may differ between the card and the CPU
+# only where its probabilities tie within float rounding: the smallest gap
+# among its K + 1 largest below this (float32 router logits summed in
+# other orders differ by ~1e-7 relative).
+ROUTE_MARGIN = 1e-5
 ARCH = "qwen3-0.6b"
 DEV = "cuda"                # the LM phases' device
 SERVE = dict(slots=8, max_seq=2048, requests=16, prompt=(64, 1500),
@@ -1561,6 +1593,17 @@ FLASH_CASES = [             # (B, Sq, Sk, nh, nkv, hd, causal, window)
     (1, 2048, 2048, 16, 8, 128, True, 100),    # tiles skipped both sides
     (2, 333, 333, 8, 2, 64, True, 100),     # hd 64, group 4, window
     (4, 1024, 1024, 16, 8, 128, True, None),   # Qwen3 training shape
+    # Phi-3-vision: 32 query and 32 KV heads of width 96 (MHA), prefill
+    # buckets 128-2048, its 576-patch prefix, a ragged prompt; hd 96 with
+    # GQA (group 8) and a window; Sq < Sk
+    (1, 128, 128, 32, 32, 96, True, None),
+    (4, 128, 128, 32, 32, 96, True, None),
+    (1, 576, 576, 32, 32, 96, True, None),
+    (2, 1024, 1024, 32, 32, 96, True, None),
+    (1, 1500, 1500, 32, 32, 96, True, None),
+    (1, 2048, 2048, 32, 32, 96, True, None),
+    (2, 333, 333, 32, 4, 96, True, 100),
+    (1, 100, 300, 32, 32, 96, True, None),
 ]
 DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
     (8, 2048, 16, 8, 128, [0, 1, 255, 256, 257, 2048, 1000, 37]),
@@ -1574,6 +1617,14 @@ DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
     (3, 63, 16, 8, 128, [1, 62, 63]),
     (2, 300, 16, 2, 64, [65, 300]),         # group 8
     (2, 200, 8, 8, 128, [64, 200]),         # group 1
+    # Phi-3-vision's cache: 8 slots x 2048, 32 KV heads of 96 (group 1),
+    # a dead slot, a full row, the split edges; random lengths; hd 96 at
+    # groups 8 and 4
+    (8, 2048, 32, 32, 96, [0, 1, 63, 64, 65, 2048, 1000, 577]),
+    (8, 2048, 32, 32, 96,
+     np.random.default_rng(4).integers(0, 2049, 8).tolist()),
+    (4, 512, 16, 2, 96, [0, 5, 511, 512]),
+    (2, 300, 16, 4, 96, [65, 300]),
 ]
 
 
@@ -1628,6 +1679,8 @@ def check_attention() -> tuple[list, dict]:
                 raise AssertionError(f"flash_attention differs from plain: "
                                      f"{rows[-1]}")
             worst["flash_attention"] = max(worst["flash_attention"], err)
+            key = f"flash_attention hd{hd} {dt}"
+            worst[key] = max(worst.get(key, 0.0), err)
             del q, k, v, out, lse, p_out, p_lse
         for B, S, nh, nkv, hd, lens in DECODE_CASES:
             q = _rand(gen, (B, nh, hd), dt)
@@ -1650,9 +1703,23 @@ def check_attention() -> tuple[list, dict]:
                 raise AssertionError(f"decode_attention differs from plain: "
                                      f"{rows[-1]}")
             worst["decode_attention"] = max(worst["decode_attention"], err)
+            key = f"decode_attention hd{hd} {dt}"
+            worst[key] = max(worst.get(key, 0.0), err)
             del q, k, v, out, p_out
     torch.cuda.empty_cache()
+    log("attn max |kernel - plain| by head width: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items() if " hd" in k))
     return rows, worst
+
+
+# timed shapes: (B, S, nh, nkv, hd) of flash (causal prefill) — Qwen3-0.6B
+# (one prompt in the middle and the top prefill bucket, a batch of eight
+# short prompts, the training shape of phase 13) and Phi-3-vision (hd 96,
+# MHA); (nh, nkv, hd) of flash-decode over the serving run's packed cache
+FLASH_TIMES = [(1, 1024, 16, 8, 128), (1, 2048, 16, 8, 128),
+               (8, 256, 16, 8, 128), (4, 1024, 16, 8, 128),
+               (1, 1024, 32, 32, 96), (1, 2048, 32, 32, 96)]
+DECODE_TIMES = [(16, 8, 128), (32, 32, 96)]
 
 
 def time_attention() -> dict:
@@ -1666,15 +1733,12 @@ def time_attention() -> dict:
         flash_attention_fwd, flash_attention_plain)
     gen = torch.Generator(device=DEV).manual_seed(2)
     bf16, L = torch.bfloat16, LAYERS
-    nh, nkv, hd = 16, 8, 128
     out = {"flash_attention": [], "decode_attention": []}
 
     def timed(fn):
         return time_ms(fn, reps=ATTN_REPS, warm=ATTN_WARM)
 
-    # flash: one prompt in the middle and the top prefill bucket, a batch
-    # of eight short prompts, and the Qwen3 training shape (phase 13)
-    for B, S in ((1, 1024), (1, 2048), (8, 256), (4, 1024)):
+    for B, S, nh, nkv, hd in FLASH_TIMES:
         qs = _rand(gen, (L, B, S, nh, hd), bf16)
         ks = _rand(gen, (L, B, S, nkv, hd), bf16)
         vs = _rand(gen, (L, B, S, nkv, hd), bf16)
@@ -1703,29 +1767,33 @@ def time_attention() -> dict:
     lo, hi = SERVE["prompt"]
     lens = np.random.default_rng(3).integers(lo, hi + SERVE["max_new"] + 1, B)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
-    qs = _rand(gen, (L, B, nh, hd), bf16)
-    ks = _rand(gen, (L, B, S, nkv, hd), bf16)
-    vs = _rand(gen, (L, B, S, nkv, hd), bf16)
     mask = (torch.arange(S, device=DEV)[None, :]
             < kv_len[:, None])[:, None, None, :]
     n_tok = int(lens.sum())
-    nbytes = 2 * n_tok * nkv * hd * 2 + 2 * B * nh * hd * 2 + 4 * B
-    bnd, by = bound_ms(nbytes, 4 * nh * n_tok * hd, TENSOR_BF16_FLOPS)
-    def decode(i):
-        return decode_attention_fwd(qs[i % L], ks[i % L], vs[i % L], kv_len)
-    out["decode_attention"].append(dict(
-        shape=f"B={B} S_max={S} nh={nh} nkv={nkv} hd={hd} bf16 "
-              f"kv_len={lens.tolist()}",
-        ms=timed(decode), device_ms=_kernel_device_ms(
-            decode, ATTN_KERNELS["decode_attention"]),
-        plain_ms=timed(lambda i: decode_attention_plain(
-            qs[i % L], ks[i % L], vs[i % L], kv_len)),
-        library_ms=timed(lambda i: F.scaled_dot_product_attention(
-            qs[i % L][:, :, None], ks[i % L].transpose(1, 2),
-            vs[i % L].transpose(1, 2), attn_mask=mask, enable_gqa=True)),
-        bound_ms=bnd, bound_by=by, bytes=nbytes))
-    del qs, ks, vs
-    torch.cuda.empty_cache()
+    for nh, nkv, hd in DECODE_TIMES:
+        qs = _rand(gen, (L, B, nh, hd), bf16)
+        ks = _rand(gen, (L, B, S, nkv, hd), bf16)
+        vs = _rand(gen, (L, B, S, nkv, hd), bf16)
+        nbytes = 2 * n_tok * nkv * hd * 2 + 2 * B * nh * hd * 2 + 4 * B
+        bnd, by = bound_ms(nbytes, 4 * nh * n_tok * hd, TENSOR_BF16_FLOPS)
+
+        def decode(i):
+            return decode_attention_fwd(qs[i % L], ks[i % L], vs[i % L],
+                                        kv_len)
+        out["decode_attention"].append(dict(
+            shape=f"B={B} S_max={S} nh={nh} nkv={nkv} hd={hd} bf16 "
+                  f"kv_len={lens.tolist()}",
+            ms=timed(decode), device_ms=_kernel_device_ms(
+                decode, ATTN_KERNELS["decode_attention"]),
+            plain_ms=timed(lambda i: decode_attention_plain(
+                qs[i % L], ks[i % L], vs[i % L], kv_len)),
+            library_ms=timed(lambda i: F.scaled_dot_product_attention(
+                qs[i % L][:, :, None], ks[i % L].transpose(1, 2),
+                vs[i % L].transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)),
+            bound_ms=bnd, bound_by=by, bytes=nbytes))
+        del qs, ks, vs
+        torch.cuda.empty_cache()
     for op, rows in out.items():
         for r in rows:
             log(f"time {op:16s} {r['shape']}: kernel {r['ms']*1e3:9.2f} us  "
@@ -1819,14 +1887,16 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def serving_phase():
-    """Phase 8.  Returns (report, engine, requests, call stats)."""
+def serving_phase(arch: str = ARCH):
+    """Phase 8 (and 18 and 19 at their models): ``arch`` at full width
+    served at ``SERVE``.  Returns (report, engine, requests, call stats,
+    parameters)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.models import lm
     from repro_torch.serve import (Request, ServeConfig, ServingEngine,
                                    serve_requests)
-    cfg = dataclasses.replace(get_config(ARCH), attn_impl="kernel")
+    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
     t0 = time.perf_counter()
     params = lm.init_params(cfg, SERVE["seed"])        # on the card
     torch.cuda.synchronize()
@@ -1886,21 +1956,21 @@ def serving_phase():
                                  f" layers x calls)")
     n_tok = sum(len(v) for v in res.values())
     report = dict(
-        arch=ARCH, params=n_params, dtype=cfg.dtype, attn_impl="kernel",
+        arch=arch, params=n_params, dtype=cfg.dtype, attn_impl="kernel",
         **SERVE, prompt_tokens=int(plens.sum()), init_s=init_s,
         warmup_s=warm_s, wall_s=wall, tokens=n_tok, tok_per_s=n_tok / wall,
         prefill_calls=n_prefill, prefill_s=stats.s["prefill"],
         decode_steps=n_decode, decode_s=stats.s["decode"],
         decode_ms_per_step=stats.s["decode"] / n_decode * 1e3,
         launches=counts, peak_gb=peak_gb)
-    log(f"serve {ARCH}: {n_params} params {cfg.dtype}, init {init_s:.2f} s, warmup "
+    log(f"serve {arch}: {n_params} params {cfg.dtype}, init {init_s:.2f} s, warmup "
         f"{warm_s:.2f} s; {len(reqs)} requests ({int(plens.sum())} prompt "
         f"tokens) -> {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} "
         f"tok/s); prefill {n_prefill} calls {stats.s['prefill']:.3f} s, "
         f"decode {n_decode} steps {stats.s['decode']:.3f} s "
         f"({report['decode_ms_per_step']:.2f} ms/step); launches {counts}; "
         f"peak {peak_gb:.2f} GB")
-    return report, eng, reqs, stats
+    return report, eng, reqs, stats, params
 
 
 def _device_times(prof) -> tuple[float, dict]:
@@ -2085,18 +2155,18 @@ def serving_breakdown(eng, reqs, stats) -> dict:
     return out
 
 
-def cli_phase() -> dict:
-    """``python -m repro_torch.launch.serve --full`` at its defaults, in
-    this process (its output goes to this script's).  Its decode steps
-    must have gone through the flash-decode kernel, every layer of every
-    step."""
+def cli_phase(arch: str = ARCH) -> dict:
+    """``python -m repro_torch.launch.serve --full --arch arch`` at its
+    defaults, in this process (its output goes to this script's).  Its
+    decode steps must have gone through the flash-decode kernel, every
+    layer of every step."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
-    n_layers = get_config(ARCH).n_layers
+    n_layers = get_config(arch).n_layers
     reset_launches()
     t0 = time.perf_counter()
-    rc = serve(["--full", "--arch", ARCH])
+    rc = serve(["--full", "--arch", arch])
     wall = time.perf_counter() - t0
     counts = launch_counts()
     if rc != 0:
@@ -2106,20 +2176,106 @@ def cli_phase() -> dict:
         raise AssertionError(f"launch.serve --full did not decode through "
                              f"the flash-decode kernel at every layer: "
                              f"{counts}")
-    log(f"cli: repro_torch.launch.serve --full --arch {ARCH} returned 0 in "
+    log(f"cli: repro_torch.launch.serve --full --arch {arch} returned 0 in "
         f"{wall:.1f} s; launches {counts}")
-    return dict(rc=rc, wall_s=wall, launches=counts)
+    return dict(arch=arch, rc=rc, wall_s=wall, launches=counts)
 
 
 # ---------------------------------------------------------------------------
 # phase 9: the card against the CPU on the same weights
 # ---------------------------------------------------------------------------
 
-def card_vs_cpu() -> dict:
+class _RouteLog:
+    """Records every call of the MoE router (``layers.moe_router``): the
+    device, each token's chosen experts in order and the float32
+    probabilities they were chosen from, both on the host."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.router = layers, layers.moe_router
+        self.calls = []
+
+        def router(p, cfg, x):
+            out = self.router(p, cfg, x)
+            self.calls.append((x.device.type, out[0].detach().cpu(),
+                               out[2].cpu()))
+            return out
+        layers.moe_router = router
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+    def restore(self) -> None:
+        self.layers.moe_router = self.router
+
+
+def _route_diffs(cfg, calls: list, rows: int, tainted: set,
+                 what: str) -> list:
+    """Compare the experts the card and the CPU chose, call by call (one
+    a layer, CPU first).  A token whose ordered choice differs with a
+    decisive gap (the smallest gap between its K + 1 largest CPU
+    probabilities) of ``ROUTE_MARGIN`` or more fails; under it the
+    difference is float-class: reported, and its row (``rows`` rows of
+    ``T / rows`` tokens) is added to ``tainted``, as is every row whose
+    kept copies then differ through the shared capacity.  Tokens of
+    rows already tainted are not compared."""
+    from repro_torch.models import layers as L
+    cpu = [c for c in calls if c[0] == "cpu"]
+    card = [c for c in calls if c[0] != "cpu"]
+    if len(cpu) != cfg.n_layers or len(card) != cfg.n_layers:
+        raise AssertionError(f"{what}: {len(cpu)} CPU and {len(card)} card "
+                             f"router calls, expected {cfg.n_layers} each")
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    found = []
+    for layer, ((_, probs, tope_c), (_, _, tope_g)) in enumerate(
+            zip(cpu, card)):
+        T = tope_c.shape[0]
+        per_row = T // rows
+        top = probs.topk(K + 1, dim=-1).values
+        gap = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+        flips = []
+        for t in torch.nonzero((tope_c != tope_g).any(-1)).flatten().tolist():
+            row = t // per_row
+            if row in tainted:
+                continue
+            item = dict(what=what, layer=layer, token=t, row=row,
+                        gap=float(gap[t]), cpu=tope_c[t].tolist(),
+                        card=tope_g[t].tolist())
+            if item["gap"] >= ROUTE_MARGIN:
+                raise AssertionError(f"card vs CPU: routing differs beyond "
+                                     f"float class: {item}")
+            flips.append(item)
+        if flips:
+            C = L.moe_capacity(T, cfg)
+            kept = [torch.where(L.moe_slots(tp, E) < C, tp, -1)
+                    for tp in (tope_c, tope_g)]
+            knock = torch.nonzero((kept[0] != kept[1]).any(-1)).flatten()
+            for it in flips:
+                tainted.add(it["row"])
+            for t in knock.tolist():
+                if t // per_row not in tainted:
+                    flips.append(dict(what=what, layer=layer, token=t,
+                                      row=t // per_row, capacity=True))
+                    tainted.add(t // per_row)
+            found.extend(flips)
+            log(f"card vs cpu: float-class routing difference at {what}, "
+                f"layer {layer}: {flips}; rows {sorted(tainted)} left out "
+                f"of the logit comparison from here")
+    return found
+
+
+def card_vs_cpu(arch: str = ARCH) -> dict:
+    """Phase 9 (and 20 at the moe and vlm models): ``arch`` at full width
+    cut to 2 layers, float32, the same weights on the card and the CPU:
+    bucketed prefill of 4 ragged prompts (the vlm's with patches over its
+    first 576 positions), then 8 ragged decode steps; logits within
+    ``LOGIT_REL_TOL`` of their largest magnitude, greedy tokens equal.
+    An MoE's expert choices are compared first (:func:`_route_diffs`)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.models import lm
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32",
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
                               attn_impl="kernel")
     p_cpu = lm.init_params(cfg, 1, device="cpu")
 
@@ -2128,51 +2284,83 @@ def card_vs_cpu() -> dict:
             if isinstance(t, dict) else t.to(DEV)
     p_card = to_card(p_cpu)
     rng = np.random.default_rng(1)
-    lens = np.array([37, 512, *rng.integers(38, 512, 2)], np.int32)
-    bucket, max_seq = 512, 1024
+    if cfg.vlm is None:
+        lens = np.array([37, 512, *rng.integers(38, 512, 2)], np.int32)
+        bucket, max_seq = 512, 1024
+    else:       # text after the 576 patch positions of every prompt
+        lens = np.array([600, 1024, *rng.integers(601, 1024, 2)], np.int32)
+        bucket, max_seq = 1024, 2048
     toks = np.zeros((len(lens), bucket), np.int32)
     for i, n in enumerate(lens):
         toks[i, :n] = rng.integers(0, cfg.vocab, n)
+    extra = {"cpu": {}, DEV: {}}
+    if cfg.vlm is not None:
+        patches = torch.from_numpy(rng.standard_normal(
+            (len(lens), cfg.vlm.n_patches, cfg.vlm.d_patch))
+            .astype(np.float32))
+        extra = {"cpu": {"patches": patches},
+                 DEV: {"patches": patches.to(DEV)}}
+    routes = _RouteLog() if cfg.moe is not None else None
+    tainted, flips = set(), []
     reset_launches()
     logits, caches = {}, {}
-    for dev, p in (("cpu", p_cpu), (DEV, p_card)):
-        logits[dev], caches[dev] = lm.prefill(
-            p, cfg, torch.from_numpy(toks).to(dev), max_seq=max_seq,
-            true_len=torch.from_numpy(lens).to(dev))
-    steps = []
-
-    def compare(what: str) -> int:
-        want = logits["cpu"].double()
-        got = logits[DEV].cpu().double()
-        rel = float((got - want).abs().max() / want.abs().max())
-        tok_c, tok_g = want.argmax(-1), got.argmax(-1)
-        steps.append(dict(what=what, rel_err=rel,
-                          greedy_equal=bool(torch.equal(tok_c, tok_g))))
-        if rel > LOGIT_REL_TOL or not torch.equal(tok_c, tok_g):
-            raise AssertionError(f"card vs CPU at {what}: rel {rel:.3e} "
-                                 f"(limit {LOGIT_REL_TOL:g}), greedy "
-                                 f"{tok_g.tolist()} vs {tok_c.tolist()}")
-        return tok_c.to(torch.int32)
-
-    tok = compare("prefill")
-    for s in range(8):
+    try:
         for dev, p in (("cpu", p_cpu), (DEV, p_card)):
-            logits[dev], caches[dev] = lm.decode_step(
-                p, cfg, tok.to(dev), caches[dev])
-        tok = compare(f"decode {s}")
+            logits[dev], caches[dev] = lm.prefill(
+                p, cfg, torch.from_numpy(toks).to(dev), extra=extra[dev],
+                max_seq=max_seq, true_len=torch.from_numpy(lens).to(dev))
+        steps = []
+
+        def compare(what: str) -> torch.Tensor:
+            if routes is not None:
+                flips.extend(_route_diffs(cfg, routes.take(), len(lens),
+                                          tainted, what))
+            keep = [i for i in range(len(lens)) if i not in tainted]
+            if not keep:
+                raise AssertionError(f"card vs CPU ({arch}) at {what}: "
+                                     f"every row left out after "
+                                     f"float-class routing differences")
+            want = logits["cpu"].double()
+            got = logits[DEV].cpu().double()
+            rel = float((got - want)[keep].abs().max()
+                        / want[keep].abs().max())
+            tok_c, tok_g = want.argmax(-1), got.argmax(-1)
+            equal = bool(torch.equal(tok_c[keep], tok_g[keep]))
+            steps.append(dict(what=what, rel_err=rel, greedy_equal=equal,
+                              rows_compared=keep))
+            if rel > LOGIT_REL_TOL or not equal:
+                raise AssertionError(
+                    f"card vs CPU ({arch}) at {what}: rel {rel:.3e} (limit "
+                    f"{LOGIT_REL_TOL:g}), greedy {tok_g.tolist()} vs "
+                    f"{tok_c.tolist()} (rows {keep})")
+            return tok_c.to(torch.int32)
+
+        tok = compare("prefill")
+        for s in range(8):
+            for dev, p in (("cpu", p_cpu), (DEV, p_card)):
+                logits[dev], caches[dev] = lm.decode_step(
+                    p, cfg, tok.to(dev), caches[dev])
+            tok = compare(f"decode {s}")
+    finally:
+        if routes is not None:
+            routes.restore()
     counts = launch_counts()
     if counts.get("flash_attention", 0) != cfg.n_layers or \
             counts.get("decode_attention", 0) != 8 * cfg.n_layers:
         raise AssertionError(f"card side did not go through the kernels: "
                              f"{counts}")
     worst = max(s["rel_err"] for s in steps)
-    log(f"card vs cpu: {ARCH} at 2 layers, float32, prompts {lens.tolist()} "
-        f"in a {bucket} bucket + 8 ragged decode steps: logits within "
-        f"{worst:.2e} of max |logit| (limit {LOGIT_REL_TOL:g}), greedy "
-        f"tokens equal; launches {counts}")
-    return dict(layers=cfg.n_layers, prompt_lens=lens.tolist(),
+    log(f"card vs cpu: {arch} at 2 layers, float32, prompts {lens.tolist()} "
+        f"in a {bucket} bucket"
+        + (" with patches" if cfg.vlm is not None else "")
+        + f" + 8 ragged decode steps: logits within {worst:.2e} of max "
+        f"|logit| (limit {LOGIT_REL_TOL:g}), greedy tokens equal"
+        + (f"; float-class routing differences: {len(flips)}"
+           if routes is not None else "") + f"; launches {counts}")
+    return dict(arch=arch, layers=cfg.n_layers, prompt_lens=lens.tolist(),
                 bucket=bucket, steps=steps, max_rel_err=worst,
-                launches=counts)
+                launches=counts, route_flips=flips,
+                rows_left_out=sorted(tainted))
 
 
 # ---------------------------------------------------------------------------
@@ -3306,6 +3494,66 @@ def codegen_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 18-20: the moe and vlm families at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "phi-3-vision-4.2b")
+VLM_PROMPT = 1024           # tokens of phase 19's prefill with patches
+
+
+def _patch_prefill(params, cfg) -> dict:
+    """One bf16 prefill of a ``VLM_PROMPT``-token prompt whose first
+    ``n_patches`` positions are random patch embeddings, on the card:
+    finite logits that the patches change, flash once a layer."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (1, VLM_PROMPT), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    patches = torch.randn((1, cfg.vlm.n_patches, cfg.vlm.d_patch),
+                          generator=gen, device=DEV).to(torch.bfloat16)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = lm.prefill(params, cfg, toks, extra={"patches": patches},
+                           max_seq=VLM_PROMPT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    text_only, _ = lm.prefill(params, cfg, toks, max_seq=VLM_PROMPT)
+    finite = bool(torch.isfinite(logits).all())
+    moved = float((logits.float() - text_only.float()).abs().max())
+    if not finite or tuple(logits.shape) != (1, cfg.vocab) or moved == 0:
+        raise AssertionError(f"prefill with patches: finite {finite}, "
+                             f"shape {tuple(logits.shape)}, max change "
+                             f"from the patches {moved}")
+    if counts.get("flash_attention", 0) != cfg.n_layers:
+        raise AssertionError(f"prefill with patches: {counts}, expected "
+                             f"{cfg.n_layers} flash launches")
+    log(f"serve {cfg.name}: prefill of {VLM_PROMPT} tokens with "
+        f"{cfg.vlm.n_patches} patches in {wall:.3f} s, finite logits "
+        f"(max change from the patches {moved:.3g}); launches {counts}")
+    return dict(prompt=VLM_PROMPT, patches=cfg.vlm.n_patches, wall_s=wall,
+                launches=counts, max_change=moved)
+
+
+def family_serving(arch: str) -> dict:
+    """Phases 18 (granite-moe-1b-a400m) and 19 (phi-3-vision-4.2b): the
+    model at full width served at ``SERVE`` through the port's entry
+    points, with phase 8's gates; the vlm's prefill with patches; then
+    ``launch.serve --full --arch arch``."""
+    from repro_torch.configs import get_config
+    report, eng, reqs, stats, params = serving_phase(arch)
+    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
+    if cfg.vlm is not None:
+        report["patch_prefill"] = _patch_prefill(params, cfg)
+    del eng, reqs, stats, params
+    torch.cuda.empty_cache()
+    report["cli"] = cli_phase(arch)
+    return report
+
+
 def kernel_resources() -> list:
     """Phase 2: each kernel's registers, shared memory and spills as
     ``ptxas -v`` reported them, and the dynamic shared memory a block asks
@@ -3419,10 +3667,10 @@ def main() -> int:
     # 7-10: the LM serving path
     attn_checks, attn_errs = phase("7 attention checks", check_attention)
     attn_timing = phase("7 attention times", time_attention)
-    serving, eng, reqs, stats = phase("8 serving", serving_phase)
+    serving, eng, reqs, stats, params = phase("8 serving", serving_phase)
     serve_brk = phase("10 serving breakdown", serving_breakdown, eng, reqs,
                       stats)
-    del eng, reqs, stats
+    del eng, reqs, stats, params
     torch.cuda.empty_cache()
     cli = phase("8 serve cli", cli_phase)
     vs_cpu = phase("9 card vs cpu", card_vs_cpu)
@@ -3440,6 +3688,13 @@ def main() -> int:
 
     # 17: hierarchical code generation
     codegen = phase("17 codegen", codegen_phase)
+
+    # 18-20: the moe and vlm families at full width, and at 2 float32
+    # layers against the CPU
+    families = {arch: phase(f"{18 + i} serve {arch}", family_serving, arch)
+                for i, arch in enumerate(FAMILY_ARCHS)}
+    families_cpu = {arch: phase(f"20 card vs cpu {arch}", card_vs_cpu, arch)
+                    for arch in FAMILY_ARCHS}
 
     kernels = []
     for name in REPLACES:
@@ -3463,7 +3718,11 @@ def main() -> int:
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             device_ms=serve_brk["kernel_device_ms"].get(name),
             shape=head["shape"], by_shape=rows,
-            train_launches=qwen["launches"].get(name, 0)))
+            train_launches=qwen["launches"].get(name, 0),
+            launches_by_model={arch: r["launches"].get(name, 0)
+                               for arch, r in families.items()},
+            max_abs_err_by_hd={k: v for k, v in attn_errs.items()
+                               if k.startswith(f"{name} hd")}))
     kernels.append(dict(
         name="ssd_scan", route="cuda", source=SOURCES["ssd_scan"],
         replaces=SSD_REPLACES, launches=training["launches"]["ssd_scan"],
@@ -3487,6 +3746,7 @@ def main() -> int:
         card_vs_cpu=vs_cpu, ssd_checks=ssd_checks, training=training,
         qwen_training=qwen, train_card_vs_cpu=train_cpu,
         train_breakdown=train_brk, recovery=recovery, codegen=codegen,
+        family_serving=families, family_card_vs_cpu=families_cpu,
         kernel_resources=resources,
         phase_seconds=seconds), indent=1))
     print(smi)

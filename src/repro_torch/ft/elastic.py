@@ -12,7 +12,7 @@ The port's copies of two parts of the reference's ``ft/elastic.py``:
 
 :class:`~repro_torch.ft.preemption.PreemptionGuard` lives in
 ``preemption.py``; the reference's ``ElasticMesh`` waits for the
-distributed slice (ROADMAP A12).
+distributed slice (ROADMAP queue A, item 5).
 """
 
 from __future__ import annotations

@@ -27,8 +27,14 @@
 //   shared memory by cp.async, 16 bytes a thread, as two groups: the V
 //   tile lands while the scores are formed from K.
 // * Scores: 8 elements a lane (one 16-byte bf16 load from shared memory),
-//   hd / 8 lanes a row, a 4-shuffle (hd 128) or 3-shuffle (hd 64)
+//   HDP / 8 lanes a row, a 4-shuffle (HDP 128) or 3-shuffle (HDP 64)
 //   reduction, every query head of the group from q held in registers.
+// * Head widths 64, 96 and 128.  A row of the shared tiles is HDP wide,
+//   hd rounded up to a power of two (96 -> 128), so the lane map above
+//   holds for every width: the copy reads only the hd columns of the
+//   cache (the bytes from HBM are those of hd) and zero-fills columns hd
+//   .. HDP - 1 (cp.async with a source size of 0); the lanes of q past hd
+//   hold zeros, and only hd columns are stored out.
 //   The kernel is instantiated for groups of up to 2, 4 and 8 heads, so a
 //   small group (Qwen3's 2) holds no registers for heads it does not have:
 //   7 blocks fit an SM, and the serving shape's live blocks fit in one
@@ -97,6 +103,13 @@ __device__ __forceinline__ void cp16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
 }
+// 16 zero bytes at dst through the same async path (source size 0: src
+// is not read)
+__device__ __forceinline__ void cp16_zero(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, 0;\n" ::"r"(d),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -141,16 +154,29 @@ struct DecodeArgs {
   float scale;
 };
 
+// The shared tiles' row width for head width HD: HD rounded up to a power
+// of two (64 -> 64, 96 -> 128, 128 -> 128).
+template <int HD>
+__host__ __device__ constexpr int padded() {
+  return HD <= 64 ? 64 : 128;
+}
+
 // Copies rows [0, n) of a [rows, HD] tile with row stride `stride` into a
-// contiguous shared tile, 16 bytes a thread.
+// contiguous shared tile of rows HDP wide, 16 bytes a thread; columns HD ..
+// HDP - 1 become zeros.
 template <typename T, int HD>
 __device__ __forceinline__ void copy_rows(T* dst, const T* src,
                                           long long stride, int n) {
-  constexpr int kChunks = HD * sizeof(T) / 16;
+  constexpr int HDP = padded<HD>();
+  constexpr int kChunks = HDP * sizeof(T) / 16;
   constexpr int kPer = 16 / sizeof(T);
   for (int i = threadIdx.x; i < n * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * kPer;
-    cp16(dst + r * HD + c, src + (long long)r * stride + c);
+    const T* from = src + (long long)r * stride;
+    if (HD == HDP || c < HD)
+      cp16(dst + r * HDP + c, from + c);
+    else
+      cp16_zero(dst + r * HDP + c, from);
   }
 }
 
@@ -158,18 +184,19 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* src,
 // so that q and the accumulators of a smaller group take no registers.
 template <typename T, int HD, int G>
 size_t partial_smem() {
-  return 2 * sizeof(T) * kSplit * HD + sizeof(float) * G * kSplit;
+  return 2 * sizeof(T) * kSplit * padded<HD>() + sizeof(float) * G * kSplit;
 }
 
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(DecodeArgs a) {
-  constexpr int kLanes = HD / kElem;              // lanes a row: 16 or 8
+  constexpr int HDP = padded<HD>();               // a shared row's width
+  constexpr int kLanes = HDP / kElem;             // lanes a row: 16 or 8
   constexpr int kRowsWarp = 32 / kLanes;          // rows a warp a step
   constexpr int kRowStep = kRowsWarp * kWarps;
   constexpr int kSubsets = kThreads / kLanes;     // P.V row shares
   static_assert(G <= kMaxGroup &&
-                    kWarps * G * HD * 4 <= kSplit * HD * (int)sizeof(T),
+                    kWarps * G * HDP * 4 <= kSplit * HDP * (int)sizeof(T),
                 "the P.V reduction reuses the K tile's space");
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int len = valid_len(a.kv_len, b, a.s_max);
@@ -180,10 +207,10 @@ decode_partial_kernel(DecodeArgs a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);                       // [kSplit][HD]
-  T* vs = ks + kSplit * HD;                                 // [kSplit][HD]
-  float* p_s = reinterpret_cast<float*>(vs + kSplit * HD);  // [group][kSplit]
-  float* red = reinterpret_cast<float*>(ks);  // [kWarps][group][HD], later
+  T* ks = reinterpret_cast<T*>(smem);                       // [kSplit][HDP]
+  T* vs = ks + kSplit * HDP;                                // [kSplit][HDP]
+  float* p_s = reinterpret_cast<float*>(vs + kSplit * HDP); // [group][kSplit]
+  float* red = reinterpret_cast<float*>(ks);  // [kWarps][group][HDP], later
 
   copy_rows<T, HD>(ks, static_cast<const T*>(a.k) + b * a.k_sb +
                            kvh * a.k_sh + (long long)s0 * a.k_ss,
@@ -194,14 +221,20 @@ decode_partial_kernel(DecodeArgs a) {
                    a.v_ss, n);
   cp_commit();
 
-  // q of every head of the group: this lane's 8 columns, scaled
+  // q of every head of the group: this lane's 8 columns, scaled (zeros
+  // past hd)
   const int col = (lane % kLanes) * kElem;
   float qr[G][kElem];
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb + col;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (g < group) {
-      load8<T>(q + (long long)(kvh * group + g) * a.q_sh, qr[g]);
+      if (HD == HDP || col < HD) {
+        load8<T>(q + (long long)(kvh * group + g) * a.q_sh, qr[g]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kElem; ++e) qr[g][e] = 0.f;
+      }
 #pragma unroll
       for (int e = 0; e < kElem; ++e) qr[g][e] *= a.scale;
     }
@@ -214,7 +247,7 @@ decode_partial_kernel(DecodeArgs a) {
     const int j = j0 + warp * kRowsWarp + lane / kLanes;
     float kr[kElem];
     if (j < n) {
-      load8<T>(ks + j * HD + col, kr);
+      load8<T>(ks + j * HDP + col, kr);
     } else {
 #pragma unroll
       for (int e = 0; e < kElem; ++e) kr[e] = 0.f;
@@ -268,7 +301,7 @@ decode_partial_kernel(DecodeArgs a) {
 #pragma unroll 2
   for (int j = sub; j < n; j += kSubsets) {
     float vr[kElem];
-    load8<T>(vs + j * HD + c8, vr);
+    load8<T>(vs + j * HDP + c8, vr);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if (g < group) {
@@ -292,7 +325,7 @@ decode_partial_kernel(DecodeArgs a) {
     for (int g = 0; g < G; ++g) {
       if (g < group) {
         float4* r = reinterpret_cast<float4*>(
-            red + (warp * G + g) * HD + c8);
+            red + (warp * G + g) * HDP + c8);
         r[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
         r[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
       }
@@ -307,7 +340,7 @@ decode_partial_kernel(DecodeArgs a) {
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float4 r =
-          *reinterpret_cast<const float4*>(red + (w * G + g) * HD + d);
+          *reinterpret_cast<const float4*>(red + (w * G + g) * HDP + d);
       s.x += r.x;
       s.y += r.y;
       s.z += r.z;
@@ -440,8 +473,10 @@ int decode_attention(const void* q, const void* k, const void* v,
                s_max, nkv, group, n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) return launch<float, 64>(a, batch, st);
+  if (dtype == 0 && hd == 96) return launch<float, 96>(a, batch, st);
   if (dtype == 0 && hd == 128) return launch<float, 128>(a, batch, st);
   if (dtype == 1 && hd == 64) return launch<__nv_bfloat16, 64>(a, batch, st);
+  if (dtype == 1 && hd == 96) return launch<__nv_bfloat16, 96>(a, batch, st);
   if (dtype == 1 && hd == 128)
     return launch<__nv_bfloat16, 128>(a, batch, st);
   return -1;
@@ -451,8 +486,10 @@ int decode_attention(const void* q, const void* k, const void* v,
 // above, group); 0 for a pair not built.
 long long decode_attention_smem_bytes(int dtype, int hd, int group) {
   if (dtype == 0 && hd == 64) return smem_of<float, 64>(group);
+  if (dtype == 0 && hd == 96) return smem_of<float, 96>(group);
   if (dtype == 0 && hd == 128) return smem_of<float, 128>(group);
   if (dtype == 1 && hd == 64) return smem_of<__nv_bfloat16, 64>(group);
+  if (dtype == 1 && hd == 96) return smem_of<__nv_bfloat16, 96>(group);
   if (dtype == 1 && hd == 128) return smem_of<__nv_bfloat16, 128>(group);
   return 0;
 }

@@ -26,7 +26,10 @@
 //   passes are read in place) into a 2-stage ring of K/V tiles in shared
 //   memory, tracked by mbarriers (full: bytes landed; empty: all 8 consumer
 //   warps done).  Rows past Sq or Sk arrive as zeros; the edge is masked
-//   here.  Tiles are stored as 64-column blocks in the 128-byte swizzle
+//   here.  Head widths 64, 96 and 128: a 96-wide row (192 B) is two
+//   64-column boxes, the second clipped by the map's inner extent of 96,
+//   so TMA reads 96 columns from memory and fills 96-127 with zeros; S
+//   takes six k16 steps and O is one m64n96k16 product a k16 step.  Tiles are stored as 64-column blocks in the 128-byte swizzle
 //   that the wgmma descriptors read.  The tensor maps are encoded on the
 //   host per call, through the runtime's entry-point query (no -lcuda).
 // * S = Q K^T: wgmma.mma_async m64n128k16, Q and K from shared memory,
@@ -290,10 +293,12 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Byte offsets into the (1024-aligned) dynamic shared memory.  A tile is
-// stored as hd / 64 column blocks of [rows][64] bf16, 128 bytes a row.
+// stored as ceil(hd / 64) column blocks of [rows][64] bf16, 128 bytes a
+// row; at hd 96 the second block's columns 96-127 are the tensor map's
+// out-of-bounds zeros, which no product reads.
 template <int HD>
 struct Layout {
-  static constexpr int kCB = HD / 64;                  // column blocks
+  static constexpr int kCB = (HD + 63) / 64;           // column blocks
   static constexpr int kQBlock = 64 * 128;             // [64 rows][64 cols]
   static constexpr int kKVBlock = kBK * 128;           // [kBK rows][64 cols]
   static constexpr int kQ = 0;                         // [2 wg][kCB]
@@ -501,6 +506,40 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[0:48] += A[64x16] . B[16x96], A from registers (the accumulator
+// layout of an m64n16 tile, bf16 pairs), B from shared memory MN-major
+// (transposed, 128-byte swizzle): 96 columns are one 64-column block and
+// the first half of the next, LBO apart.
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <int N>
 struct Mma;
 template <>
@@ -509,6 +548,14 @@ struct Mma<64> {
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
     wgmma_rs_n64(d, a, b);
+  }
+};
+template <>
+struct Mma<96> {
+  static __device__ __forceinline__ void rs(float (&d)[48],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    wgmma_rs_n96(d, a, b);
   }
 };
 template <>
@@ -805,6 +852,7 @@ int flash_attention_fwd_fma(const void* q, const void* k, const void* v,
   const FlashArgs a = flash_args(q, k, v, out, lse, *l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (l->hd == 64) return launch<float, 64>(a, l->batch, st);
+  if (l->hd == 96) return launch<float, 96>(a, l->batch, st);
   if (l->hd == 128) return launch<float, 128>(a, l->batch, st);
   return kUnsupported;
 }
@@ -816,6 +864,7 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
   const FlashArgs a = flash_args(q, k, v, out, lse, *l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (l->hd == 64) return tc::launch<64>(a, l->batch, st);
+  if (l->hd == 96) return tc::launch<96>(a, l->batch, st);
   if (l->hd == 128) return tc::launch<128>(a, l->batch, st);
   return kUnsupported;
 }
@@ -823,8 +872,10 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
 // The dynamic shared memory one block of the entry for (dtype, hd) takes,
 // or kUnsupported.
 int flash_attention_smem_bytes(int dtype, int hd) {
-  if (dtype == 0 && (hd == 64 || hd == 128)) return fma_smem_bytes(hd);
+  if (dtype == 0 && (hd == 64 || hd == 96 || hd == 128))
+    return fma_smem_bytes(hd);
   if (dtype == 1 && hd == 64) return tc::Layout<64>::kBytes;
+  if (dtype == 1 && hd == 96) return tc::Layout<96>::kBytes;
   if (dtype == 1 && hd == 128) return tc::Layout<128>::kBytes;
   return kUnsupported;
 }

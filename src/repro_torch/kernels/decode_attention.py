@@ -13,8 +13,9 @@ A CUDA tensor launches ``csrc/decode_attention.cu`` — a split-KV pass
 over 64-row splits (``decode_partial_kernel``) and a merge pass
 (``decode_merge_kernel``) in one call, counted as one launch — which
 reads ``kv_len`` on the device (no host sync) and skips every cache block
-at or past it (``hd`` 64 or 128, float32 or bfloat16, at most 8 query
-heads per KV head; anything else raises).  :func:`launch_args` is the
+at or past it (``hd`` 64, 96 or 128, float32 or bfloat16, at most 8
+query heads per KV head; anything else raises; hd 96 runs in tiles 128
+wide whose last 32 columns are zeros, reading only 96 columns).  :func:`launch_args` is the
 launch's host side as plain numbers (split count from ``S_max`` alone,
 grids, scratch, strides).  A CPU or meta tensor takes
 :func:`decode_attention_plain` (:mod:`.dispatch`).
@@ -35,7 +36,7 @@ from .flash_attention import _aligned
 NEG_INF = -1e30
 MAX_GROUP = 8
 SPLIT = 64              # cache rows a block (csrc kSplit)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"decode_attention": [_VP] * 8 + [_LL] * 8 + [_INT] * 8
                + [ctypes.c_float, _VP],
@@ -66,10 +67,18 @@ def group_bound(group: int) -> int:
     return 2 if group <= 2 else 4 if group <= 4 else MAX_GROUP
 
 
+def padded(hd: int) -> int:
+    """A shared tile row's width for head width ``hd``: ``hd`` rounded up
+    to a power of two (csrc ``padded``)."""
+    return 64 if hd <= 64 else 128
+
+
 def smem_bytes(dtype: torch.dtype, hd: int, group: int) -> int:
     """Dynamic shared memory a block of the partial kernel: its K and V
-    tiles and the scores of its group bound's heads (csrc partial_smem)."""
-    return 2 * SPLIT * hd * dtype.itemsize + 4 * group_bound(group) * SPLIT
+    tiles (rows :func:`padded` wide) and the scores of its group bound's
+    heads (csrc partial_smem)."""
+    return 2 * SPLIT * padded(hd) * dtype.itemsize + \
+        4 * group_bound(group) * SPLIT
 
 
 def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,7 +93,7 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype \
             or hd not in HEAD_DIMS or group > MAX_GROUP:
         raise ValueError(f"decode_attention kernel takes float32 or bfloat16 "
-                         f"q/k/v of one dtype, head_dim 64 or 128 and at "
+                         f"q/k/v of one dtype, head_dim 64, 96 or 128 and at "
                          f"most {MAX_GROUP} query heads per KV head, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}, hd={hd}, "
                          f"group={group}")

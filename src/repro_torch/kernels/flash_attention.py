@@ -12,8 +12,9 @@ row with no visible key gives ``out = 0`` and ``lse = -1e30``, as the
 Pallas kernel's ``l == 0`` guard does.
 
 A CUDA tensor launches one of two kernels of ``csrc/flash_attention.cu``,
-chosen by dtype alone (:func:`launch_args`), any ``Sq``/``Sk``, ``hd`` 64
-or 128; anything else raises, and neither kernel stands in for the other:
+chosen by dtype alone (:func:`launch_args`), any ``Sq``/``Sk``, ``hd`` 64,
+96 or 128; anything else raises, and neither kernel stands in for the
+other:
 
 * bfloat16 (serving, training) -> ``flash_wgmma_kernel``.  Bound by
   operations (the bf16 tensor cores' 989 TFLOP/s).  Both products on the
@@ -23,7 +24,9 @@ or 128; anything else raises, and neither kernel stands in for the other:
   consumer warpgroups, a producer warp feeding a 2-stage ring of 128-key
   K/V tiles by TMA (tensor maps encoded per call over the tensors'
   strides), masks only on the tiles that cross an edge, heaviest causal
-  tiles first.
+  tiles first.  hd 96 (Phi-3) loads each 96-wide row as two 64-column
+  TMA boxes, the second clipped to zeros past column 96 by the tensor
+  map, and multiplies P V with one m64n96k16 product a k16 step.
 * float32 (the card-vs-CPU checks, held at 1e-5 / 1e-4, which TF32 would
   not meet) -> ``flash_fwd_kernel``: fp32 FMAs on the CUDA cores (67
   TFLOP/s peak) over 64 x 64 tiles in shared memory.
@@ -55,7 +58,7 @@ _SIGNATURES = {"flash_attention_fwd_fma": _FWD_ARGS,
 # dtype -> (entry point, dtype code): the only choice between the kernels
 ENTRIES = {torch.float32: ("flash_attention_fwd_fma", 0),
            torch.bfloat16: ("flash_attention_fwd_wgmma", 1)}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 # csrc/flash_attention.cu's struct FlashLaunch: strides, dims, dtype,
 # causal, has_window, window, scale (one argument, not 21: ctypes converts
 # each argument on every call)
@@ -165,7 +168,7 @@ def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if route is None or k.dtype != q.dtype or v.dtype != q.dtype \
             or hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernels take float32 or bfloat16 "
-                         f"q/k/v of one dtype with head_dim 64 or 128, got "
+                         f"q/k/v of one dtype with head_dim 64, 96 or 128, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype} and hd={hd}")
     (q, sq), (k, sk), (v, sv) = (_operand(q, qs), _operand(k, ks),
                                  _operand(v, ks))

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch qwen3-0.6b                      # full width, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch granite-moe-1b-a400m            # the moe family, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 12                          # reduced config, on the CPU
 
@@ -11,9 +13,10 @@ compute inside is the batched packed-slot decode of the selected model:
 one decode step call per iteration for every slot (its attention through
 the flash-decode kernel), on-device sampling, and length-bucketed
 prefill, every shape run once at warmup.  ``--per-slot`` selects the
-seed per-slot path instead.  The port serves the dense family; another
-family raises ``NotImplementedError`` naming the slice that brings it.
-Weights are random, from ``--seed``.
+seed per-slot path instead.  The port serves the attention-cache
+families, dense, vlm (text-only, as the reference serves it) and moe; a
+recurrent or encoder-decoder family raises ``NotImplementedError``
+naming the slice that brings it.  Weights are random, from ``--seed``.
 """
 
 from __future__ import annotations
@@ -118,11 +121,12 @@ def serve(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.with_reduced()
-    if cfg.family != "dense":
+    if cfg.family not in lm.SERVE_FAMILIES:
         raise NotImplementedError(
-            f"serving the {cfg.family!r} family is not ported yet: this "
-            f"slice serves dense models; moe/vlm come with a later serving "
-            f"slice, ssm/hybrid with the training slice (kernel B6)")
+            f"serving the {cfg.family!r} family is not ported yet: the port "
+            f"serves {'/'.join(lm.SERVE_FAMILIES)}; ssm/hybrid come with "
+            f"per-slot recurrent serving, audio with its own slice "
+            f"(ROADMAP queue A)")
     device = resolve_device(args.device)
     print(f"[serve] arch={cfg.name} family={cfg.family} "
           f"params={cfg.param_count()/1e6:.1f}M slots={args.slots} "

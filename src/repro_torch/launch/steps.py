@@ -1,11 +1,13 @@
-"""Step builders of the train driver.
+"""Step builders of the train and serve entry points.
 
-The port's counterpart of ``make_train_step`` in the reference's
-``launch/steps.py:122-133``: the loss, its gradients with respect to
-every parameter leaf (``torch.autograd.grad``), and the AdamW update, as
-one function of ``(params, opt_state, batch)``.  The reference's abstract
-``input_specs`` and prefill/decode steps belong to the dry-run and the
-distributed slice (ROADMAP A11-A12).
+The port's counterpart of ``make_train_step``, ``make_prefill_step`` and
+``make_decode_step`` in the reference's ``launch/steps.py:122-151``: the
+loss, its gradients with respect to every parameter leaf
+(``torch.autograd.grad``), and the AdamW update, as one function of
+``(params, opt_state, batch)``; a prompt's prefill from a batch (its
+``patches`` for the vlm family); one decode step.  The reference's
+abstract ``abstract_batch``/``input_specs`` belong to the dry-run and the
+distributed slice (ROADMAP queue A, item 5).
 """
 
 from __future__ import annotations
@@ -39,3 +41,24 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
         return new_p, new_s, metrics
     train_step.__name__ = f"train_step_{cfg.name}"
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, use_kernel: bool = False):
+    """``prefill_step(params, batch) -> (last-token logits, cache)``;
+    ``batch`` holds ``tokens`` ([B, S] int) and, for the vlm family,
+    ``patches``."""
+    def prefill_step(params, batch):
+        extra = {k: v for k, v in batch.items() if k == "patches"}
+        return lm.prefill(params, cfg, batch["tokens"], extra=extra,
+                          use_kernel=use_kernel)
+    prefill_step.__name__ = f"prefill_step_{cfg.name}"
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """``decode_step(params, token, cache) -> (logits, cache')``, one new
+    token a sequence (:func:`repro_torch.models.lm.decode_step`)."""
+    def decode_step(params, token, cache):
+        return lm.decode_step(params, cfg, token, cache)
+    decode_step.__name__ = f"decode_step_{cfg.name}"
+    return decode_step

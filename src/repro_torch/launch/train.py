@@ -13,7 +13,7 @@ re-runs the same command), the preemption guard and straggler
 detection.  ``--use-kernel`` routes attention through the flash kernel
 and Mamba2's SSD scan through its kernel.  ``--device`` (default: the
 card; without one the driver raises) replaces the reference's mesh;
-``--model-parallel`` waits for the distributed slice (ROADMAP A12).
+``--model-parallel`` waits for the distributed slice (ROADMAP queue A, item 5).
 
 Returns 1 when at least 20 steps ran and the mean loss of the last five
 did not fall below that of the first five, else 0.

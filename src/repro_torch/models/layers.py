@@ -1,12 +1,13 @@
-"""Neural-net building blocks of the dense and SSM LMs, as plain
+"""Neural-net building blocks of the dense, MoE and SSM LMs, as plain
 functions on tensors.
 
-The port's counterpart of the dense and Mamba2 subsets of the reference's
-``models/layers.py``: RMSNorm, rotary embedding, grouped-query attention
-with optional qk-norm and sliding window (full-sequence and one-token
-decode against a KV cache), the SwiGLU MLP, the Mamba2 block (causal
-conv, chunked SSD) for training and prefill, and the cross-entropy
-loss.  Parameters are plain nested dicts of tensors with the reference's
+The port's counterpart of the dense, MoE and Mamba2 subsets of the
+reference's ``models/layers.py``: RMSNorm, rotary embedding,
+grouped-query attention with optional qk-norm and sliding window
+(full-sequence and one-token decode against a KV cache), the SwiGLU MLP,
+the token-dropping top-k MoE (scatter and GShard dispatch), the Mamba2
+block (causal conv, chunked SSD) for training and prefill, and the
+cross-entropy loss.  Parameters are plain nested dicts of tensors with the reference's
 names and layouts — a matrix is ``[in, out]`` and applied as ``x @ W`` —
 so the reference's parameter pytree carries over leaf for leaf
 (:func:`repro_torch.models.weights.from_jax_params`).
@@ -250,6 +251,155 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts with capacity-based token dispatch (GShard/Switch style)
+# ---------------------------------------------------------------------------
+
+MOE_IMPLS = ("scatter", "scatter_fast", "dense")
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    """The router (float32 whatever ``dtype`` is, as in the reference) and
+    ``E`` stacked SwiGLU experts."""
+    m = cfg.moe
+    d, E, ff = cfg.d_model, m.n_experts, m.d_ff_expert
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, device=device)
+        return (w * scale).to(dtype)
+    return {"router": _dense_init(gen, d, E, torch.float32, device),
+            "wg": normal((E, d, ff), 1.0 / math.sqrt(d)),
+            "wu": normal((E, d, ff), 1.0 / math.sqrt(d)),
+            "wd": normal((E, ff, d), 1.0 / math.sqrt(ff))}
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig,
+                 capacity_factor: float = 1.25) -> int:
+    """Slots an expert has for ``tokens`` tokens (of a group):
+    ``max(ceil(tokens * K / E * factor), 4)``."""
+    m = cfg.moe
+    return max(int(math.ceil(tokens * m.top_k / m.n_experts
+                             * capacity_factor)), 4)
+
+
+def moe_router(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple:
+    """Router of :func:`moe_layer`, all float32: ``(probs [T, E], topw
+    [T, K] renormalised, tope [T, K] in descending probability, aux)``,
+    ``aux`` the Switch load-balancing loss (eq. 4) times
+    ``load_balance_coef``."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    xt = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    topw, tope = torch.topk(probs, K, dim=-1)
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(tope, E).float().sum(dim=1).mean(dim=0)
+    aux = E * (me * ce).sum() * m.load_balance_coef
+    return probs, topw, tope, aux
+
+
+def moe_slots(tope: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each (token, k) copy's slot in its expert: the copies of the same
+    expert before it, in (token, k) order (an exclusive prefix sum over
+    the second-to-last axis pair).  tope: [..., T, K] -> [..., T, K]."""
+    *lead, T, K = tope.shape
+    oh = F.one_hot(tope.reshape(*lead, T * K), n_experts)
+    pos = oh.cumsum(dim=-2) - oh
+    return pos.gather(-1, tope.reshape(*lead, T * K, 1)) \
+        .reshape(*lead, T, K)
+
+
+def moe_dispatch(x: torch.Tensor, tope: torch.Tensor, n_experts: int,
+                 capacity: int) -> tuple:
+    """The scatter dispatch: ``(disp [E, C, d], slot [T, K], keep [T,
+    K])``; ``disp[e, c]`` is the token whose copy took slot ``c`` of
+    expert ``e`` (zeros where none did).  Copies past capacity are
+    dropped; no host sync."""
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    T, K = tope.shape
+    slot = moe_slots(tope, n_experts)
+    keep = slot < capacity
+    # a dropped copy writes a spare row past the last slot, cut off below,
+    # so every kept (expert, slot) is written by exactly one copy
+    disp = xt.new_zeros((n_experts, capacity + 1, d))
+    disp[tope.reshape(-1), torch.where(keep, slot, capacity).reshape(-1)] = \
+        xt[:, None].expand(T, K, d).reshape(T * K, d)
+    return disp[:, :capacity], slot, keep
+
+
+def _experts(p: dict, disp: torch.Tensor) -> torch.Tensor:
+    """Every expert's SwiGLU on its slots: ``[..., E, C, d]``."""
+    h = F.silu(torch.einsum("...ecd,edf->...ecf", disp, p["wg"])) * \
+        torch.einsum("...ecd,edf->...ecf", disp, p["wu"])
+    return torch.einsum("...ecf,efd->...ecd", h, p["wd"])
+
+
+def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              capacity_factor: float = 1.25) -> tuple:
+    """Token-dropping top-k MoE, the reference's ``moe_layer``
+    (``src/repro/models/layers.py:398``).  Returns ``(y, aux)``.
+
+    ``cfg.moe_impl``: ``scatter`` and ``scatter_fast`` are one function
+    here (the reference's two differ only in how XLA lowers the prefix
+    sum; ``torch.cumsum`` is both): every (token, k) copy takes the next
+    slot of its expert over all ``T = B * S`` tokens, pad tokens and dead
+    serving slots included, and copies past ``C = max(ceil(T K / E *
+    factor), 4)`` are dropped.  ``dense`` is the GShard einsum dispatch
+    with capacity per batch row (:func:`_moe_dense_grouped`).  The router,
+    the top-k weights and ``aux`` are float32; a token's K expert outputs
+    are summed in float32 in k order.
+    """
+    if cfg.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl={cfg.moe_impl!r}: the port takes "
+                         f"{', '.join(MOE_IMPLS)}")
+    B, S, d = x.shape
+    probs, topw, tope, aux = moe_router(p, cfg, x)
+    if cfg.moe_impl == "dense":
+        return _moe_dense_grouped(p, cfg, x, probs, aux, capacity_factor)
+    T, K = tope.shape
+    C = moe_capacity(T, cfg, capacity_factor)
+    disp, slot, keep = moe_dispatch(x, tope, cfg.moe.n_experts, C)
+    eo = _experts(p, disp)                                   # [E, C, d]
+    gathered = eo[tope, slot.clamp(max=C - 1)]               # [T, K, d]
+    w = torch.where(keep, topw, 0.0)
+    y = (gathered.float() * w[..., None]).sum(dim=1)
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def moe_dense_masks(cfg: ModelConfig, probs: torch.Tensor, B: int, S: int,
+                    capacity_factor: float = 1.25) -> tuple:
+    """The grouped dispatch's masks: ``(dispatch [B, S, E, C] of 0/1,
+    combine [B, S, E, C] float32 weights)``, capacity ``C`` per batch
+    row."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    C = moe_capacity(S, cfg, capacity_factor)
+    topw, tope = torch.topk(probs.reshape(B, S, E), K, dim=-1)
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    slot = moe_slots(tope, E)                                # [B, S, K]
+    keep = slot < C
+    oh = F.one_hot(tope, E).float()                          # [B, S, K, E]
+    oh_c = F.one_hot(slot.clamp(max=C - 1), C).float()       # [B, S, K, C]
+    w = torch.where(keep, topw, 0.0)
+    combine = torch.einsum("bske,bskc,bsk->bsec", oh, oh_c, w)
+    return combine > 0, combine
+
+
+def _moe_dense_grouped(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       probs: torch.Tensor, aux: torch.Tensor,
+                       capacity_factor: float) -> tuple:
+    """GShard einsum dispatch grouped by batch row (the reference's
+    ``_moe_dense_grouped``, ``layers.py:463``, arXiv:2006.16668)."""
+    B, S, _ = x.shape
+    dispatch, combine = moe_dense_masks(cfg, probs, B, S, capacity_factor)
+    disp = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
+    eo = _experts(p, disp)                                   # [B, E, C, d]
+    y = torch.einsum("bsec,becd->bsd", combine, eo.float())
+    return y.to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""LM assembly: init, forward and loss (dense and ssm families), and
-prefill, decode and packed-slot serving (dense family).
+"""LM assembly: init, forward and loss (dense, vlm, moe and ssm
+families), and prefill, decode and packed-slot serving (dense, vlm and
+moe families).
 
 The port's counterpart of the reference's ``models/lm.py``.  Parameters
 keep the reference's nested-dict layout with per-layer leaves stacked
@@ -7,10 +8,12 @@ along a leading ``[L, ...]`` axis; the forward passes loop over layers in
 Python (PyTorch runs eagerly; the reference's ``lax.scan`` has nothing to
 save here), and ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
-``cfg.attn_impl`` keeps ``naive`` and ``kernel``.  Training runs the
-dense and ssm families; serving runs the dense family; the other
-families, and serving the ssm family (per-slot recurrent decode), come
-with later slices and raise ``NotImplementedError`` here.
+``cfg.attn_impl`` keeps ``naive`` and ``kernel``.  The vlm family takes
+its precomputed patch embeddings as ``extra={"patches": [B, n_patches,
+d_patch]}`` (serving is text-only, as in the reference); the moe family
+adds its load-balancing loss to ``forward``'s ``aux``.  The hybrid and
+audio families, and serving the ssm family (per-slot recurrent decode),
+come with later slices and raise ``NotImplementedError`` here.
 
 In-place updates (the reference's arrays are immutable; it donates
 buffers instead): :func:`decode_step` writes each new token's K/V into
@@ -43,8 +46,10 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-TRAIN_FAMILIES = ("dense", "ssm")      # init_params, forward, loss_fn
-SERVE_FAMILIES = ("dense",)            # prefill, decode, serving
+# init_params, forward, loss_fn
+TRAIN_FAMILIES = ("dense", "vlm", "moe", "ssm")
+# prefill, decode, serving: the attention-cache families
+SERVE_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _require(cfg: ModelConfig, what: str, families: tuple) -> None:
@@ -52,8 +57,8 @@ def _require(cfg: ModelConfig, what: str, families: tuple) -> None:
         raise NotImplementedError(
             f"{what}: the {cfg.family!r} family is not ported to this entry "
             f"point yet (it takes {', '.join(families)}; the rest follow "
-            f"in ROADMAP queue A: moe/vlm/hybrid/audio and the per-slot "
-            f"serving of ssm)")
+            f"in ROADMAP queue A: hybrid/audio and the per-slot serving of "
+            f"ssm)")
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -73,9 +78,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default: the card; raises without one).  Same distributions as the
     reference's ``init_params`` (normal / sqrt(fan_in) matrices, 0.02
-    embedding, unit norms; Mamba2's float32 ``A_log``/``D``/``dt_bias``)
-    but not the same numbers: parity tests carry
-    the reference's parameters over with
+    embedding, unit norms; Mamba2's float32 ``A_log``/``D``/``dt_bias``
+    and the MoE router's float32) but not the same numbers: parity tests
+    carry the reference's parameters over with
     :func:`repro_torch.models.weights.from_jax_params`."""
     _require(cfg, "init_params", TRAIN_FAMILIES)
     dev = resolve_device(device)
@@ -88,15 +93,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
                "final_norm": L.init_rmsnorm(d, dt, dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L._dense_init(gen, d, cfg.vocab, dt, dev)
-    if cfg.family == "dense":
+    if cfg.family == "ssm":
+        layers = [{"norm": L.init_rmsnorm(d, dt, dev),
+                   "mamba": L.init_mamba2(gen, cfg, dt, dev)}
+                  for _ in range(n)]
+    else:       # dense, vlm: a SwiGLU MLP; moe: the experts in its place
+        moe = cfg.family == "moe"
         layers = [{"attn_norm": L.init_rmsnorm(d, dt, dev),
                    "attn": L.init_attention(gen, cfg, dt, dev),
                    "mlp_norm": L.init_rmsnorm(d, dt, dev),
-                   "mlp": L.init_mlp(gen, d, cfg.d_ff, dt, dev)}
-                  for _ in range(n)]
-    else:
-        layers = [{"norm": L.init_rmsnorm(d, dt, dev),
-                   "mamba": L.init_mamba2(gen, cfg, dt, dev)}
+                   "moe" if moe else "mlp":
+                       L.init_moe(gen, cfg, dt, dev) if moe else
+                       L.init_mlp(gen, d, cfg.d_ff, dt, dev)}
                   for _ in range(n)]
 
     def stack(*xs):
@@ -104,6 +112,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
         return torch.stack(xs)
     p["layers"] = stack(*layers)
+    if cfg.vlm is not None:
+        p["patch_proj"] = L._dense_init(gen, cfg.vlm.d_patch, d, dt, dev)
     return p
 
 
@@ -111,55 +121,87 @@ def _head(params: dict, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           extra: Optional[dict]) -> torch.Tensor:
+    """Token embeddings ``[B, S, d]``; for the vlm family with
+    ``extra["patches"]`` ``[B, P, d_patch]``, ``patches @ patch_proj``
+    over the first ``min(n_patches, S, P)`` positions."""
+    h = params["embed"][tokens.long()]
+    if cfg.vlm is not None and extra and "patches" in extra:
+        pe = (extra["patches"] @ params["patch_proj"]).to(h.dtype)
+        n = min(cfg.vlm.n_patches, h.shape[1], pe.shape[1])
+        h = torch.cat([pe[:, :n], h[:, n:]], dim=1)
+    return h
+
+
+def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> tuple:
+    """The block's feed-forward half on ``h`` (residual not added):
+    ``(y, aux)``, the MoE's load-balancing term or ``None``."""
+    x = L.rms_norm(lp["mlp_norm"], h, cfg.norm_eps)
+    if cfg.family == "moe":
+        return L.moe_layer(lp["moe"], cfg, x)
+    return L.mlp(lp["mlp"], x), None
+
+
 # ---------------------------------------------------------------------------
 # forward (train) and loss
 # ---------------------------------------------------------------------------
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            remat: bool = False, use_kernel: bool = False) -> tuple:
+            extra: Optional[dict] = None, remat: bool = False,
+            use_kernel: bool = False) -> tuple:
     """Token logits for a full sequence (training).
 
-    tokens: [B, S] int.  Returns ``(logits [B, S, vocab], aux)``; ``aux``
-    is the auxiliary loss, zero for the dense and ssm families (the
-    reference's MoE load-balancing term is not ported).  ``remat``
-    recomputes each layer's activations in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant); ``use_kernel`` routes
-    attention through the flash kernel and the SSD scan through its
-    kernel (on a card tensor).
+    tokens: [B, S] int; ``extra`` may hold the vlm family's ``patches``
+    ``[B, n_patches, d_patch]``.  Returns ``(logits [B, S, vocab],
+    aux)``; ``aux`` (float32) is the MoE load-balancing loss summed over
+    the layers, zero for the other families.  ``remat`` recomputes each
+    layer's activations in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant); ``use_kernel`` routes attention through the flash
+    kernel and the SSD scan through its kernel (on a card tensor).
     """
     _require(cfg, "forward", TRAIN_FAMILIES)
     B, S = tokens.shape
     eps = cfg.norm_eps
-    h = params["embed"][tokens.long()]
+    h = _embed(params, cfg, tokens, extra)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
 
-    if cfg.family == "dense":
+    if cfg.family == "ssm":
+        def block(hh, lp):
+            return hh + L.mamba2_layer(lp["mamba"], cfg,
+                                       L.rms_norm(lp["norm"], hh, eps),
+                                       use_kernel=use_kernel), None
+    else:
         def block(hh, lp):
             hh = hh + L.attention(lp["attn"], cfg,
                                   L.rms_norm(lp["attn_norm"], hh, eps),
                                   positions, use_kernel=use_kernel)
-            return hh + L.mlp(lp["mlp"], L.rms_norm(lp["mlp_norm"], hh, eps))
-    else:
-        def block(hh, lp):
-            return hh + L.mamba2_layer(lp["mamba"], cfg,
-                                       L.rms_norm(lp["norm"], hh, eps),
-                                       use_kernel=use_kernel)
+            y, aux = _ffn(lp, cfg, hh)
+            return hh + y, aux
 
+    aux_total = h.new_zeros((), dtype=torch.float32)
     for i in range(cfg.n_layers):
         if remat:
-            h = checkpoint(lambda hh, i=i: block(hh, layer_params(params, i)),
-                           h, use_reentrant=False)
+            h, aux = checkpoint(
+                lambda hh, i=i: block(hh, layer_params(params, i)), h,
+                use_reentrant=False)
         else:
-            h = block(h, layer_params(params, i))
+            h, aux = block(h, layer_params(params, i))
+        if aux is not None:
+            aux_total = aux_total + aux
     h = L.rms_norm(params["final_norm"], h, eps)
-    return h @ _head(params, cfg), h.new_zeros((), dtype=torch.float32)
+    return h @ _head(params, cfg), aux_total
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             remat: bool = False, use_kernel: bool = False) -> torch.Tensor:
-    """Token-mean cross entropy (z-loss 1e-4) plus the auxiliary loss."""
-    logits, aux = forward(params, cfg, batch["tokens"], remat=remat,
-                          use_kernel=use_kernel)
+    """Token-mean cross entropy (z-loss 1e-4) plus the auxiliary loss;
+    ``batch`` holds ``tokens`` and ``labels`` (and ``patches`` for the vlm
+    family)."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          extra={k: v for k, v in batch.items()
+                                 if k == "patches"},
+                          remat=remat, use_kernel=use_kernel)
     return L.softmax_xent(logits, batch["labels"], z_loss=1e-4) + aux
 
 
@@ -169,7 +211,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            max_seq: Optional[int] = None, use_kernel: bool = False,
+            extra: Optional[dict] = None, max_seq: Optional[int] = None,
+            use_kernel: bool = False,
             true_len: Optional[torch.Tensor] = None) -> tuple:
     """Process a prompt; return (last-token logits [B, vocab], cache).
 
@@ -178,14 +221,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     enables bucketed prefill: ``tokens`` is right-padded to a shared
     bucket length, logits are gathered at each row's last real token
     (position 0 for an empty row, which the caller discards), and
-    ``cache["len"]`` becomes the per-row vector.
+    ``cache["len"]`` becomes the per-row vector.  ``extra`` may hold the
+    vlm family's ``patches`` (as :func:`forward`).  The moe family's pad
+    positions take expert capacity as live tokens do, as in the
+    reference.
     """
     _require(cfg, "prefill", SERVE_FAMILIES)
     B, S = tokens.shape
     max_seq = max_seq or S
     dt = torch_dtype(cfg)
     dev = tokens.device
-    h = params["embed"][tokens.long()]
+    h = _embed(params, cfg, tokens, extra)
     positions = torch.arange(S, device=dev).expand(B, S)
     shape = (cfg.n_layers, B, max_seq, cfg.n_kv_heads, cfg.hd)
     ck = torch.zeros(shape, dtype=dt, device=dev)
@@ -196,7 +242,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         q, k, v = L._qkv(lp["attn"], cfg, x, positions)
         o = L._attend(cfg, q, k, v, causal=True, use_kernel=use_kernel)
         h = h + o.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-        h = h + L.mlp(lp["mlp"], L.rms_norm(lp["mlp_norm"], h, cfg.norm_eps))
+        h = h + _ffn(lp, cfg, h)[0]
         ck[i, :, :S] = k
         cv[i, :, :S] = v
     if true_len is None:
@@ -246,7 +292,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         h = h + L.attention_decode(
             lp["attn"], cfg, L.rms_norm(lp["attn_norm"], h, cfg.norm_eps),
             cache["k"][i], cache["v"][i], clen)
-        h = h + L.mlp(lp["mlp"], L.rms_norm(lp["mlp_norm"], h, cfg.norm_eps))
+        h = h + _ffn(lp, cfg, h)[0]
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     return h[:, 0] @ _head(params, cfg), dict(cache, len=clen + 1)
 
@@ -341,19 +387,21 @@ class ServingAdapter:
 def serving_adapter(params: dict, cfg: ModelConfig, *, max_seq: int,
                     temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                     device=None) -> ServingAdapter:
-    """Build the packed-slot batched decode adapter for a dense model whose
+    """Build the packed-slot batched decode adapter for a model whose
     parameters lie on ``device`` (default: the card; raises without one).
 
-    Right-padded bucketed prefill is exact for attention-cache families
-    (causal attention never lets a real token see a later pad, and decode
-    masks cache slots >= len).  The port serves the dense family; others
-    raise ``ValueError`` as the reference does for recurrent families.
+    Only attention-cache families qualify (dense, vlm, moe, as in the
+    reference): right-padded bucketed prefill is exact for them (causal
+    attention never lets a real token see a later pad, and decode masks
+    cache slots >= len; an MoE's pads and dead slots take expert capacity
+    as the reference's do).  Serving is text-only: no patches reach a
+    vlm.  Other families raise ``ValueError`` as the reference does.
     """
-    if cfg.family != "dense":
+    if cfg.family not in SERVE_FAMILIES:
         raise ValueError(
-            f"batched serving in the port supports the dense family, not "
-            f"{cfg.family!r}; moe/vlm come with a later serving slice and "
-            f"ssm/hybrid with per-slot recurrent serving (ROADMAP queue A)")
+            f"batched serving supports the attention-cache families "
+            f"(dense/vlm/moe), not {cfg.family!r}; ssm/hybrid come with "
+            f"per-slot recurrent serving (ROADMAP queue A)")
     dev = resolve_device(device)
     if params["embed"].device != dev and not (
             dev.type == "cuda" and params["embed"].is_cuda):

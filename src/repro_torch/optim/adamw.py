@@ -5,7 +5,7 @@ The port's copy of the reference's ``optim/adamw.py:31-92``: the same
 defaults, float32 update math whatever the parameters' and the state's
 dtypes, and the same functional form (:func:`adamw_update` returns new
 parameters and state; it updates nothing in place).  The reference's
-ZeRO-1 ``opt_state_specs`` waits for the distributed slice (ROADMAP A12).
+ZeRO-1 ``opt_state_specs`` waits for the distributed slice (ROADMAP queue A, item 5).
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import (
     MAX_GROUP, SPLIT, decode_attention_fwd, decode_attention_plain,
-    group_bound, launch_args, smem_bytes)
+    group_bound, launch_args, padded, smem_bytes)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -73,9 +73,10 @@ def test_split_count_comes_from_s_max_alone(S, n_split):
 def test_group_picks_its_instantiation(group, bound):
     assert group_bound(group) == bound
     for dtype in (BF16, F32):
-        for hd in (64, 128):
+        for hd, width in ((64, 64), (96, 128), (128, 128)):
+            assert padded(hd) == width
             assert smem_bytes(dtype, hd, group) == \
-                2 * SPLIT * hd * dtype.itemsize + 4 * bound * SPLIT
+                2 * SPLIT * width * dtype.itemsize + 4 * bound * SPLIT
             assert smem_bytes(dtype, hd, group) <= SMEM_LIMIT
 
 
@@ -85,6 +86,18 @@ def test_serving_shape():
     a = launch_args(*_qkv(8, 2048, 16, 8, 128), _lens(8))
     assert a.grid_partial == (32, 8, 8) and a.smem_partial == 33280
     assert a.part_numel == 2 * 4096 + 128 * 4096
+
+
+def test_phi3_serving_shape():
+    """Phi-3-vision's cache: 8 slots x 2048 rows, 32 KV heads of 96, group
+    1, bf16: tiles 128 wide (33 KB a block), scratch of 96 columns a
+    slot, scale 1/sqrt(96)."""
+    a = launch_args(*_qkv(8, 2048, 32, 32, 96), _lens(8))
+    assert a.grid_partial == (32, 32, 8) and a.grid_merge == (32, 8)
+    assert a.smem_partial == 2 * SPLIT * 128 * 2 + 4 * 2 * SPLIT == 33280
+    slots = 8 * 32 * 32
+    assert a.n_stat == slots and a.part_numel == 2 * slots + 96 * slots
+    assert a.scale == 1.0 / math.sqrt(96)
 
 
 def test_cache_views_keep_their_strides():
@@ -110,7 +123,8 @@ def test_unaligned_cache_is_copied():
 @pytest.mark.parametrize("q_dt,kv_dt,hd,nh,nkv,match", [
     (torch.float16, torch.float16, 128, 16, 8, "float32 or bfloat16"),
     (BF16, F32, 128, 16, 8, "one dtype"),
-    (BF16, BF16, 96, 16, 8, "head_dim 64 or 128"),
+    (BF16, BF16, 80, 16, 8, "head_dim 64, 96 or 128"),
+    (F32, F32, 80, 32, 32, "head_dim 64, 96 or 128"),
     (BF16, BF16, 128, 2 * MAX_GROUP * 2, 2, f"most {MAX_GROUP}"),
 ])
 def test_refuses_what_no_kernel_takes(q_dt, kv_dt, hd, nh, nkv, match):

@@ -78,6 +78,8 @@ def test_unaligned_views_are_copied(dtype, cut):
     (2048, 2048, 16, 8, 128, True, 100),    # window
     (77, 77, 8, 2, 64, False, None),        # hd 64, group 4
     (64, 64, 4, 4, 128, True, 0),           # window 0: every key hidden
+    (1024, 1024, 32, 32, 96, True, None),   # Phi-3: hd 96, MHA
+    (333, 333, 16, 2, 96, True, 100),       # hd 96, group 8, window
 ])
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_launch_arguments(Sq, Sk, nh, nkv, hd, causal, window, dtype):
@@ -110,21 +112,22 @@ def test_size_one_dimensions_get_the_span_inside_them():
     ((torch.float16,) * 3, 128),            # no kernel for fp16
     ((torch.float64,) * 3, 64),
     ((BF16, F32, BF16), 128),               # mixed
-    ((BF16,) * 3, 96),                      # head width
+    ((BF16,) * 3, 80),                      # head width
+    ((F32,) * 3, 80),
     ((F32,) * 3, 32),
 ])
 def test_unsupported_dtype_or_head_dim_raises(dtypes, hd):
     q = torch.empty(1, 8, 4, hd, dtype=dtypes[0])
     k = torch.empty(1, 8, 2, hd, dtype=dtypes[1])
     v = torch.empty(1, 8, 2, hd, dtype=dtypes[2])
-    with pytest.raises(ValueError, match="head_dim 64 or 128"):
+    with pytest.raises(ValueError, match="head_dim 64, 96 or 128"):
         launch_args(q, k, v, causal=True, window=None)
 
 
 def test_cpu_tensors_take_the_plain_version_whatever_the_dtype():
-    """No kernel takes fp16 or hd 96, but the CPU path is the plain
+    """No kernel takes fp16 or hd 80, but the CPU path is the plain
     version, which does; only a launch checks what a kernel takes."""
-    q, k, v = _qkv(1, 8, 8, 4, 2, 96, torch.float16)
+    q, k, v = _qkv(1, 8, 8, 4, 2, 80, torch.float16)
     out, lse = flash_attention_fwd(q, k, v, causal=True)
     assert out.shape == q.shape and out.dtype == torch.float16
     assert lse.shape == (1, 4, 8) and lse.dtype == F32

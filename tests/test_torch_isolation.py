@@ -80,6 +80,34 @@ def test_serving_on_cpu_imports_neither_jax_nor_reference():
     assert _run(SERVE) == {"rc": 0, "mods": []}
 
 
+MOE_VLM = """
+import json, sys, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import serve
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import lm
+rcs = [serve(["--device", "cpu", "--arch", arch, "--requests", "2",
+              "--max-new", "2", "--slots", "2", "--max-seq", "32"])
+       for arch in ("granite-moe-1b-a400m", "phi-3-vision-4.2b")]
+cfg = get_config("phi-3-vision-4.2b").with_reduced(dtype="float32")
+p = lm.init_params(cfg, device="cpu")
+logits, _ = make_prefill_step(cfg)(p, {
+    "tokens": torch.zeros((1, 12), dtype=torch.int32),
+    "patches": torch.ones((1, cfg.vlm.n_patches, cfg.vlm.d_patch))})
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"rcs": rcs, "finite": bool(logits.isfinite().all()),
+                  "mods": mods}))
+"""
+
+
+def test_moe_vlm_on_cpu_imports_neither_jax_nor_reference():
+    """Serving the reduced granite-moe and phi-3-vision through
+    ``launch.serve --device cpu``, and a prefill with patches, never
+    import jax, jaxlib or repro."""
+    assert _run(MOE_VLM) == {"rcs": [0, 0], "finite": True, "mods": []}
+
+
 def test_training_on_cpu_imports_neither_jax_nor_reference():
     """``repro_torch.launch.train --device cpu`` trains the reduced Mamba2
     through the kernels' path and never imports jax, jaxlib or repro."""
