@@ -101,13 +101,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    query and 32 KV heads, prefill lengths 128-2048 (its 576-patch prefix,
    a 1,500-token prompt), a GQA group of 8 with a window, Sq < Sk; decode
    at 8 slots of 2048 rows with a dead slot and a full row, random
-   lengths, groups 8 and 4.  Limits, relative to the plain
+   lengths, groups 8 and 4; then head width 64 at group 1: whisper-small's
+   encoder (12/12 heads, non-causal 1500 x 1500, B=1 and 8) and
+   cross-attention (1, 37, 64 and 448 queries against 1500 keys),
+   zamba2-1.2b's shared block (32/32, causal, 37-1500), flash-decode on
+   zamba2's one per-slot row of 2048 (a scalar length expanded) and on
+   whisper's 8 ragged rows of 2048.  Limits, relative to the plain
    output's largest magnitude: ``ATTN_REL_TOL``; flash's ``lse`` within
    ``LSE_ABS_TOL``; exact zeros where ``kv_len == 0``; the largest error
    of each op, head width and dtype is printed.  CUDA-event times
    (``FLASH_TIMES``: Qwen3's B=1 S=1024 and 2048, B=8 S=256, B=4 S=1024,
-   Phi-3's B=1 S=1024 and 2048; ``DECODE_TIMES``: both models' packed
-   caches) of kernel, plain version and
+   Phi-3's B=1 S=1024 and 2048, whisper's encoder and its decode step's
+   cross-attention, zamba2's shared block at S=1024; ``DECODE_TIMES``:
+   Qwen3's and Phi-3's packed caches, zamba2's per-slot row) of kernel,
+   plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
    port), each kernel's device time a call, reading a different layer's
    tensors on each call as the model does, so the 50 MB L2 holds none of them.
@@ -139,12 +146,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 11. SSD scan — ``ops.ssd_scan`` (the kernel) against its plain version
    through the same wrapper and against a float64 evaluation, at the
    training shape (B=8, S=2048, 24 heads of P=64, N=128, chunk 256), B=1,
-   S=1000 (the pad path), G=2, N=64 and the reduced 16x16, with the
-   model's decays and small ones (``SSD_REL_TOL``; at small decays the
+   S=1000 (the pad path), G=2, N=64 and the reduced 16x16, and the
+   per-slot prefill's shapes (B=1, chunk = min(256, S)): zamba2's 64
+   heads in one group with N=64 at S = 8, 37, 255, 256, 1000 and 1500,
+   mamba2's N=128 at S=37; with the model's decays and small ones
+   (``SSD_REL_TOL``, y and the final state; at small decays the
    inter-chunk term must be a visible part of y); CUDA-event times of
-   kernel and plain version at the training shape, the bound (3xTF32 on
-   the tensor cores; the float32 CUDA cores' beside it), and each of the
-   three kernels' device time per call.
+   kernel and plain version at the training shape and at three per-slot
+   prefills (``SSD_TIMES``), the bound (3xTF32 on the tensor cores; the
+   float32 CUDA cores' beside it), and each of the three kernels' device
+   time per call.
 12. training — ``repro_torch.launch.train`` on Mamba2-130M at full width
    (bf16, 8 x 2048, 20 steps, ``--use-kernel``): rc 0 (the driver's own
    loss-decrease check), exactly 2 x 24 x 20 SSD launches (remat runs each
@@ -222,6 +233,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    reported, and its row (and any row whose kept copies it displaced) is
    left out of the logit comparison from then on; any other difference
    fails.
+21. mamba2-130m (24 layers) and zamba2-1.2b (38 layers, the shared
+   block after every 6th) at full width, bf16, random weights from a
+   seed, through the per-slot engine ``launch.serve`` builds for them
+   (``per_slot_engine``: the SSD scan, flash and flash-decode kernels) at
+   ``SERVE``'s recipe: every request ok with ``max_new`` tokens (the
+   per-slot path quarantines a request whose step raises, so an error
+   fails here), no NaN logit, the parameter count equal to the leaves,
+   SSD launches = layers x prefill calls, flash = 6 x prefill calls and
+   flash-decode = 6 x decode calls (zamba2; none for mamba2); tok/s,
+   prefill s, ms a decode call and peak GB printed.  Then each model's
+   ``launch.serve --full`` at its defaults: rc 0 and ``mode=per-slot``.
+22. whisper-small at full width (12 + 12 layers, d 768, bf16, frames
+   ``[B, 1500, 768]`` from a seed) through ``make_prefill_step`` and
+   ``make_decode_step``: a 448-token prefill and one of 8 x 64, flash 36
+   times each (12 encoder, 12 self, 12 cross); other frames move the
+   logits; 32 greedy decode steps of the 8, each with 12 flash-decode
+   and 12 flash (cross-attention, one query) launches; finite logits.
+23. card vs CPU, float32, one prompt a call as the per-slot path runs
+   it: mamba2 at 2 layers, zamba2 at 12 (the shared block twice, cache
+   blocks 0 and 1), whisper at 2 + 2 with 1500 frames; prompts of 37,
+   300 and 512 tokens (below the chunk of 256, not a multiple of it, two
+   chunks), 8 decode steps each: logits, and the SSM and conv states
+   after prefill, within ``LOGIT_REL_TOL`` of their largest magnitude,
+   greedy tokens equal, the card's launches those of the path.
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -1604,6 +1639,23 @@ FLASH_CASES = [             # (B, Sq, Sk, nh, nkv, hd, causal, window)
     (1, 2048, 2048, 32, 32, 96, True, None),
     (2, 333, 333, 32, 4, 96, True, 100),
     (1, 100, 300, 32, 32, 96, True, None),
+    # whisper-small: 12 query and 12 KV heads of 64 (MHA, group 1); the
+    # encoder's non-causal 1500 x 1500 (23 key tiles of 64 and a tail of
+    # 28); cross-attention from 1 (a decode step), 37 and 448 queries and
+    # the 64 of a batch's prompts to the 1500 encoder positions
+    (1, 1500, 1500, 12, 12, 64, False, None),
+    (8, 1500, 1500, 12, 12, 64, False, None),
+    (1, 1, 1500, 12, 12, 64, False, None),
+    (8, 1, 1500, 12, 12, 64, False, None),
+    (1, 37, 1500, 12, 12, 64, False, None),
+    (8, 64, 1500, 12, 12, 64, False, None),
+    (1, 448, 1500, 12, 12, 64, False, None),
+    # zamba2-1.2b's shared block: 32 query and 32 KV heads of 64, causal,
+    # one per-slot prompt of 64-1500 tokens
+    (1, 64, 64, 32, 32, 64, True, None),
+    (1, 37, 37, 32, 32, 64, True, None),
+    (1, 1000, 1000, 32, 32, 64, True, None),
+    (1, 1500, 1500, 32, 32, 64, True, None),
 ]
 DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
     (8, 2048, 16, 8, 128, [0, 1, 255, 256, 257, 2048, 1000, 37]),
@@ -1625,6 +1677,14 @@ DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
      np.random.default_rng(4).integers(0, 2049, 8).tolist()),
     (4, 512, 16, 2, 96, [0, 5, 511, 512]),
     (2, 300, 16, 4, 96, [65, 300]),
+    # head width 64, group 1: zamba2's per-slot cache (one row of 2048, a
+    # scalar length expanded to [1]) and whisper's decoder self-attention
+    # over 8 ragged rows of 2048
+    (1, 2048, 32, 32, 64, [1537]),
+    (1, 2048, 32, 32, 64, [64]),
+    (8, 2048, 12, 12, 64, [0, 1, 63, 64, 65, 2048, 1000, 97]),
+    (8, 2048, 12, 12, 64,
+     np.random.default_rng(5).integers(0, 2049, 8).tolist()),
 ]
 
 
@@ -1712,14 +1772,24 @@ def check_attention() -> tuple[list, dict]:
     return rows, worst
 
 
-# timed shapes: (B, S, nh, nkv, hd) of flash (causal prefill) — Qwen3-0.6B
+# timed shapes: (B, Sq, Sk, nh, nkv, hd, causal) of flash — Qwen3-0.6B
 # (one prompt in the middle and the top prefill bucket, a batch of eight
-# short prompts, the training shape of phase 13) and Phi-3-vision (hd 96,
-# MHA); (nh, nkv, hd) of flash-decode over the serving run's packed cache
-FLASH_TIMES = [(1, 1024, 16, 8, 128), (1, 2048, 16, 8, 128),
-               (8, 256, 16, 8, 128), (4, 1024, 16, 8, 128),
-               (1, 1024, 32, 32, 96), (1, 2048, 32, 32, 96)]
-DECODE_TIMES = [(16, 8, 128), (32, 32, 96)]
+# short prompts, the training shape of phase 13), Phi-3-vision (hd 96,
+# MHA), whisper-small's encoder (non-causal, 1500 x 1500, hd 64) and its
+# decode step's cross-attention (B = 8, one query against 1500), and
+# zamba2's shared block at one per-slot prompt; (B, nh, nkv, hd) of
+# flash-decode over the serving runs' caches: the packed 8 slots of
+# Qwen3 and Phi-3, zamba2's one per-slot row
+FLASH_TIMES = [(1, 1024, 1024, 16, 8, 128, True),
+               (1, 2048, 2048, 16, 8, 128, True),
+               (8, 256, 256, 16, 8, 128, True),
+               (4, 1024, 1024, 16, 8, 128, True),
+               (1, 1024, 1024, 32, 32, 96, True),
+               (1, 2048, 2048, 32, 32, 96, True),
+               (1, 1500, 1500, 12, 12, 64, False),
+               (8, 1, 1500, 12, 12, 64, False),
+               (1, 1024, 1024, 32, 32, 64, True)]
+DECODE_TIMES = [(8, 16, 8, 128), (8, 32, 32, 96), (1, 32, 32, 64)]
 
 
 def time_attention() -> dict:
@@ -1738,39 +1808,44 @@ def time_attention() -> dict:
     def timed(fn):
         return time_ms(fn, reps=ATTN_REPS, warm=ATTN_WARM)
 
-    for B, S, nh, nkv, hd in FLASH_TIMES:
-        qs = _rand(gen, (L, B, S, nh, hd), bf16)
-        ks = _rand(gen, (L, B, S, nkv, hd), bf16)
-        vs = _rand(gen, (L, B, S, nkv, hd), bf16)
-        flops = 2 * B * nh * S * S * hd          # causal: half of 4 B nh S^2 hd
-        nbytes = (qs[0].numel() * 2 + ks[0].numel() * 2) * 2 + 4 * B * nh * S
+    for B, Sq, Sk, nh, nkv, hd, causal in FLASH_TIMES:
+        qs = _rand(gen, (L, B, Sq, nh, hd), bf16)
+        ks = _rand(gen, (L, B, Sk, nkv, hd), bf16)
+        vs = _rand(gen, (L, B, Sk, nkv, hd), bf16)
+        # causal (Sq = Sk): half of the 4 B nh Sq Sk hd of the products
+        flops = (2 if causal else 4) * B * nh * Sq * Sk * hd
+        nbytes = (qs[0].numel() + ks[0].numel()) * 2 * 2 + 4 * B * nh * Sq
         bnd, by = bound_ms(nbytes, flops, TENSOR_BF16_FLOPS)
 
         def flash(i):
             return flash_attention_fwd(qs[i % L], ks[i % L], vs[i % L],
-                                       causal=True)
+                                       causal=causal)
         out["flash_attention"].append(dict(
-            shape=f"B={B} Sq=Sk={S} nh={nh} nkv={nkv} hd={hd} bf16 causal",
+            shape=f"B={B} Sq={Sq} Sk={Sk} nh={nh} nkv={nkv} hd={hd} bf16 "
+                  + ("causal" if causal else "non-causal"),
             ms=timed(flash), device_ms=_kernel_device_ms(
                 flash, ATTN_KERNELS["flash_attention"][0]),
             plain_ms=timed(lambda i: flash_attention_plain(
-                qs[i % L], ks[i % L], vs[i % L], causal=True, window=None)),
+                qs[i % L], ks[i % L], vs[i % L], causal=causal,
+                window=None)),
             library_ms=timed(lambda i: F.scaled_dot_product_attention(
                 qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
-                vs[i % L].transpose(1, 2), is_causal=True,
+                vs[i % L].transpose(1, 2), is_causal=causal,
                 enable_gqa=True)),
             bound_ms=bnd, bound_by=by, flops=flops, bytes=nbytes))
         del qs, ks, vs
-    # decode: the packed cache of the serving run, 8 slots of 2048 rows,
-    # at lengths such as that run's (prompt 64-1500 plus up to 32 new)
-    B, S = SERVE["slots"], SERVE["max_seq"]
+    # decode: the caches of the serving runs, rows of 2048, at lengths such
+    # as those runs' (prompt 64-1500 plus up to 32 new): the packed 8 slots
+    # of phases 8, 18 and 19, zamba2's one per-slot row of phase 21
+    S = SERVE["max_seq"]
     lo, hi = SERVE["prompt"]
-    lens = np.random.default_rng(3).integers(lo, hi + SERVE["max_new"] + 1, B)
-    kv_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
-    mask = (torch.arange(S, device=DEV)[None, :]
-            < kv_len[:, None])[:, None, None, :]
-    n_tok = int(lens.sum())
-    for nh, nkv, hd in DECODE_TIMES:
+    for B, nh, nkv, hd in DECODE_TIMES:
+        lens = np.random.default_rng(3).integers(lo, hi + SERVE["max_new"]
+                                                 + 1, B)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        mask = (torch.arange(S, device=DEV)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        n_tok = int(lens.sum())
         qs = _rand(gen, (L, B, nh, hd), bf16)
         ks = _rand(gen, (L, B, S, nkv, hd), bf16)
         vs = _rand(gen, (L, B, S, nkv, hd), bf16)
@@ -1888,15 +1963,28 @@ def _leaves(tree) -> list:
 
 
 def serving_phase(arch: str = ARCH):
-    """Phase 8 (and 18 and 19 at their models): ``arch`` at full width
-    served at ``SERVE``.  Returns (report, engine, requests, call stats,
+    """Phase 8 (and 18, 19 and 21 at their models): ``arch`` at full width
+    served at ``SERVE`` with ``attn_impl="kernel"``: through
+    ``serving_adapter``'s batched engine, or for the ssm and hybrid
+    families through the per-slot engine ``launch.serve`` builds for them
+    (``per_slot_engine``).  Every request must end ok with ``max_new``
+    tokens (the per-slot path turns a step's exception into that
+    request's error, so an error here is a failure, not a quarantine), no
+    logit NaN, flash once an attention application a prefill call,
+    flash-decode once one a decode call and the SSD kernel once a Mamba2
+    layer a prefill call.  Returns (report, engine, requests, call stats,
     parameters)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.launch.serve import per_slot_engine
     from repro_torch.models import lm
     from repro_torch.serve import (Request, ServeConfig, ServingEngine,
                                    serve_requests)
     cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
+    per_slot = cfg.family in lm.PER_SLOT_FAMILIES
+    # what earlier phases left allocated: the peak below is this phase's
+    # own (weights, caches, activations) above it
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, SERVE["seed"])        # on the card
     torch.cuda.synchronize()
@@ -1906,15 +1994,21 @@ def serving_phase(arch: str = ARCH):
         raise AssertionError(f"{n_params} parameters, config says "
                              f"{cfg.param_count()}")
     stats = _CallStats()
-    adapter = lm.serving_adapter(params, cfg, max_seq=SERVE["max_seq"])
-    adapter = dataclasses.replace(
-        adapter, prefill_fn=stats.wrap("prefill", adapter.prefill_fn),
-        step_fn=stats.wrap("decode", adapter.step_fn))
-    eng = ServingEngine(ServeConfig(batch_slots=SERVE["slots"],
-                                    max_seq=SERVE["max_seq"]),
-                        batched=adapter)
+    scfg = ServeConfig(batch_slots=SERVE["slots"], max_seq=SERVE["max_seq"])
+    if per_slot:
+        eng = per_slot_engine(params, cfg, scfg, torch.device(DEV))
+        eng.prefill_fn = stats.wrap("prefill", eng.prefill_fn)
+        eng.decode_fn = stats.wrap("decode", eng.decode_fn)
+        warm = {}
+    else:
+        adapter = lm.serving_adapter(params, cfg, max_seq=SERVE["max_seq"])
+        adapter = dataclasses.replace(
+            adapter, prefill_fn=stats.wrap("prefill", adapter.prefill_fn),
+            step_fn=stats.wrap("decode", adapter.step_fn))
+        eng = ServingEngine(scfg, batched=adapter)
+        warm = dict(batch_sizes=(1, 2, 4, 8))
     t0 = time.perf_counter()
-    info = eng.warmup(batch_sizes=(1, 2, 4, 8))
+    info = eng.warmup(**warm)
     warm_s = time.perf_counter() - t0
     if not info["ok"]:
         raise AssertionError(f"serving warmup failed: {info}")
@@ -1937,39 +2031,44 @@ def serving_phase(arch: str = ARCH):
         counts = launch_counts()
     finally:
         restore()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     bad = {r.rid: res.get(r.rid) for r in reqs
            if not (isinstance(res.get(r.rid), list)
                    and len(res[r.rid]) == SERVE["max_new"])}
     if bad:
-        raise AssertionError(f"requests without {SERVE['max_new']} tokens: "
-                             f"{bad}")
+        raise AssertionError(f"{arch}: requests not ok with "
+                             f"{SERVE['max_new']} tokens: {bad}")
     if bool(nan):
-        raise AssertionError("a logit of the serving run is NaN")
+        raise AssertionError(f"{arch}: a logit of the serving run is NaN")
     n_prefill, n_decode = stats.n["prefill"], stats.n["decode"]
-    want = {"flash_attention": cfg.n_layers * n_prefill,
-            "decode_attention": cfg.n_layers * n_decode}
-    for op, n in want.items():
-        if n == 0 or counts.get(op, 0) != n:
-            raise AssertionError(f"{op}: {counts.get(op, 0)} launches in the "
-                                 f"serving run, expected {n} ({cfg.n_layers}"
-                                 f" layers x calls)")
+    apps = _attn_apps(cfg)
+    want = {"flash_attention": apps * n_prefill,
+            "decode_attention": apps * n_decode}
+    if cfg.ssm is not None:
+        want["ssd_scan"] = cfg.n_layers * n_prefill
+    if n_prefill == 0 or n_decode == 0 or any(
+            counts.get(op, 0) != n for op, n in want.items()):
+        raise AssertionError(f"{arch}: launches {counts} in {n_prefill} "
+                             f"prefill and {n_decode} decode calls, "
+                             f"expected {want}")
     n_tok = sum(len(v) for v in res.values())
+    mode = "per-slot" if per_slot else "batched"
     report = dict(
         arch=arch, params=n_params, dtype=cfg.dtype, attn_impl="kernel",
-        **SERVE, prompt_tokens=int(plens.sum()), init_s=init_s,
+        mode=mode, **SERVE, prompt_tokens=int(plens.sum()), init_s=init_s,
         warmup_s=warm_s, wall_s=wall, tokens=n_tok, tok_per_s=n_tok / wall,
         prefill_calls=n_prefill, prefill_s=stats.s["prefill"],
         decode_steps=n_decode, decode_s=stats.s["decode"],
         decode_ms_per_step=stats.s["decode"] / n_decode * 1e3,
-        launches=counts, peak_gb=peak_gb)
-    log(f"serve {arch}: {n_params} params {cfg.dtype}, init {init_s:.2f} s, warmup "
-        f"{warm_s:.2f} s; {len(reqs)} requests ({int(plens.sum())} prompt "
-        f"tokens) -> {n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} "
-        f"tok/s); prefill {n_prefill} calls {stats.s['prefill']:.3f} s, "
-        f"decode {n_decode} steps {stats.s['decode']:.3f} s "
-        f"({report['decode_ms_per_step']:.2f} ms/step); launches {counts}; "
-        f"peak {peak_gb:.2f} GB")
+        launches=counts, peak_gb=peak_gb, base_gb=base / 1e9)
+    log(f"serve {arch} ({mode}): {n_params} params {cfg.dtype}, init "
+        f"{init_s:.2f} s, warmup {warm_s:.2f} s; {len(reqs)} requests "
+        f"({int(plens.sum())} prompt tokens) -> {n_tok} tokens in "
+        f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); prefill {n_prefill} "
+        f"calls {stats.s['prefill']:.3f} s, decode {n_decode} calls "
+        f"{stats.s['decode']:.3f} s ({report['decode_ms_per_step']:.2f} "
+        f"ms a call); launches {counts}; peak {peak_gb:.2f} GB above the "
+        f"{base / 1e9:.2f} GB earlier phases left")
     return report, eng, reqs, stats, params
 
 
@@ -2155,30 +2254,66 @@ def serving_breakdown(eng, reqs, stats) -> dict:
     return out
 
 
+class _Tee:
+    """Standard output that is also kept (``text``)."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, []
+
+    def write(self, s: str) -> int:
+        self.buf.append(s)
+        return self.out.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.buf)
+
+
+def _attn_apps(cfg) -> int:
+    """Self-attention applications of one pass through the decoder: a
+    layer's each, the hybrid's shared block's, none in the ssm family."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.attn_period
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
 def cli_phase(arch: str = ARCH) -> dict:
     """``python -m repro_torch.launch.serve --full --arch arch`` at its
-    defaults, in this process (its output goes to this script's).  Its
-    decode steps must have gone through the flash-decode kernel, every
-    layer of every step."""
+    defaults, in this process (its output goes to this script's): rc 0,
+    the mode its family takes (batched, or per-slot for ssm and hybrid),
+    its decode steps through the flash-decode kernel at every attention
+    application of every step, and its prefills through the SSD kernel
+    at every Mamba2 layer."""
+    import contextlib
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.launch.serve import serve
-    n_layers = get_config(arch).n_layers
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    mode = "per-slot" if cfg.family in lm.PER_SLOT_FAMILIES else "batched"
+    per_call = {"decode_attention": _attn_apps(cfg),
+                "ssd_scan": cfg.n_layers if cfg.ssm is not None else 0}
     reset_launches()
+    tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
-    rc = serve(["--full", "--arch", arch])
+    with contextlib.redirect_stdout(tee):
+        rc = serve(["--full", "--arch", arch])
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    if rc != 0:
-        raise AssertionError(f"launch.serve --full returned {rc}")
-    dec = counts.get("decode_attention", 0)
-    if dec == 0 or dec % n_layers:
-        raise AssertionError(f"launch.serve --full did not decode through "
-                             f"the flash-decode kernel at every layer: "
-                             f"{counts}")
+    if rc != 0 or f"mode={mode}" not in tee.text():
+        raise AssertionError(f"launch.serve --full --arch {arch} returned "
+                             f"{rc}, expected 0 and mode={mode}")
+    for op, k in per_call.items():
+        n = counts.get(op, 0)
+        if k and (n == 0 or n % k):
+            raise AssertionError(f"launch.serve --full --arch {arch}: {op} "
+                                 f"{n} launches, not a whole number of "
+                                 f"{k} a call: {counts}")
     log(f"cli: repro_torch.launch.serve --full --arch {arch} returned 0 in "
-        f"{wall:.1f} s; launches {counts}")
-    return dict(arch=arch, rc=rc, wall_s=wall, launches=counts)
+        f"{wall:.1f} s, mode={mode}; launches {counts}")
+    return dict(arch=arch, rc=rc, mode=mode, wall_s=wall, launches=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -2389,7 +2524,25 @@ SSD_CASES = [
     ("G=2", 2, 1024, 24, 2, 64, 128, 256, "small", 1.0),
     ("N=64 Q=128", 2, 1024, 8, 1, 64, 64, 128, "small", 1.0),
     ("reduced 16x16 Q=16", 2, 64, 8, 1, 16, 16, 16, "small", 1.0),
+    # the per-slot prefill (B = 1, chunk = min(256, S)): zamba2-1.2b's 64
+    # heads in one group with N = 64 at prompts below a tile (8, 37: rows
+    # and keys past the chunk), one short of the chunk, at it and past it
+    # (1000, 1500: the pad path), from a zero state as a prefill starts;
+    # mamba2-130m's N = 128 at 37
+    ("zamba2 S=8", 1, 8, 64, 1, 64, 64, 8, "model", 0.0),
+    ("zamba2 S=37", 1, 37, 64, 1, 64, 64, 37, "model", 0.0),
+    ("zamba2 S=37 small", 1, 37, 64, 1, 64, 64, 37, "small", 1.0),
+    ("zamba2 S=255", 1, 255, 64, 1, 64, 64, 255, "model", 0.0),
+    ("zamba2 S=256", 1, 256, 64, 1, 64, 64, 256, "model", 0.0),
+    ("zamba2 S=1000", 1, 1000, 64, 1, 64, 64, 256, "model", 0.0),
+    ("zamba2 S=1500 small", 1, 1500, 64, 1, 64, 64, 256, "small", 1.0),
+    ("mamba2 S=37", 1, 37, 24, 1, 64, 128, 37, "model", 0.0),
+    ("mamba2 S=37 small", 1, 37, 24, 1, 64, 128, 37, "small", 1.0),
 ]
+# timed shapes beside the training shape (SSD_CASES[0]): the per-slot
+# prefills of phase 21, (B, S, H, G, P, N, chunk)
+SSD_TIMES = [(1, 1000, 64, 1, 64, 64, 256), (1, 1000, 24, 1, 64, 128, 256),
+             (1, 37, 64, 1, 64, 64, 37)]
 # Kernel vs plain version, max |kernel - plain| / max |y64|, where y64 is
 # the plain version evaluated in float64 on the card from the same inputs;
 # the kernel against y64 is held to the same limit, and both errors
@@ -2515,13 +2668,18 @@ def _ssd_work(B, S, H, G, P, N, Q) -> tuple[int, int]:
     outputs written once; the causal half of C B^T once per (batch row,
     chunk, group), which the heads of the group share, and per head the
     causal half of its decayed product with xdt, the state read, the
-    chunk's own state and the state pass."""
+    chunk's own state and the state pass.  A sequence that is not a
+    whole number of chunks ends in a short chunk (the pad does no work
+    of the function's)."""
     nbytes = 4 * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N
                   + 2 * B * H * P * N)
-    tri = Q * (Q + 1) // 2
-    per_group = tri * 2 * N
-    per_head = tri * 2 * P + 2 * Q * 2 * P * N + 2 * P * N
-    return nbytes, B * (S // Q) * (G * per_group + H * per_head)
+
+    def chunk(q):
+        tri = q * (q + 1) // 2
+        return G * tri * 2 * N + H * (tri * 2 * P + 2 * q * 2 * P * N
+                                      + 2 * P * N)
+    full, tail = divmod(S, Q)
+    return nbytes, B * (full * chunk(Q) + (chunk(tail) if tail else 0))
 
 
 # the tensor cores' TF32 rate; 3xTF32 (float32 accuracy) takes a third
@@ -2529,16 +2687,18 @@ TF32_FLOPS = 495e12
 SSD_3XTF32_FLOPS = TF32_FLOPS / 3
 
 
-def time_ssd() -> dict:
-    """Phase 11, times at the training shape: kernel, plain version and
-    bound by CUDA events, and the kernels' device time per call from the
-    profiler."""
+def _time_ssd_shape(gen, B, S, H, G, P, N, Q, reps, warm) -> dict:
+    """CUDA-event times of the SSD kernel and its plain version at one
+    shape (model decays, zero state), the bound, and the three kernels'
+    device time per call from the profiler."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
-    tag, B, S, H, G, P, N, Q, decays, _ = SSD_CASES[0]
-    gen = torch.Generator(device=DEV).manual_seed(12)
-    x, dt, A, Bm, Cm, s0 = _ssd_inputs(gen, B, S, H, G, P, N, decays, 0.0)
-    xdt, dA = x * dt[..., None], dt * A
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(gen, B, S, H, G, P, N, "model", 0.0)
+    pad = (-S) % Q              # as ssd_sequence pads a prompt
+    xdt = torch.nn.functional.pad(x * dt[..., None], (0, 0, 0, 0, 0, pad))
+    dA = torch.nn.functional.pad(dt * A, (0, 0, 0, pad))
+    Bm, Cm = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+              for t in (Bm, Cm))
     del x
     nbytes, flops = _ssd_work(B, S, H, G, P, N, Q)
     # the kernel's products run in 3xTF32 (float32 accuracy): its bound;
@@ -2548,7 +2708,7 @@ def time_ssd() -> dict:
 
     def kern(i):
         return ssd_scan_fwd(xdt, dA, Bm, Cm, s0, chunk=Q)
-    ms = time_ms(kern, reps=10, warm=2)
+    ms = time_ms(kern, reps=reps, warm=warm)
     plain_ms = time_ms(lambda i: ssd_scan_plain(xdt, dA, Bm, Cm, s0,
                                                 chunk=Q), reps=3, warm=1)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2586,6 +2746,18 @@ def time_ssd() -> dict:
         f"{out['bound_tf32_ms'] * 1e3:.3f} us)")
     del xdt, dA, Bm, Cm, s0
     torch.cuda.empty_cache()
+    return out
+
+
+def time_ssd() -> dict:
+    """Phase 11, times: at the training shape (the head of the result),
+    then at the per-slot prefill shapes of ``SSD_TIMES`` (``by_shape``)."""
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    _, B, S, H, G, P, N, Q, _, _ = SSD_CASES[0]
+    out = _time_ssd_shape(gen, B, S, H, G, P, N, Q, reps=10, warm=2)
+    out["by_shape"] = [dict(out)] + [
+        _time_ssd_shape(gen, *shape, reps=50, warm=5)
+        for shape in SSD_TIMES]
     return out
 
 
@@ -3539,10 +3711,11 @@ def _patch_prefill(params, cfg) -> dict:
 
 
 def family_serving(arch: str) -> dict:
-    """Phases 18 (granite-moe-1b-a400m) and 19 (phi-3-vision-4.2b): the
-    model at full width served at ``SERVE`` through the port's entry
-    points, with phase 8's gates; the vlm's prefill with patches; then
-    ``launch.serve --full --arch arch``."""
+    """Phases 18 (granite-moe-1b-a400m), 19 (phi-3-vision-4.2b) and 21
+    (mamba2-130m, zamba2-1.2b, per slot): the model at full width served
+    at ``SERVE`` through the port's entry points, with phase 8's gates;
+    the vlm's prefill with patches; then ``launch.serve --full --arch
+    arch``."""
     from repro_torch.configs import get_config
     report, eng, reqs, stats, params = serving_phase(arch)
     cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
@@ -3552,6 +3725,206 @@ def family_serving(arch: str) -> dict:
     torch.cuda.empty_cache()
     report["cli"] = cli_phase(arch)
     return report
+
+
+# ---------------------------------------------------------------------------
+# phases 21-23: the recurrent and encoder-decoder families at full width
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("mamba2-130m", "zamba2-1.2b")
+AUDIO_ARCH = "whisper-small"
+# phase 22: a batch of 8 prompts of 64 tokens and one prompt of 448, each
+# with its own frames; 32 greedy decode steps of the batch
+AUDIO = dict(batch=8, prompt=64, long_prompt=448, steps=32, seed=0)
+# phase 23: decoder layers of each model against the CPU (zamba2: two
+# applications of the shared block, cache blocks 0 and 1; whisper: 2
+# encoder layers too), prompts below the chunk of 256, not a multiple of
+# it, and two chunks, each followed by CPU_STEPS greedy decode steps
+FAMILY_CPU_LAYERS = {"mamba2-130m": 2, "zamba2-1.2b": 12,
+                     "whisper-small": 2}
+CPU_PROMPTS = (37, 300, 512)
+CPU_STEPS = 8
+
+
+def whisper_phase() -> dict:
+    """Phase 22: whisper-small at full width (12 + 12 layers, bf16, random
+    weights from a seed) through ``make_prefill_step`` and
+    ``make_decode_step`` with frames from a seed: one prefill of a
+    ``long_prompt``-token prompt, one of ``batch`` prompts of ``prompt``
+    tokens, each with flash once an encoder layer, once a decoder layer's
+    self-attention and once its cross-attention; the batch's logits
+    moved by other frames; then ``steps`` greedy decode steps, each with
+    flash-decode (self-attention) and flash (cross-attention, one query)
+    once a layer; every logit finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH), attn_impl="kernel")
+    a = AUDIO
+    params = lm.init_params(cfg, a["seed"])
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, config says "
+                             f"{cfg.param_count()}")
+    gen = torch.Generator(device=DEV).manual_seed(a["seed"])
+    ctx = cfg.encdec.n_audio_ctx
+    B, S = a["batch"], a["prompt"]
+    frames = torch.randn((B, ctx, cfg.d_model), generator=gen,
+                         device=DEV).to(torch.bfloat16)
+    flash_per_prefill = cfg.encdec.n_encoder_layers + 2 * cfg.n_layers
+    decode = make_decode_step(cfg)
+    out, logits = {}, None
+    for b, n in ((1, a["long_prompt"]), (B, S)):
+        toks = torch.randint(0, cfg.vocab, (b, n), generator=gen,
+                             device=DEV, dtype=torch.int32)
+        prefill = make_prefill_step(cfg, max_seq=n + a["steps"])
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": toks,
+                                         "frames": frames[:b]})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        finite = bool(torch.isfinite(logits).all())
+        if not finite or tuple(logits.shape) != (b, cfg.vocab) or \
+                counts != {"flash_attention": flash_per_prefill}:
+            raise AssertionError(
+                f"whisper prefill of {b} x {n}: finite {finite}, shape "
+                f"{tuple(logits.shape)}, launches {counts}, expected "
+                f"{flash_per_prefill} flash")
+        out[f"prefill {b}x{n}"] = dict(wall_s=wall, launches=counts)
+    other, _ = prefill(params, {"tokens": toks, "frames": frames.flip(0)})
+    moved = float((other.float() - logits.float()).abs().max())
+    if moved == 0:
+        raise AssertionError("whisper: other frames leave the logits as "
+                             "they were")
+    tok = logits.argmax(-1).to(torch.int32)
+    bad = torch.zeros((), dtype=torch.bool, device=DEV)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(a["steps"]):
+        step_logits, cache = decode(params, tok, cache)
+        bad.logical_or_(~torch.isfinite(step_logits).all())
+        tok = step_logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {"decode_attention": cfg.n_layers * a["steps"],
+            "flash_attention": cfg.n_layers * a["steps"]}
+    if bool(bad) or counts != want or int(cache["len"]) != S + a["steps"]:
+        raise AssertionError(f"whisper decode: a logit not finite "
+                             f"({bool(bad)}), launches {counts}, expected "
+                             f"{want}, len {int(cache['len'])}")
+    out["decode"] = dict(batch=B, steps=a["steps"], wall_s=wall,
+                         ms_per_step=wall / a["steps"] * 1e3,
+                         launches=counts)
+    log(f"whisper {cfg.name}: {n_params} params {cfg.dtype}; prefill "
+        + ", ".join(f"{k} in {v['wall_s']:.3f} s" for k, v in out.items()
+                    if k.startswith("prefill"))
+        + f" ({flash_per_prefill} flash launches each); other frames move "
+        f"the logits by up to {moved:.3g}; {a['steps']} decode steps of "
+        f"{B} in {wall:.3f} s ({out['decode']['ms_per_step']:.2f} ms/step),"
+        f" launches {counts}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(arch=AUDIO_ARCH, params=n_params, **a, max_change=moved,
+                **out)
+
+
+def family_vs_cpu(arch: str) -> dict:
+    """Phase 23: ``arch`` at full width cut to ``FAMILY_CPU_LAYERS``,
+    float32, the same weights on the card (kernels) and the CPU (their
+    plain versions), one prompt a call as the per-slot path runs it: each
+    of ``CPU_PROMPTS`` prefilled (whisper with 1500 frames), its SSM and
+    conv states and logits held against the CPU's, then ``CPU_STEPS``
+    greedy decode steps; logits within ``LOGIT_REL_TOL`` of their largest
+    magnitude, greedy tokens equal, and the card's launches those of the
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=FAMILY_CPU_LAYERS[arch],
+                              dtype="float32", attn_impl="kernel")
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, n_encoder_layers=FAMILY_CPU_LAYERS[arch]))
+    p_cpu = lm.init_params(cfg, 1, device="cpu")
+
+    def to_card(t):
+        return {k: to_card(v) for k, v in t.items()} \
+            if isinstance(t, dict) else t.to(DEV)
+    p_card = to_card(p_cpu)
+    rng = np.random.default_rng(2)
+    extra = {"cpu": {}, DEV: {}}
+    if cfg.encdec is not None:
+        f = torch.from_numpy(rng.standard_normal(
+            (1, cfg.encdec.n_audio_ctx, cfg.d_model)).astype(np.float32))
+        extra = {"cpu": {"frames": f}, DEV: {"frames": f.to(DEV)}}
+    steps = []
+
+    def rel(got, want) -> float:
+        want = want.double()
+        return float((got.cpu().double() - want).abs().max()
+                     / want.abs().max())
+
+    def compare(what: str, logits: dict) -> torch.Tensor:
+        r = rel(logits[DEV], logits["cpu"])
+        tok_c = logits["cpu"].argmax(-1)
+        equal = bool(torch.equal(tok_c, logits[DEV].argmax(-1).cpu()))
+        steps.append(dict(what=what, rel_err=r, greedy_equal=equal))
+        if r > LOGIT_REL_TOL or not equal:
+            raise AssertionError(f"card vs CPU ({arch}) at {what}: rel "
+                                 f"{r:.3e} (limit {LOGIT_REL_TOL:g}), "
+                                 f"greedy equal {equal}")
+        return tok_c.to(torch.int32)
+
+    reset_launches()
+    for S in CPU_PROMPTS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))
+                                .astype(np.int32))
+        logits, caches = {}, {}
+        for dev, p in (("cpu", p_cpu), (DEV, p_card)):
+            logits[dev], caches[dev] = lm.prefill(
+                p, cfg, toks.to(dev), extra=extra[dev],
+                max_seq=S + CPU_STEPS, use_kernel=True)
+        for key in ("ssm", "conv"):
+            if key in caches["cpu"]:
+                r = rel(caches[DEV][key], caches["cpu"][key])
+                steps.append(dict(what=f"S={S} {key} state", rel_err=r))
+                if r > LOGIT_REL_TOL:
+                    raise AssertionError(f"card vs CPU ({arch}) S={S}: "
+                                         f"{key} state rel {r:.3e}")
+        tok = compare(f"S={S} prefill", logits)
+        for s in range(CPU_STEPS):
+            for dev, p in (("cpu", p_cpu), (DEV, p_card)):
+                logits[dev], caches[dev] = lm.decode_step(
+                    p, cfg, tok.to(dev), caches[dev])
+            tok = compare(f"S={S} decode {s}", logits)
+    counts = launch_counts()
+    n = len(CPU_PROMPTS)
+    apps = _attn_apps(cfg)
+    want = {"ssd_scan": cfg.n_layers * n if cfg.ssm is not None else 0,
+            "flash_attention": apps * n,
+            "decode_attention": apps * CPU_STEPS * n}
+    if cfg.encdec is not None:      # encoder, cross-attention a step
+        want["flash_attention"] += (cfg.encdec.n_encoder_layers
+                                    + cfg.n_layers) * n \
+            + cfg.n_layers * CPU_STEPS * n
+    if {k: v for k, v in counts.items() if v} != \
+            {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"card vs CPU ({arch}): launches {counts}, "
+                             f"expected {want}")
+    worst = max(s["rel_err"] for s in steps)
+    log(f"card vs cpu: {arch} at {cfg.n_layers} layers, float32, prompts "
+        f"{list(CPU_PROMPTS)} one a call + {CPU_STEPS} decode steps each: "
+        f"logits and states within {worst:.2e} of max |cpu| (limit "
+        f"{LOGIT_REL_TOL:g}), greedy tokens equal; launches {counts}")
+    return dict(arch=arch, layers=cfg.n_layers, prompt_lens=CPU_PROMPTS,
+                steps=steps, max_rel_err=worst, launches=counts)
 
 
 def kernel_resources() -> list:
@@ -3696,6 +4069,18 @@ def main() -> int:
     families_cpu = {arch: phase(f"20 card vs cpu {arch}", card_vs_cpu, arch)
                     for arch in FAMILY_ARCHS}
 
+    # 21-23: the recurrent families served per slot and whisper's prefill
+    # and decode at full width, and all three against the CPU
+    recurrent = {arch: phase(f"21 serve {arch}", family_serving, arch)
+                 for arch in RECURRENT_ARCHS}
+    whisper = phase("22 whisper", whisper_phase)
+    recurrent_cpu = {arch: phase(f"23 card vs cpu {arch}", family_vs_cpu,
+                                 arch)
+                     for arch in (*RECURRENT_ARCHS, AUDIO_ARCH)}
+    by_model = {**{arch: r["launches"] for arch, r in families.items()},
+                **{arch: r["launches"] for arch, r in recurrent.items()},
+                AUDIO_ARCH: whisper["decode"]["launches"]}
+
     kernels = []
     for name in REPLACES:
         rows = timing[name]
@@ -3719,8 +4104,8 @@ def main() -> int:
             device_ms=serve_brk["kernel_device_ms"].get(name),
             shape=head["shape"], by_shape=rows,
             train_launches=qwen["launches"].get(name, 0),
-            launches_by_model={arch: r["launches"].get(name, 0)
-                               for arch, r in families.items()},
+            launches_by_model={arch: c.get(name, 0)
+                               for arch, c in by_model.items()},
             max_abs_err_by_hd={k: v for k, v in attn_errs.items()
                                if k.startswith(f"{name} hd")}))
     kernels.append(dict(
@@ -3730,7 +4115,9 @@ def main() -> int:
         plain_ms=ssd_time["plain_ms"], bound_ms=ssd_time["bound_ms"],
         bound_by=ssd_time["bound_by"], library_ms=None,
         device_ms=ssd_time["device_ms"], shape=ssd_time["shape"],
-        timing=ssd_time))
+        timing=ssd_time,
+        launches_by_model={arch: r["launches"]["ssd_scan"]
+                           for arch, r in recurrent.items()}))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -3747,6 +4134,8 @@ def main() -> int:
         qwen_training=qwen, train_card_vs_cpu=train_cpu,
         train_breakdown=train_brk, recovery=recovery, codegen=codegen,
         family_serving=families, family_card_vs_cpu=families_cpu,
+        recurrent_serving=recurrent, whisper=whisper,
+        recurrent_audio_card_vs_cpu=recurrent_cpu,
         kernel_resources=resources,
         phase_seconds=seconds), indent=1))
     print(smi)

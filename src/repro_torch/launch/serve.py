@@ -4,6 +4,8 @@
         --arch qwen3-0.6b                      # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch granite-moe-1b-a400m            # the moe family, on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch zamba2-1.2b                     # hybrid, per slot, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --requests 12                          # reduced config, on the CPU
 
@@ -13,15 +15,20 @@ compute inside is the batched packed-slot decode of the selected model:
 one decode step call per iteration for every slot (its attention through
 the flash-decode kernel), on-device sampling, and length-bucketed
 prefill, every shape run once at warmup.  ``--per-slot`` selects the
-seed per-slot path instead.  The port serves the attention-cache
-families, dense, vlm (text-only, as the reference serves it) and moe; a
-recurrent or encoder-decoder family raises ``NotImplementedError``
-naming the slice that brings it.  Weights are random, from ``--seed``.
+seed per-slot path instead: one prefill and one decode call a request
+and token, greedy.  The attention-cache families (dense, vlm text-only
+as the reference serves it, moe) take the batched path; the recurrent
+families (ssm, hybrid) take the per-slot path, decided by family before
+anything runs (a bucket's pads would enter their state).  The audio
+family is refused: a request carries no encoder frames (the
+reference's per-slot prefill passes none either and fails on each
+request).  Weights are random, from ``--seed``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -37,6 +44,28 @@ from ..serve import (AdmissionConfig, AdmissionController, Request,
                      TenantSpec, make_trace, serve_requests)
 
 
+def per_slot_engine(params, cfg, scfg: ServeConfig,
+                    device: torch.device) -> ServingEngine:
+    """The per-slot engine: one prefill call a request and one decode call
+    a slot and token, greedy.  The model runs with
+    ``attn_impl="kernel"`` and ``use_kernel``, so every kernel-backed op
+    takes its kernel on the card (the SSD scan, flash attention,
+    flash-decode over the scalar-length cache) and its plain version on
+    the CPU."""
+    max_seq = scfg.max_seq
+    cfg = dataclasses.replace(cfg, attn_impl="kernel")
+
+    def prefill_fn(tokens):
+        return lm.prefill(params, cfg, torch.from_numpy(tokens).to(device),
+                          max_seq=max_seq, use_kernel=True)
+
+    def decode_fn(token, cache):
+        return lm.decode_step(params, cfg,
+                              torch.from_numpy(token).to(device), cache)
+
+    return ServingEngine(scfg, prefill_fn, decode_fn)
+
+
 def _build_engine(cfg, params, scfg: ServeConfig, args,
                   device: torch.device) -> ServingEngine:
     if not args.per_slot:
@@ -45,21 +74,10 @@ def _build_engine(cfg, params, scfg: ServeConfig, args,
             temperature=args.temperature, top_k=args.top_k,
             seed=args.seed, device=device)
         return ServingEngine(scfg, batched=adapter)
-
     if args.temperature > 0 or args.top_k:
         print("[serve] WARNING: the per-slot path is greedy-only; "
               "--temperature/--top-k are ignored")
-    max_seq = scfg.max_seq
-
-    def prefill_fn(tokens):
-        return lm.prefill(params, cfg, torch.from_numpy(tokens).to(device),
-                          max_seq=max_seq)
-
-    def decode_fn(token, cache):
-        return lm.decode_step(params, cfg,
-                              torch.from_numpy(token).to(device), cache)
-
-    return ServingEngine(scfg, prefill_fn, decode_fn)
+    return per_slot_engine(params, cfg, scfg, device)
 
 
 def _print_warmup(info: dict) -> None:
@@ -121,12 +139,18 @@ def serve(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.with_reduced()
-    if cfg.family not in lm.SERVE_FAMILIES:
-        raise NotImplementedError(
-            f"serving the {cfg.family!r} family is not ported yet: the port "
-            f"serves {'/'.join(lm.SERVE_FAMILIES)}; ssm/hybrid come with "
-            f"per-slot recurrent serving, audio with its own slice "
-            f"(ROADMAP queue A)")
+    if cfg.family not in lm.BATCHED_FAMILIES + lm.PER_SLOT_FAMILIES:
+        raise ValueError(
+            f"launch.serve cannot serve the {cfg.family!r} family: a "
+            f"request carries tokens only, and its encoder needs frames "
+            f"(the reference's per-slot prefill passes none and fails on "
+            f"each request with KeyError('frames')); run it through "
+            f"launch.steps.make_prefill_step with batch['frames'] and "
+            f"make_decode_step")
+    if cfg.family in lm.PER_SLOT_FAMILIES and not args.per_slot:
+        print(f"[serve] the {cfg.family} family serves per slot: its "
+              f"recurrent state would absorb a bucket's pads")
+        args.per_slot = True
     device = resolve_device(args.device)
     print(f"[serve] arch={cfg.name} family={cfg.family} "
           f"params={cfg.param_count()/1e6:.1f}M slots={args.slots} "

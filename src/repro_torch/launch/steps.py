@@ -5,12 +5,15 @@ The port's counterpart of ``make_train_step``, ``make_prefill_step`` and
 loss, its gradients with respect to every parameter leaf
 (``torch.autograd.grad``), and the AdamW update, as one function of
 ``(params, opt_state, batch)``; a prompt's prefill from a batch (its
-``patches`` for the vlm family); one decode step.  The reference's
+``patches`` for the vlm family, ``frames`` for the audio family); one
+decode step.  The reference's
 abstract ``abstract_batch``/``input_specs`` belong to the dry-run and the
 distributed slice (ROADMAP queue A, item 5).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,14 +46,17 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, use_kernel: bool = False):
+def make_prefill_step(cfg: ModelConfig, use_kernel: bool = False,
+                      max_seq: Optional[int] = None):
     """``prefill_step(params, batch) -> (last-token logits, cache)``;
     ``batch`` holds ``tokens`` ([B, S] int) and, for the vlm family,
-    ``patches``."""
+    ``patches``, for the audio family ``frames``.  The cache holds
+    ``max_seq`` positions (default: the prompt's, as in the reference)."""
     def prefill_step(params, batch):
-        extra = {k: v for k, v in batch.items() if k == "patches"}
+        extra = {k: v for k, v in batch.items()
+                 if k in ("patches", "frames")}
         return lm.prefill(params, cfg, batch["tokens"], extra=extra,
-                          use_kernel=use_kernel)
+                          max_seq=max_seq, use_kernel=use_kernel)
     prefill_step.__name__ = f"prefill_step_{cfg.name}"
     return prefill_step
 

@@ -124,7 +124,7 @@ class ModelConfig:
             n += V * d                 # lm head
         n += d                         # final norm
         per_layer = 0
-        if self.family in ("dense", "moe", "vlm", "audio"):
+        if self.family in ("dense", "moe", "vlm"):
             hd = self.hd
             q = d * self.n_heads * hd
             kv = 2 * d * self.n_kv_heads * hd
@@ -139,9 +139,7 @@ class ModelConfig:
             else:
                 ff = 3 * d * self.d_ff            # gate/up/down
             per_layer = attn + ff + 2 * d         # two norms
-        elif self.family == "ssm":
-            per_layer = self._ssm_layer_params()
-        elif self.family == "hybrid":
+        elif self.family in ("ssm", "hybrid"):
             per_layer = self._ssm_layer_params()
         n += L * per_layer
         if self.family == "hybrid":
@@ -151,13 +149,15 @@ class ModelConfig:
                       self.n_heads * hd * d + 3 * d * self.d_ff + 2 * d)
             n += shared
         if self.encdec is not None:
-            # encoder layers: self-attn + mlp; decoder layers counted above
-            hd = self.hd
-            enc_layer = (4 * d * self.n_heads * hd + 3 * d * self.d_ff +
-                         2 * d)
-            n += self.encdec.n_encoder_layers * enc_layer
-            # decoder cross-attention blocks
-            n += L * (4 * d * self.n_heads * hd + d)
+            # MHA self- and cross-attention, the two-matrix GELU MLP with
+            # its biases, LayerNorms of scale and bias (the reference
+            # counts the MLP as SwiGLU and each norm as one vector)
+            attn = 4 * d * self.n_heads * self.hd
+            mlp2 = 2 * d * self.d_ff + self.d_ff + d
+            ln = 2 * d
+            n += L * (2 * attn + mlp2 + 3 * ln)        # decoder layers
+            n += self.encdec.n_encoder_layers * (attn + mlp2 + 2 * ln)
+            n += self.encdec.n_audio_ctx * d + ln      # positions, norm
         if self.vlm is not None:
             n += self.vlm.d_patch * d             # patch projection
         return n

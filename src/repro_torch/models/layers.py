@@ -1,15 +1,15 @@
-"""Neural-net building blocks of the dense, MoE and SSM LMs, as plain
-functions on tensors.
+"""Neural-net building blocks of the LMs, as plain functions on tensors.
 
-The port's counterpart of the dense, MoE and Mamba2 subsets of the
-reference's ``models/layers.py``: RMSNorm, rotary embedding,
-grouped-query attention with optional qk-norm and sliding window
-(full-sequence and one-token decode against a KV cache), the SwiGLU MLP,
-the token-dropping top-k MoE (scatter and GShard dispatch), the Mamba2
-block (causal conv, chunked SSD) for training and prefill, and the
-cross-entropy loss.  Parameters are plain nested dicts of tensors with the reference's
-names and layouts — a matrix is ``[in, out]`` and applied as ``x @ W`` —
-so the reference's parameter pytree carries over leaf for leaf
+The port's counterpart of the reference's ``models/layers.py``: RMSNorm
+and LayerNorm, rotary embedding, grouped-query attention with optional
+qk-norm and sliding window (full-sequence, cross-attention and one-token
+decode against a KV cache), the SwiGLU and two-matrix GELU MLPs, the
+token-dropping top-k MoE (scatter and GShard dispatch), the Mamba2 block
+(causal conv, chunked SSD) for training and prefill and its one-token
+recurrence, and the cross-entropy loss.  Parameters are plain nested
+dicts of tensors with the reference's names and layouts — a matrix is
+``[in, out]`` and applied as ``x @ W`` — so the reference's parameter
+pytree carries over leaf for leaf
 (:func:`repro_torch.models.weights.from_jax_params`).
 
 Compute runs in the parameters' dtype with fp32 norms, rotary angles and
@@ -20,6 +20,7 @@ arrays are immutable and it relies on buffer donation instead).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -60,6 +61,19 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(dim: int, dtype, device) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
@@ -239,8 +253,16 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
 
 
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                         device) -> dict:
+    """Cross-attention's parameters: full multi-head (whisper's MHA), no
+    qk-norm, the shapes of :func:`init_attention`."""
+    return init_attention(gen, dataclasses.replace(
+        cfg, n_kv_heads=cfg.n_heads, qk_norm=False), dtype, device)
+
+
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLPs (SwiGLU; whisper's two-matrix GELU)
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
@@ -251,6 +273,21 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def init_mlp2(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
+    """Two-matrix GELU MLP (whisper-style)."""
+    return {"w1": _dense_init(gen, d, ff, dtype, device),
+            "b1": torch.zeros((ff,), dtype=dtype, device=device),
+            "w2": _dense_init(gen, ff, d, dtype, device),
+            "b2": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def mlp2(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``gelu(x W1 + b1) W2 + b2`` with GELU in its tanh form: the
+    reference's ``jax.nn.gelu`` defaults to ``approximate=True``."""
+    return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] \
+        + p["b2"]
 
 
 # ---------------------------------------------------------------------------
@@ -520,10 +557,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), state
 
 
-def mamba2_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                 use_kernel: bool = False) -> torch.Tensor:
+def mamba2_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                   use_kernel: bool = False) -> tuple:
     """Full Mamba2 block (train/prefill): in_proj -> conv -> SSD -> gate
-    -> out_proj.  x: [B, S, d]."""
+    -> out_proj.  x: [B, S, d].  Returns ``(y [B, S, d], ssm_state [B,
+    H, P, N] float32, conv_state [B, W-1, conv_ch])``, the states a decode
+    continues from (the reference's ``lm._mamba_prefill``)."""
     s = cfg.ssm
     d = cfg.d_model
     di, nh = s.d_inner(d), s.n_heads(d)
@@ -532,16 +571,56 @@ def mamba2_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
     zxbcdt = x @ p["in_proj"]
     z, xin, Bc, Cc, dt = torch.split(zxbcdt, [di, di, G * N, G * N, nh],
                                      dim=-1)
-    conv_out, _ = _causal_conv(torch.cat([xin, Bc, Cc], dim=-1),
-                               p["conv_w"], p["conv_b"])
+    conv_out, conv_state = _causal_conv(torch.cat([xin, Bc, Cc], dim=-1),
+                                        p["conv_w"], p["conv_b"])
     xin, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
     dtv = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, _ = ssd_chunked(xin.reshape(B, S, nh, s.head_dim), dtv, A,
-                       Bc.reshape(B, S, G, N), Cc.reshape(B, S, G, N),
-                       p["D"], chunk=min(s.chunk, S), use_kernel=use_kernel)
+    y, state = ssd_chunked(xin.reshape(B, S, nh, s.head_dim), dtv, A,
+                           Bc.reshape(B, S, G, N), Cc.reshape(B, S, G, N),
+                           p["D"], chunk=min(s.chunk, S),
+                           use_kernel=use_kernel)
     y = rms_norm(p["norm"], y.reshape(B, S, di) * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"]
+    return y @ p["out_proj"], state.float(), conv_state
+
+
+def mamba2_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 use_kernel: bool = False) -> torch.Tensor:
+    """Full Mamba2 block's output alone (:func:`mamba2_prefill`)."""
+    return mamba2_prefill(p, cfg, x, use_kernel)[0]
+
+
+def mamba2_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  ssm_state: torch.Tensor, conv_state: torch.Tensor) -> tuple:
+    """Single-token recurrent step of the Mamba2 block (the reference's
+    ``layers.py:657``; no kernel there, none here).  x: [B, 1, d];
+    ssm_state: [B, H, P, N] float32; conv_state: [B, W-1, conv_ch].
+    Returns ``(y [B, 1, d], new ssm_state, new conv_state)``, new tensors
+    (the caller decides where they go)."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di, nh = s.d_inner(d), s.n_heads(d)
+    G, N = s.n_groups, s.d_state
+    B = x.shape[0]
+    z, xin, Bc, Cc, dt = torch.split(x @ p["in_proj"],
+                                     [di, di, G * N, G * N, nh], dim=-1)
+    conv_out, new_conv = _causal_conv(torch.cat([xin, Bc, Cc], dim=-1),
+                                      p["conv_w"], p["conv_b"],
+                                      state=conv_state)
+    xin, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])        # [B, nh]
+    dA = torch.exp(dtv * -torch.exp(p["A_log"]))             # [B, nh]
+    xh = xin[:, 0].reshape(B, nh, s.head_dim).float()
+    rep = nh // G
+    Bh = Bc[:, 0].reshape(B, G, N).float().repeat_interleave(rep, dim=1)
+    Ch = Cc[:, 0].reshape(B, G, N).float().repeat_interleave(rep, dim=1)
+    upd = (dtv[..., None] * xh)[..., None] * Bh[:, :, None, :]  # [B,nh,P,N]
+    new_state = ssm_state.float() * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    y = y + xh * p["D"][None, :, None]
+    y = y.reshape(B, 1, di).to(x.dtype)
+    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    return y @ p["out_proj"], new_state.to(ssm_state.dtype), new_conv
 
 
 # ---------------------------------------------------------------------------

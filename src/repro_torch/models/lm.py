@@ -1,24 +1,28 @@
-"""LM assembly: init, forward and loss (dense, vlm, moe and ssm
-families), and prefill, decode and packed-slot serving (dense, vlm and
-moe families).
+"""LM assembly: init, forward, loss, prefill and decode for every family
+(dense, vlm, moe, ssm, hybrid, audio), and packed-slot serving for the
+attention-cache families (dense, vlm, moe).
 
 The port's counterpart of the reference's ``models/lm.py``.  Parameters
 keep the reference's nested-dict layout with per-layer leaves stacked
-along a leading ``[L, ...]`` axis; the forward passes loop over layers in
-Python (PyTorch runs eagerly; the reference's ``lax.scan`` has nothing to
-save here), and ``remat`` checkpoints each layer
+along a leading ``[L, ...]`` axis (the hybrid family's one shared block
+has no layer axis); the forward passes loop over layers in Python
+(PyTorch runs eagerly; the reference's ``lax.scan`` and ``lax.cond``
+have nothing to save here), and ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
 ``cfg.attn_impl`` keeps ``naive`` and ``kernel``.  The vlm family takes
 its precomputed patch embeddings as ``extra={"patches": [B, n_patches,
-d_patch]}`` (serving is text-only, as in the reference); the moe family
-adds its load-balancing loss to ``forward``'s ``aux``.  The hybrid and
-audio families, and serving the ssm family (per-slot recurrent decode),
-come with later slices and raise ``NotImplementedError`` here.
+d_patch]}`` (serving is text-only, as in the reference), the audio
+family its encoder's frame embeddings as ``extra={"frames": [B,
+n_audio_ctx, d_model]}``; the moe family adds its load-balancing loss to
+``forward``'s ``aux``.  The recurrent families (ssm, hybrid) serve
+through the engine's per-slot path: a bucket's pads would enter their
+state, so :func:`serving_adapter` refuses them, as the reference's does.
 
 In-place updates (the reference's arrays are immutable; it donates
-buffers instead): :func:`decode_step` writes each new token's K/V into
-the cache it is given, and :func:`write_slot` / :func:`retire_slot`
-update the packed cache they are given and return it.
+buffers instead): :func:`decode_step` writes each new token's K/V, and
+the recurrent families' new SSM and conv states, into the cache it is
+given, and :func:`write_slot` / :func:`retire_slot` update the packed
+cache they are given and return it.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (:func:`init_params`, :func:`serving_adapter`).
@@ -46,28 +50,29 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-# init_params, forward, loss_fn
-TRAIN_FAMILIES = ("dense", "vlm", "moe", "ssm")
-# prefill, decode, serving: the attention-cache families
-SERVE_FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+# packed-slot batched serving (serving_adapter): right-padded buckets are
+# exact only where causal attention hides the pads
+BATCHED_FAMILIES = ("dense", "vlm", "moe")
+# served one slot a call (the engine's per-slot path): recurrent state
+PER_SLOT_FAMILIES = ("ssm", "hybrid")
 
 
-def _require(cfg: ModelConfig, what: str, families: tuple) -> None:
-    if cfg.family not in families:
-        raise NotImplementedError(
-            f"{what}: the {cfg.family!r} family is not ported to this entry "
-            f"point yet (it takes {', '.join(families)}; the rest follow "
-            f"in ROADMAP queue A: hybrid/audio and the per-slot serving of "
-            f"ssm)")
-
-
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked ``[L, ...]``
-    leaves."""
+def layer_params(params: dict, i: int, key: str = "layers") -> dict:
+    """Layer ``i``'s parameters of the stack ``params[key]`` (the decoder
+    layers, or the audio family's ``enc_layers``): views into the stacked
+    ``[L, ...]`` leaves."""
     def pick(t):
         return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[i]
-    return pick(params["layers"])
+    return pick(params[key])
+
+
+def _shared_at(cfg: ModelConfig, i: int) -> bool:
+    """The hybrid family's shared block follows layers ``period - 1``,
+    ``2 period - 1``, ...; its cache block is ``i // period``."""
+    return cfg.family == "hybrid" and \
+        i % cfg.hybrid.attn_period == cfg.hybrid.attn_period - 1
 
 
 # ---------------------------------------------------------------------------
@@ -78,11 +83,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (default: the card; raises without one).  Same distributions as the
     reference's ``init_params`` (normal / sqrt(fan_in) matrices, 0.02
-    embedding, unit norms; Mamba2's float32 ``A_log``/``D``/``dt_bias``
-    and the MoE router's float32) but not the same numbers: parity tests
-    carry the reference's parameters over with
-    :func:`repro_torch.models.weights.from_jax_params`."""
-    _require(cfg, "init_params", TRAIN_FAMILIES)
+    embedding, 0.01 audio positions, unit norms, zero biases; Mamba2's
+    float32 ``A_log``/``D``/``dt_bias`` and the MoE router's float32) but
+    not the same numbers: parity tests carry the reference's parameters
+    over with :func:`repro_torch.models.weights.from_jax_params`."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
     # a meta tensor has no values to draw, nor a generator to draw them
@@ -93,10 +99,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
                "final_norm": L.init_rmsnorm(d, dt, dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L._dense_init(gen, d, cfg.vocab, dt, dev)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         layers = [{"norm": L.init_rmsnorm(d, dt, dev),
                    "mamba": L.init_mamba2(gen, cfg, dt, dev)}
                   for _ in range(n)]
+    elif cfg.family == "audio":
+        full = dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
+        layers = [{"attn_norm": L.init_layernorm(d, dt, dev),
+                   "attn": L.init_attention(gen, full, dt, dev),
+                   "xattn_norm": L.init_layernorm(d, dt, dev),
+                   "xattn": L.init_cross_attention(gen, cfg, dt, dev),
+                   "mlp_norm": L.init_layernorm(d, dt, dev),
+                   "mlp": L.init_mlp2(gen, d, cfg.d_ff, dt, dev)}
+                  for _ in range(n)]
+        enc = [{"attn_norm": L.init_layernorm(d, dt, dev),
+                "attn": L.init_attention(gen, full, dt, dev),
+                "mlp_norm": L.init_layernorm(d, dt, dev),
+                "mlp": L.init_mlp2(gen, d, cfg.d_ff, dt, dev)}
+               for _ in range(cfg.encdec.n_encoder_layers)]
     else:       # dense, vlm: a SwiGLU MLP; moe: the experts in its place
         moe = cfg.family == "moe"
         layers = [{"attn_norm": L.init_rmsnorm(d, dt, dev),
@@ -112,6 +132,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
         return torch.stack(xs)
     p["layers"] = stack(*layers)
+    if cfg.family == "hybrid":       # ONE set of weights, many call sites
+        p["shared_attn"] = {"attn_norm": L.init_rmsnorm(d, dt, dev),
+                            "attn": L.init_attention(gen, cfg, dt, dev),
+                            "mlp_norm": L.init_rmsnorm(d, dt, dev),
+                            "mlp": L.init_mlp(gen, d, cfg.d_ff, dt, dev)}
+    if cfg.family == "audio":
+        p["enc_layers"] = stack(*enc)
+        pos = torch.randn((cfg.encdec.n_audio_ctx, d), generator=gen,
+                          device=dev)
+        p["enc_pos"] = (pos * 0.01).to(dt)
+        p["enc_final_norm"] = L.init_layernorm(d, dt, dev)
     if cfg.vlm is not None:
         p["patch_proj"] = L._dense_init(gen, cfg.vlm.d_patch, d, dt, dev)
     return p
@@ -143,6 +174,61 @@ def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> tuple:
     return L.mlp(lp["mlp"], x), None
 
 
+def _attn_block(lp: dict, cfg: ModelConfig, h: torch.Tensor, positions,
+                use_kernel: bool) -> tuple:
+    """A pre-norm attention and feed-forward block (a dense, vlm or moe
+    layer; the hybrid family's shared block): ``(h, aux)``."""
+    h = h + L.attention(lp["attn"], cfg,
+                        L.rms_norm(lp["attn_norm"], h, cfg.norm_eps),
+                        positions, use_kernel=use_kernel)
+    y, aux = _ffn(lp, cfg, h)
+    return h + y, aux
+
+
+def _frames(cfg: ModelConfig, extra: Optional[dict]) -> torch.Tensor:
+    if not extra or "frames" not in extra:
+        raise ValueError(
+            f"{cfg.name}: the audio family needs extra['frames'] [B, "
+            f"n_audio_ctx, d_model], its encoder's input")
+    return extra["frames"]
+
+
+def _encode_audio(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                  use_kernel: bool = False) -> torch.Tensor:
+    """Whisper's encoder over precomputed (stub) frame embeddings
+    ``[B, Ta, d]``: learned positions, non-causal pre-LayerNorm blocks, a
+    final LayerNorm."""
+    B, Ta, _ = frames.shape
+    eps = cfg.norm_eps
+    h = frames.to(torch_dtype(cfg)) + params["enc_pos"][None, :Ta]
+    positions = torch.arange(Ta, device=h.device).expand(B, Ta)
+    for i in range(cfg.encdec.n_encoder_layers):
+        lp = layer_params(params, i, "enc_layers")
+        h = h + L.attention(lp["attn"], cfg,
+                            L.layer_norm(lp["attn_norm"], h, eps),
+                            positions, causal=False, use_kernel=use_kernel)
+        h = h + L.mlp2(lp["mlp"], L.layer_norm(lp["mlp_norm"], h, eps))
+    return L.layer_norm(params["enc_final_norm"], h, eps)
+
+
+def _cross_kv(lp: dict, cfg: ModelConfig, enc_out: torch.Tensor) -> tuple:
+    """A decoder layer's cross-attention K/V ``[B, Ta, nh, hd]`` over the
+    encoder's output (no RoPE)."""
+    B = enc_out.shape[0]
+    return tuple((enc_out @ lp["xattn"][w]).reshape(B, -1, cfg.n_heads,
+                                                    cfg.hd)
+                 for w in ("wk", "wv"))
+
+
+def _cross(lp: dict, cfg: ModelConfig, h: torch.Tensor, kv: tuple,
+           positions, use_kernel: bool = False) -> torch.Tensor:
+    """Cross-attention (residual not added): q from ``h`` with no RoPE,
+    non-causal over every encoder position."""
+    x = L.layer_norm(lp["xattn_norm"], h, cfg.norm_eps)
+    return L.attention(lp["xattn"], cfg, x, positions, causal=False, kv=kv,
+                       use_kernel=use_kernel)
+
+
 # ---------------------------------------------------------------------------
 # forward (train) and loss
 # ---------------------------------------------------------------------------
@@ -152,41 +238,53 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             use_kernel: bool = False) -> tuple:
     """Token logits for a full sequence (training).
 
-    tokens: [B, S] int; ``extra`` may hold the vlm family's ``patches``
-    ``[B, n_patches, d_patch]``.  Returns ``(logits [B, S, vocab],
-    aux)``; ``aux`` (float32) is the MoE load-balancing loss summed over
-    the layers, zero for the other families.  ``remat`` recomputes each
+    tokens: [B, S] int; ``extra`` holds the vlm family's ``patches``
+    ``[B, n_patches, d_patch]`` or the audio family's ``frames`` ``[B,
+    Ta, d]`` (required there).  Returns ``(logits [B, S, vocab], aux)``;
+    ``aux`` (float32) is the MoE load-balancing loss summed over the
+    layers, zero for the other families.  ``remat`` recomputes each
     layer's activations in the backward pass (``torch.utils.checkpoint``,
     non-reentrant); ``use_kernel`` routes attention through the flash
     kernel and the SSD scan through its kernel (on a card tensor).
     """
-    _require(cfg, "forward", TRAIN_FAMILIES)
     B, S = tokens.shape
     eps = cfg.norm_eps
     h = _embed(params, cfg, tokens, extra)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
 
-    if cfg.family == "ssm":
-        def block(hh, lp):
-            return hh + L.mamba2_layer(lp["mamba"], cfg,
-                                       L.rms_norm(lp["norm"], hh, eps),
-                                       use_kernel=use_kernel), None
-    else:
-        def block(hh, lp):
+    if cfg.family in ("ssm", "hybrid"):
+        def block(hh, lp, i):
+            hh = hh + L.mamba2_layer(lp["mamba"], cfg,
+                                     L.rms_norm(lp["norm"], hh, eps),
+                                     use_kernel=use_kernel)
+            if _shared_at(cfg, i):
+                hh = _attn_block(params["shared_attn"], cfg, hh, positions,
+                                 use_kernel)[0]
+            return hh, None
+    elif cfg.family == "audio":
+        enc_out = _encode_audio(params, cfg, _frames(cfg, extra),
+                                use_kernel)
+
+        def block(hh, lp, i):
             hh = hh + L.attention(lp["attn"], cfg,
-                                  L.rms_norm(lp["attn_norm"], hh, eps),
+                                  L.layer_norm(lp["attn_norm"], hh, eps),
                                   positions, use_kernel=use_kernel)
-            y, aux = _ffn(lp, cfg, hh)
-            return hh + y, aux
+            hh = hh + _cross(lp, cfg, hh, _cross_kv(lp, cfg, enc_out),
+                             positions, use_kernel)
+            return hh + L.mlp2(lp["mlp"],
+                               L.layer_norm(lp["mlp_norm"], hh, eps)), None
+    else:
+        def block(hh, lp, i):
+            return _attn_block(lp, cfg, hh, positions, use_kernel)
 
     aux_total = h.new_zeros((), dtype=torch.float32)
     for i in range(cfg.n_layers):
         if remat:
             h, aux = checkpoint(
-                lambda hh, i=i: block(hh, layer_params(params, i)), h,
+                lambda hh, i=i: block(hh, layer_params(params, i), i), h,
                 use_reentrant=False)
         else:
-            h, aux = block(h, layer_params(params, i))
+            h, aux = block(h, layer_params(params, i), i)
         if aux is not None:
             aux_total = aux_total + aux
     h = L.rms_norm(params["final_norm"], h, eps)
@@ -197,10 +295,10 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             remat: bool = False, use_kernel: bool = False) -> torch.Tensor:
     """Token-mean cross entropy (z-loss 1e-4) plus the auxiliary loss;
     ``batch`` holds ``tokens`` and ``labels`` (and ``patches`` for the vlm
-    family)."""
+    family, ``frames`` for the audio family)."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           extra={k: v for k, v in batch.items()
-                                 if k == "patches"},
+                                 if k in ("patches", "frames")},
                           remat=remat, use_kernel=use_kernel)
     return L.softmax_xent(logits, batch["labels"], z_loss=1e-4) + aux
 
@@ -217,34 +315,59 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Process a prompt; return (last-token logits [B, vocab], cache).
 
     The cache layout matches ``init_decode_cache(cfg, B, max_seq)`` so
-    :func:`decode_step` continues from it.  ``true_len`` ([B] int32)
-    enables bucketed prefill: ``tokens`` is right-padded to a shared
-    bucket length, logits are gathered at each row's last real token
-    (position 0 for an empty row, which the caller discards), and
-    ``cache["len"]`` becomes the per-row vector.  ``extra`` may hold the
-    vlm family's ``patches`` (as :func:`forward`).  The moe family's pad
-    positions take expert capacity as live tokens do, as in the
-    reference.
+    :func:`decode_step` continues from it: K/V ``[L, B, max_seq, nkv,
+    hd]`` (dense, vlm, moe); each layer's SSM state ``[L, B, H, P, N]``
+    float32 and conv state ``[L, B, W-1, conv_ch]`` (ssm, hybrid); the
+    hybrid family's K/V of its shared block, one block of ``[n_attn, B,
+    max_seq, nkv, hd]`` an application; the audio family's self-attention
+    K/V and its cross-attention K/V ``xk``/``xv`` ``[L, B, n_audio_ctx,
+    nh, hd]``.  ``true_len`` ([B] int32) enables bucketed prefill:
+    ``tokens`` is right-padded to a shared bucket length, logits are
+    gathered at each row's last real token (position 0 for an empty row,
+    which the caller discards), and ``cache["len"]`` becomes the per-row
+    vector (a recurrent family's pads enter its state, which is why it is
+    served per slot).  ``extra`` may hold the vlm family's ``patches``
+    and must hold the audio family's ``frames`` (as :func:`forward`).
+    The moe family's pad positions take expert capacity as live tokens
+    do, as in the reference.  ``use_kernel`` routes attention through the
+    flash kernel and the SSD scan through its kernel (on a card tensor).
     """
-    _require(cfg, "prefill", SERVE_FAMILIES)
     B, S = tokens.shape
     max_seq = max_seq or S
-    dt = torch_dtype(cfg)
     dev = tokens.device
+    eps = cfg.norm_eps
     h = _embed(params, cfg, tokens, extra)
     positions = torch.arange(S, device=dev).expand(B, S)
-    shape = (cfg.n_layers, B, max_seq, cfg.n_kv_heads, cfg.hd)
-    ck = torch.zeros(shape, dtype=dt, device=dev)
-    cv = torch.zeros(shape, dtype=dt, device=dev)
+    cache = init_decode_cache(cfg, B, max_seq, dev)
+    if cfg.family == "audio":
+        enc_out = _encode_audio(params, cfg, _frames(cfg, extra), use_kernel)
+    shared = params.get("shared_attn")
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
-        x = L.rms_norm(lp["attn_norm"], h, cfg.norm_eps)
-        q, k, v = L._qkv(lp["attn"], cfg, x, positions)
+        if cfg.family in ("ssm", "hybrid"):
+            y, cache["ssm"][i], cache["conv"][i] = L.mamba2_prefill(
+                lp["mamba"], cfg, L.rms_norm(lp["norm"], h, eps),
+                use_kernel)
+            h = h + y
+            if not _shared_at(cfg, i):
+                continue
+            lp, c = shared, i // cfg.hybrid.attn_period
+        else:
+            c = i
+        norm = L.layer_norm if cfg.family == "audio" else L.rms_norm
+        q, k, v = L._qkv(lp["attn"], cfg, norm(lp["attn_norm"], h, eps),
+                         positions)
         o = L._attend(cfg, q, k, v, causal=True, use_kernel=use_kernel)
         h = h + o.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-        h = h + _ffn(lp, cfg, h)[0]
-        ck[i, :, :S] = k
-        cv[i, :, :S] = v
+        cache["k"][c, :, :S] = k
+        cache["v"][c, :, :S] = v
+        if cfg.family == "audio":
+            kv = _cross_kv(lp, cfg, enc_out)
+            h = h + _cross(lp, cfg, h, kv, positions, use_kernel)
+            h = h + L.mlp2(lp["mlp"], L.layer_norm(lp["mlp_norm"], h, eps))
+            cache["xk"][i], cache["xv"][i] = kv
+        else:
+            h = h + _ffn(lp, cfg, h)[0]
     if true_len is None:
         length = torch.tensor(S, dtype=torch.int32, device=dev)
         h = h[:, -1:]
@@ -252,8 +375,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         length = torch.as_tensor(true_len, dtype=torch.int32, device=dev)
         idx = (length.long() - 1).clamp(0, S - 1)
         h = h[torch.arange(B, device=dev), idx][:, None]
-    h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
-    return h[:, 0] @ _head(params, cfg), {"len": length, "k": ck, "v": cv}
+    h = L.rms_norm(params["final_norm"], h, eps)
+    cache["len"] = length
+    return h[:, 0] @ _head(params, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -262,17 +386,34 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> dict:
-    """Zero cache for :func:`decode_step`: scalar ``len``, K/V
-    ``[L, batch, max_seq, nkv, hd]``."""
-    _require(cfg, "init_decode_cache", SERVE_FAMILIES)
+    """Zero cache for :func:`decode_step`: scalar ``len`` and the
+    family's leaves as :func:`prefill` describes them."""
     if cfg.kv_quant:
         raise NotImplementedError("the int8 KV cache (kv_quant) is not "
                                   "ported yet")
     dev = torch.device(device)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    return {"len": torch.zeros((), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)}
+    dt = torch_dtype(cfg)
+    Lc, d = cfg.n_layers, cfg.d_model
+    c = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        c["ssm"] = zeros(Lc, batch, s.n_heads(d), s.head_dim, s.d_state,
+                         dtype=torch.float32)
+        c["conv"] = zeros(Lc, batch, s.conv_width - 1,
+                          s.d_inner(d) + 2 * s.n_groups * s.d_state)
+    if cfg.family != "ssm":
+        n_kv = Lc // cfg.hybrid.attn_period if cfg.family == "hybrid" \
+            else Lc
+        c["k"] = zeros(n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        c["v"] = zeros(n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    if cfg.family == "audio":
+        ctx = cfg.encdec.n_audio_ctx
+        c["xk"] = zeros(Lc, batch, ctx, cfg.n_heads, cfg.hd)
+        c["xv"] = zeros(Lc, batch, ctx, cfg.n_heads, cfg.hd)
+    return c
 
 
 @torch.no_grad()
@@ -281,19 +422,43 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     """One new token for every sequence in the batch.
 
     token: [B] int.  Returns (logits [B, vocab], cache'): ``cache``'s K/V
-    are updated in place (each row's new K/V written at its length) and
-    ``cache'`` is a new dict sharing them, with ``len + 1``.
+    (each row's new K/V written at its length) and SSM/conv states are
+    updated in place, and ``cache'`` is a new dict sharing them, with
+    ``len + 1``.  Attention routes by ``cfg.attn_impl``
+    (:func:`repro_torch.models.layers.attention_decode`; a ``[B]`` length
+    always takes the flash-decode kernel).
     """
-    _require(cfg, "decode_step", SERVE_FAMILIES)
+    B = token.shape[0]
+    eps = cfg.norm_eps
     h = params["embed"][token.long()][:, None, :]         # [B, 1, d]
     clen = cache["len"]
+    shared = params.get("shared_attn")
+    zero = torch.zeros((B, 1), dtype=torch.int32, device=h.device)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
+        if cfg.family in ("ssm", "hybrid"):
+            y, st, conv = L.mamba2_decode(
+                lp["mamba"], cfg, L.rms_norm(lp["norm"], h, eps),
+                cache["ssm"][i], cache["conv"][i])
+            cache["ssm"][i], cache["conv"][i] = st, conv
+            h = h + y
+            if not _shared_at(cfg, i):
+                continue
+            lp, c = shared, i // cfg.hybrid.attn_period
+        else:
+            c = i
+        norm = L.layer_norm if cfg.family == "audio" else L.rms_norm
         h = h + L.attention_decode(
-            lp["attn"], cfg, L.rms_norm(lp["attn_norm"], h, cfg.norm_eps),
-            cache["k"][i], cache["v"][i], clen)
-        h = h + _ffn(lp, cfg, h)[0]
-    h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+            lp["attn"], cfg, norm(lp["attn_norm"], h, eps), cache["k"][c],
+            cache["v"][c], clen)
+        if cfg.family == "audio":
+            # positions of zero: the cross-attention's q takes no RoPE
+            h = h + _cross(lp, cfg, h, (cache["xk"][i], cache["xv"][i]),
+                           zero)
+            h = h + L.mlp2(lp["mlp"], L.layer_norm(lp["mlp_norm"], h, eps))
+        else:
+            h = h + _ffn(lp, cfg, h)[0]
+    h = L.rms_norm(params["final_norm"], h, eps)
     return h[:, 0] @ _head(params, cfg), dict(cache, len=clen + 1)
 
 
@@ -395,13 +560,15 @@ def serving_adapter(params: dict, cfg: ModelConfig, *, max_seq: int,
     attention never lets a real token see a later pad, and decode masks
     cache slots >= len; an MoE's pads and dead slots take expert capacity
     as the reference's do).  Serving is text-only: no patches reach a
-    vlm.  Other families raise ``ValueError`` as the reference does.
+    vlm.  The recurrent families (ssm, hybrid) would fold a bucket's pads
+    into their state and the audio family needs its frames: they raise
+    ``ValueError`` as the reference does (ssm and hybrid serve through
+    the engine's per-slot path, :mod:`repro_torch.launch.serve`).
     """
-    if cfg.family not in SERVE_FAMILIES:
+    if cfg.family not in BATCHED_FAMILIES:
         raise ValueError(
             f"batched serving supports the attention-cache families "
-            f"(dense/vlm/moe), not {cfg.family!r}; ssm/hybrid come with "
-            f"per-slot recurrent serving (ROADMAP queue A)")
+            f"(dense/vlm/moe), not {cfg.family!r}; use the per-slot path")
     dev = resolve_device(device)
     if params["embed"].device != dev and not (
             dev.type == "cuda" and params["embed"].is_cuda):

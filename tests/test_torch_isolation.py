@@ -108,6 +108,36 @@ def test_moe_vlm_on_cpu_imports_neither_jax_nor_reference():
     assert _run(MOE_VLM) == {"rcs": [0, 0], "finite": True, "mods": []}
 
 
+RECURRENT_AUDIO = """
+import json, sys, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import serve
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import lm
+rcs = [serve(["--device", "cpu", "--arch", arch, "--requests", "2",
+              "--max-new", "2", "--slots", "2", "--max-seq", "32"])
+       for arch in ("mamba2-130m", "zamba2-1.2b")]
+cfg = get_config("whisper-small").with_reduced(dtype="float32")
+p = lm.init_params(cfg, device="cpu")
+logits, cache = make_prefill_step(cfg, max_seq=16)(p, {
+    "tokens": torch.zeros((1, 12), dtype=torch.int32),
+    "frames": torch.ones((1, cfg.encdec.n_audio_ctx, cfg.d_model))})
+logits, _ = make_decode_step(cfg)(p, logits.argmax(-1), cache)
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"rcs": rcs, "finite": bool(logits.isfinite().all()),
+                  "mods": mods}))
+"""
+
+
+def test_recurrent_audio_on_cpu_imports_neither_jax_nor_reference():
+    """Serving the reduced mamba2 and zamba2 per slot through
+    ``launch.serve --device cpu``, and whisper's prefill and decode step
+    with frames, never import jax, jaxlib or repro."""
+    assert _run(RECURRENT_AUDIO) == {"rcs": [0, 0], "finite": True,
+                                     "mods": []}
+
+
 def test_training_on_cpu_imports_neither_jax_nor_reference():
     """``repro_torch.launch.train --device cpu`` trains the reduced Mamba2
     through the kernels' path and never imports jax, jaxlib or repro."""

@@ -242,29 +242,34 @@ def test_sample_tokens_greedy_and_topk1():
 
 
 def test_non_dense_families_not_ported():
-    """The hybrid family (zamba2) is not ported yet; the moe and vlm
-    families are (``tests/test_torch_moe_vlm.py``)."""
+    """Batched serving is not ported for the non-attention-cache families,
+    nor is it in the reference: the adapter refuses the hybrid family
+    (zamba2, served per slot: ``tests/test_torch_recurrent_audio.py``)
+    and a config's family mismatched with its parameters does not slip
+    through."""
     cfg = get_config("zamba2-1.2b").with_reduced()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.init_params(cfg, device="cpu")
+    lm.init_params(cfg, device="cpu")          # the family is ported
     dense = lm.init_params(get_config("qwen3-0.6b").with_reduced(),
                            device="cpu")
-    with pytest.raises(ValueError, match="dense"):
+    with pytest.raises(ValueError, match="dense.*per-slot"):
         lm.serving_adapter(dense, cfg, max_seq=16, device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        lm.init_params(dataclasses.replace(cfg, family="rnn"), device="cpu")
 
 
 def test_mamba2_serving_not_ported():
-    """Mamba2 trains in the port, but its serving (per-slot recurrent
-    decode) is not ported: prefill, decode and the adapter refuse it."""
+    """Mamba2 serves per slot only (recurrent decode): the batched adapter
+    refuses it, as the reference's does; prefill fills the per-slot
+    cache (states, no K/V) and ``init_decode_cache`` makes its zeros."""
     cfg = get_config("mamba2-130m").with_reduced()
     p = lm.init_params(cfg, device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="dense"):
+    with pytest.raises(ValueError, match="dense.*per-slot"):
         lm.serving_adapter(p, cfg, max_seq=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="'ssm' family"):
-        lm.prefill(p, cfg, tok)
-    with pytest.raises(NotImplementedError, match="'ssm' family"):
-        lm.init_decode_cache(cfg, 1, 16, "cpu")
+    _, cache = lm.prefill(p, cfg, tok, max_seq=16)
+    zero = lm.init_decode_cache(cfg, 1, 16, "cpu")
+    assert set(cache) == set(zero) == {"len", "ssm", "conv"}
+    assert int(cache["len"]) == 4 and cache["ssm"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("attn_impl,causal", [("naive", True),
