@@ -6,6 +6,10 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --only 8,24,25`` builds the kernels and runs
+only those of phases 17, 8, 24 and 25: a development run, with no
+kernels or result line.)
+
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device — the card's name and power limit (``nvidia-smi``), CUDA
@@ -125,7 +129,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each.  Launch counts are zeroed just before the requests and read just
    after: flash attention launched once per layer per prefill call,
    flash-decode once per layer per decode step; no logit NaN.  Then
-   ``repro_torch.launch.serve.serve(["--full"])`` at its defaults.
+   ``repro_torch.launch.serve.serve(["--full", "--no-cache"])`` at its
+   defaults (the eager warmup; phase 24 runs its compiled one).
 9. card vs CPU — Qwen3-0.6B at full width cut to 2 layers, float32, the
    same weights on both devices: bucketed prefill of 4 ragged prompts
    (37-512 tokens) and 8 ragged decode steps, logits within
@@ -193,7 +198,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    hand-written kernel runs here; the programs run inductor's generated
    code), each store under a temporary ``build/codegen_*``, deleted.
    First the ``CODEGEN_WORKERS`` compile processes start, one compile
-   each (their one-time start-up, timed apart).
+   each (their one-time start-up, timed apart); they stay up for phases
+   24-25.
    Gaussian's chain at phase 4's width (``torch_stages``, 6 instances of
    3 definitions): monolithic 6 compiles; hierarchical cold on an empty
    root 3; warm from a fresh ``python`` process on that root 0, every
@@ -213,16 +219,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    hits.  Recorded, not gated: per-definition export, compile and load
    seconds, each mode's wall seconds, monolithic/hierarchical and
    cold/warm ratios, package bytes, each program's run ms (CUDA events).
-18. granite-moe-1b-a400m at full width (24 layers, 32 experts top-8,
-   bf16, random weights from a seed) served as phase 8 serves Qwen3
+18. granite-moe-1b-a400m at full width (32 experts top-8; 12 of its 24
+   layers, ``SERVE_LAYERS``: the script's time limit), bf16,
+   random weights from a seed, served as phase 8 serves Qwen3
    (``SERVE``, ``attn_impl="kernel"``), with phase 8's gates: the
    parameter count equal to ``cfg.param_count()``, ``max_new`` tokens a
    request, no NaN logit, flash launches = layers x prefill calls,
    flash-decode launches = layers x decode steps; tok/s, prefill s, ms a
    decode step and peak GB printed.  Then ``launch.serve --full --arch
    granite-moe-1b-a400m`` at its defaults (flash-decode at every layer).
-19. phi-3-vision-4.2b at full width (32 layers, MHA 32 heads of 96) the
-   same way, then one bf16 prefill of a ``VLM_PROMPT``-token prompt with
+19. phi-3-vision-4.2b at full width (MHA 32 heads of 96; 16 of its 32
+   layers, ``SERVE_LAYERS``) the same way, then one bf16 prefill of a ``VLM_PROMPT``-token prompt with
    576 random patches: finite logits that the patches move, flash once a
    layer; then its ``launch.serve --full``.
 20. card vs CPU, as phase 9, for both models at 2 float32 layers of full
@@ -233,15 +240,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    reported, and its row (and any row whose kept copies it displaced) is
    left out of the logit comparison from then on; any other difference
    fails.
-21. mamba2-130m (24 layers) and zamba2-1.2b (38 layers, the shared
-   block after every 6th) at full width, bf16, random weights from a
-   seed, through the per-slot engine ``launch.serve`` builds for them
+21. mamba2-130m and zamba2-1.2b (the shared block after every 6th) at
+   full width, 12 layers each (of 24 and 38, ``SERVE_LAYERS``), bf16, random weights from a seed, through the per-slot engine ``launch.serve`` builds for them
    (``per_slot_engine``: the SSD scan, flash and flash-decode kernels) at
    ``SERVE``'s recipe: every request ok with ``max_new`` tokens (the
    per-slot path quarantines a request whose step raises, so an error
    fails here), no NaN logit, the parameter count equal to the leaves,
-   SSD launches = layers x prefill calls, flash = 6 x prefill calls and
-   flash-decode = 6 x decode calls (zamba2; none for mamba2); tok/s,
+   SSD launches = layers x prefill calls, flash = 2 x prefill calls and
+   flash-decode = 2 x decode calls (zamba2; none for mamba2); tok/s,
    prefill s, ms a decode call and peak GB printed.  Then each model's
    ``launch.serve --full`` at its defaults: rc 0 and ``mode=per-slot``.
 22. whisper-small at full width (12 + 12 layers, d 768, bf16, frames
@@ -257,6 +263,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    chunks), 8 decode steps each: logits, and the SSM and conv states
    after prefill, within ``LOGIT_REL_TOL`` of their largest magnitude,
    greedy tokens equal, the card's launches those of the path.
+24. serving compiled — Qwen3-0.6B at full width and depth (bf16, phase
+   8's weights, 8 slots of 2048) through the serving engine's compiled
+   steps: ``warmup(cache=...)`` into an empty compile cache under a
+   temporary ``build/serve_cache_*`` (deleted) at batch sizes 1, 2, 4
+   and 8 and phase 8's buckets: the prefill (one AOTInductor package for
+   every batch size and bucket), the decode step, the slot write and
+   the retire, all ``"compiled"``, their package bytes and export,
+   compile and load seconds and the warmup's wall seconds printed; the
+   kernels run inside the packages as operators (``repro_torch::
+   flash_attention_fwd`` ...), each launch counted by its wrapper, which
+   the package calls back.  Phase 8's 16 requests through the compiled
+   steps: every request ``max_new`` tokens, flash 28 launches a prefill
+   call, flash-decode 28 a decode step; tok/s and ms a step; the greedy
+   tokens' agreement with phase 8's eager run (printed).  Then the warm
+   half, ``chip_smoke.py --warm-serve`` in a fresh process on the same
+   store, warming up as ``launch.serve`` does (``default_cache()``): no
+   executable compiled, its warmup seconds, one wave of the requests
+   (its tokens against the cold process's, printed), the decode step
+   alone on that wave under the profiler (28 ``decode_partial_kernel``
+   a step, kernels and device ms a step) and one compiled prefill (28
+   ``flash_wgmma_kernel``): the main process's profiler, after phases
+   10-15's sessions, missed 3 kernel records a session.
+25. compiled card vs CPU — Qwen3-0.6B at full width cut to 2 layers,
+   float32, kv_quant off and on: the compiled prefill, slot write and
+   decode step against the same graphs run eagerly on the card and on
+   the CPU, 4 ragged prompts and 8 decode steps, logits within
+   ``LOGIT_REL_TOL`` and greedy tokens equal (flash-decode 16 launches a
+   path with kv_quant off, none with it on: the int8 cache's decode is
+   ``sdpa`` over the dequantized cache, as in the reference; with it on,
+   the card's int8 caches are set to the CPU's before each step, and
+   the codes that differed are counted); mamba2-130m at 2 float32 layers
+   per slot through the cache: prefill and decode compiled, the eager
+   per-slot engine's tokens, no fall-off, the SSD kernel in the profile
+   of the compiled prefill.  The three engines warm up together (one
+   export at a time, the packages side by side in the compile processes
+   phase 17 started, which this phase stops).
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -1962,6 +2004,17 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _serve_requests(cfg) -> list:
+    """``SERVE``'s requests for ``cfg``: prompts of random lengths and
+    tokens from ``SERVE["seed"]``, ``max_new`` new tokens each."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SERVE["seed"])
+    lo, hi = SERVE["prompt"]
+    plens = rng.integers(lo, hi + 1, SERVE["requests"])
+    return [Request(i, rng.integers(0, cfg.vocab, int(n)).tolist(),
+                    max_new=SERVE["max_new"]) for i, n in enumerate(plens)]
+
+
 def serving_phase(arch: str = ARCH):
     """Phase 8 (and 18, 19 and 21 at their models): ``arch`` at full width
     served at ``SERVE`` with ``attn_impl="kernel"``: through
@@ -1974,13 +2027,12 @@ def serving_phase(arch: str = ARCH):
     flash-decode once one a decode call and the SSD kernel once a Mamba2
     layer a prefill call.  Returns (report, engine, requests, call stats,
     parameters)."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.launch.serve import per_slot_engine
     from repro_torch.models import lm
     from repro_torch.serve import (Request, ServeConfig, ServingEngine,
                                    serve_requests)
-    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
+    cfg = _serve_cfg(arch)
     per_slot = cfg.family in lm.PER_SLOT_FAMILIES
     # what earlier phases left allocated: the peak below is this phase's
     # own (weights, caches, activations) above it
@@ -2012,11 +2064,8 @@ def serving_phase(arch: str = ARCH):
     warm_s = time.perf_counter() - t0
     if not info["ok"]:
         raise AssertionError(f"serving warmup failed: {info}")
-    rng = np.random.default_rng(SERVE["seed"])
-    lo, hi = SERVE["prompt"]
-    plens = rng.integers(lo, hi + 1, SERVE["requests"])
-    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).tolist(),
-                    max_new=SERVE["max_new"]) for i, n in enumerate(plens)]
+    reqs = _serve_requests(cfg)
+    plens = np.array([len(r.prompt) for r in reqs])
 
     nan, restore = _watch_nan(lm)
     stats.reset()
@@ -2060,7 +2109,8 @@ def serving_phase(arch: str = ARCH):
         prefill_calls=n_prefill, prefill_s=stats.s["prefill"],
         decode_steps=n_decode, decode_s=stats.s["decode"],
         decode_ms_per_step=stats.s["decode"] / n_decode * 1e3,
-        launches=counts, peak_gb=peak_gb, base_gb=base / 1e9)
+        launches=counts, peak_gb=peak_gb, base_gb=base / 1e9,
+        token_lists={r.rid: res[r.rid] for r in reqs})
     log(f"serve {arch} ({mode}): {n_params} params {cfg.dtype}, init "
         f"{init_s:.2f} s, warmup {warm_s:.2f} s; {len(reqs)} requests "
         f"({int(plens.sum())} prompt tokens) -> {n_tok} tokens in "
@@ -2160,6 +2210,12 @@ class _OpCount:
         return self._mode.__exit__(*exc)
 
 
+def _dev32(x) -> torch.Tensor:
+    """A host value as an int32 tensor on the card (what the serving
+    engine hands a step function)."""
+    return torch.from_numpy(np.asarray(x, np.int32)).to(DEV)
+
+
 def _decode_loop(adapter, wave: list, steps: int = 32) -> dict:
     """The adapter's decode step alone, ``steps`` times on a packed cache
     whose slots hold ``wave``'s prompts, as the serving loop calls it (one
@@ -2171,22 +2227,23 @@ def _decode_loop(adapter, wave: list, steps: int = 32) -> dict:
     for i, r in enumerate(wave):
         toks[i, :len(r.prompt)] = r.prompt
     packed = adapter.init_slots(n)
-    first, cache = adapter.prefill_fn(toks, lens, 0)
+    first, cache = adapter.prefill_fn(_dev32(toks), _dev32(lens), _dev32(0))
     for i in range(n):
-        packed = adapter.write_slot_fn(packed, cache, i, i)
+        packed = adapter.write_slot_fn(packed, cache, _dev32(i), _dev32(i))
     del cache
     tok = first.cpu().numpy()
     for s in range(2):                       # warm
-        nxt, packed = adapter.step_fn(tok, packed, s)
+        nxt, packed = adapter.step_fn(_dev32(tok), packed, _dev32(s))
         tok = nxt.cpu().numpy()
     with _OpCount() as ops:                  # what one step dispatches
-        nxt, packed = adapter.step_fn(tok, packed, 2)
+        nxt, packed = adapter.step_fn(_dev32(tok), packed, _dev32(2))
     tok = nxt.cpu().numpy()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for s in range(steps):
-            nxt, packed = adapter.step_fn(tok, packed, s)
+            # as the engine moves them: tokens and step to the card
+            nxt, packed = adapter.step_fn(_dev32(tok), packed, _dev32(s))
             tok = nxt.cpu().numpy()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2280,8 +2337,10 @@ def _attn_apps(cfg) -> int:
 
 
 def cli_phase(arch: str = ARCH) -> dict:
-    """``python -m repro_torch.launch.serve --full --arch arch`` at its
-    defaults, in this process (its output goes to this script's): rc 0,
+    """``python -m repro_torch.launch.serve --full --arch arch
+    --no-cache`` (the eager warmup, as in PRs 12-22; its compiled warmup
+    is phase 24's warm half) at its defaults, in this process (its output
+    goes to this script's): rc 0,
     the mode its family takes (batched, or per-slot for ssm and hybrid),
     its decode steps through the flash-decode kernel at every attention
     application of every step, and its prefills through the SSD kernel
@@ -2299,7 +2358,9 @@ def cli_phase(arch: str = ARCH) -> dict:
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        rc = serve(["--full", "--arch", arch])
+        # --no-cache: the eager warmup these runs have always had (the
+        # compiled path is phase 24's, whose warm half is launch.serve)
+        rc = serve(["--full", "--arch", arch, "--no-cache"])
     wall = time.perf_counter() - t0
     counts = launch_counts()
     if rc != 0 or f"mode={mode}" not in tee.text():
@@ -3643,10 +3704,10 @@ def _codegen_workers(tmp: Path) -> dict:
 def codegen_phase() -> dict:
     """Phase 17: hierarchical code generation on the card (AOTInductor
     packages through the compile cache, roots under a temporary
-    ``build/codegen_*``, deleted; the compile processes stopped)."""
+    ``build/codegen_*``, deleted).  Its compile processes stay up for
+    phases 24-25, which stop them: their start-up is paid once."""
     import shutil
     import tempfile
-    from repro_torch.core.compile_cache import shutdown_workers
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="codegen_", dir=ROOT / "build"))
     out = {}
@@ -3661,7 +3722,6 @@ def codegen_phase() -> dict:
             out[name]["phase_s"] = time.perf_counter() - t0
             log(f"codegen {name}: {out[name]['phase_s']:.1f} s")
     finally:
-        shutdown_workers()
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -3671,6 +3731,24 @@ def codegen_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 FAMILY_ARCHS = ("granite-moe-1b-a400m", "phi-3-vision-4.2b")
+# phases 18, 19 and 21 at full width and a cut depth (the script's time
+# limit, with phases 24-25 added; the decode steps are host-bound,
+# so their ms scale with the layers): granite 24 -> 12, phi-3 32 -> 16,
+# mamba2 24 -> 12, zamba2 38 -> 12 (its shared block twice, both cache
+# blocks); each command line (launch.serve --full) keeps full depth
+SERVE_LAYERS = {"granite-moe-1b-a400m": 12, "phi-3-vision-4.2b": 16,
+                "mamba2-130m": 12, "zamba2-1.2b": 12}
+
+
+def _serve_cfg(arch: str):
+    """``arch`` as phases 8, 18, 19 and 21 serve it: full width, flash
+    attention, at ``SERVE_LAYERS``' depth where it names one."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
+    return dataclasses.replace(cfg, n_layers=SERVE_LAYERS.get(
+        arch, cfg.n_layers))
+
+
 VLM_PROMPT = 1024           # tokens of phase 19's prefill with patches
 
 
@@ -3712,13 +3790,13 @@ def _patch_prefill(params, cfg) -> dict:
 
 def family_serving(arch: str) -> dict:
     """Phases 18 (granite-moe-1b-a400m), 19 (phi-3-vision-4.2b) and 21
-    (mamba2-130m, zamba2-1.2b, per slot): the model at full width served
-    at ``SERVE`` through the port's entry points, with phase 8's gates;
+    (mamba2-130m, zamba2-1.2b, per slot): the model at full width
+    (``SERVE_LAYERS``' depth) served at ``SERVE`` through the port's entry
+    points, with phase 8's gates;
     the vlm's prefill with patches; then ``launch.serve --full --arch
     arch``."""
-    from repro_torch.configs import get_config
     report, eng, reqs, stats, params = serving_phase(arch)
-    cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
+    cfg = _serve_cfg(arch)
     if cfg.vlm is not None:
         report["patch_prefill"] = _patch_prefill(params, cfg)
     del eng, reqs, stats, params
@@ -3927,6 +4005,599 @@ def family_vs_cpu(arch: str) -> dict:
                 steps=steps, max_rel_err=worst, launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# phases 24-25: the serving engine's compiled steps through the compile
+# cache
+# ---------------------------------------------------------------------------
+
+COMPILED_BATCH_SIZES = (1, 2, 4, 8)
+COMPILED_STEPS = 16         # decode steps profiled alone
+# phase 25: Qwen3 at 2 float32 layers, 4 ragged prompts in a 512 bucket,
+# 8 decode steps; mamba2 at 2 float32 layers per slot, prompts of
+# COMPILED_PROMPT tokens (the compiled prefill's) and one other
+COMPILED_PROMPT = 300
+MAMBA_CPU_ARCH = "mamba2-130m"
+
+
+def _exe_report(eng) -> dict:
+    """Each compiled executable of an engine: its package bytes and its
+    export, compile and load seconds."""
+    return {kind: dict(bytes=len(exe.payload), kind=exe.kind,
+                       **{k: round(v, 3) for k, v in exe.timing.items()})
+            for kind, exe in eng.executables.items()}
+
+
+def _device_kernels(prof) -> tuple[int, float]:
+    """Kernel launches and their device microseconds in a profile (copies
+    and memsets left out)."""
+    n, us = 0, 0.0
+    for e in prof.key_averages():
+        t = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        if t > 0 and not e.key.startswith(("Memcpy", "Memset")):
+            n, us = n + e.count, us + t
+    return n, us
+
+
+def _agreement(got: dict, want: dict) -> dict:
+    """Greedy tokens of two runs of the same requests: requests whose
+    tokens are all equal, and positions equal up to each request's first
+    difference."""
+    same = [rid for rid in want if got.get(rid) == want[rid]]
+    prefix = total = 0
+    for rid, w in want.items():
+        g = got.get(rid, [])
+        k = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        prefix, total = prefix + k, total + len(w)
+    return dict(requests_equal=len(same), requests=len(want),
+                tokens_before_first_difference=prefix, tokens=total)
+
+
+def compiled_serving_phase(eager_tokens: dict | None) -> dict:
+    """Phase 24: Qwen3-0.6B at full width and depth (bf16, phase 8's
+    weights and requests) served through the engine's compiled steps:
+    ``warmup(cache=...)`` into an empty store under a temporary
+    ``build/serve_cache_*`` (deleted) at batch sizes
+    ``COMPILED_BATCH_SIZES`` and phase 8's buckets — every (batch size,
+    bucket) and the decode step ``"compiled"`` — then phase 8's 16
+    requests (every request ``max_new`` tokens; flash once a layer a
+    prefill call and flash-decode once a layer a step, counted by the
+    wrappers the packages call back); the greedy tokens' agreement with
+    phase 8's eager run (printed, not gated: the compiled program rounds
+    bf16 at other places); then the warm half in a fresh process on the
+    same store (:func:`warm_serving`): no executable ``"compiled"``, its
+    warmup seconds, one wave, and the decode step alone under the
+    profiler (every flash-decode launch a ``decode_partial_kernel``: 28
+    a step; kernels and device ms a step) and one compiled prefill (28
+    ``flash_wgmma_kernel``)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServingEngine, serve_requests
+    cfg = dataclasses.replace(get_config(ARCH), attn_impl="kernel")
+    params = lm.init_params(cfg, SERVE["seed"])        # phase 8's
+    scfg = ServeConfig(batch_slots=SERVE["slots"], max_seq=SERVE["max_seq"])
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="serve_cache_", dir=ROOT / "build"))
+    try:
+        eng = ServingEngine(scfg, batched=lm.serving_adapter(
+            params, cfg, max_seq=SERVE["max_seq"]))
+        from repro_torch.core import compile_cache
+        up = sum(w.proc.poll() is None for w in compile_cache._workers)
+        t0 = time.perf_counter()
+        info = eng.warmup(cache=CompileCache(root=root, max_bytes=8 << 30),
+                          batch_sizes=COMPILED_BATCH_SIZES)
+        warm_s = time.perf_counter() - t0
+        if not info["ok"]:
+            raise AssertionError(f"compiled warmup failed: {info}")
+        sources = {s for _, _, s in eng.compile_log}
+        if sources != {"compiled"} or info["decode"] != "compiled":
+            raise AssertionError(f"cold warmup sources {sources}: {info}")
+        exes = _exe_report(eng)
+        log(f"compiled serve: cold warmup {warm_s:.1f} s into an empty "
+            f"store ({up} compile processes already up, from phase 17), "
+            f"{len(info['buckets'])} (batch size, bucket) prefills "
+            f"and the decode step all compiled; executables "
+            + "; ".join(f"{k} {v['bytes'] / 1e6:.2f} MB export "
+                        f"{v['export_s']:.1f} s compile {v['compile_s']:.1f}"
+                        f" s load {v['load_s']:.2f} s"
+                        for k, v in exes.items()))
+
+        reqs = _serve_requests(cfg)                    # phase 8's
+        stats = _CallStats()
+        for key, fn in list(eng._exe.items()):
+            if key[0] in ("prefill", "step"):
+                eng._exe[key] = stats.wrap(
+                    "prefill" if key[0] == "prefill" else "decode", fn)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = serve_requests(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        bad = {r.rid: res.get(r.rid) for r in reqs
+               if not (isinstance(res.get(r.rid), list)
+                       and len(res[r.rid]) == SERVE["max_new"])}
+        n_pre, n_dec = stats.n["prefill"], stats.n["decode"]
+        want = {"flash_attention": cfg.n_layers * n_pre,
+                "decode_attention": cfg.n_layers * n_dec}
+        if bad or n_pre == 0 or n_dec == 0 or any(
+                counts.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError(f"compiled serve: requests not ok {bad}; "
+                                 f"launches {counts} in {n_pre} prefill and "
+                                 f"{n_dec} decode calls, expected {want}")
+        n_tok = sum(len(v) for v in res.values())
+        tokens = {r.rid: res[r.rid] for r in reqs}
+        agree = _agreement(tokens, eager_tokens) if eager_tokens else None
+        log(f"compiled serve: {len(reqs)} requests -> {n_tok} tokens in "
+            f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); prefill {n_pre} "
+            f"calls {stats.s['prefill']:.3f} s, decode {n_dec} steps "
+            f"{stats.s['decode'] / n_dec * 1e3:.2f} ms a step; launches "
+            f"{counts}; greedy tokens against phase 8's eager run: "
+            + (f"{agree['requests_equal']} of {agree['requests']} requests "
+               f"equal, {agree['tokens_before_first_difference']} of "
+               f"{agree['tokens']} tokens before a request's first "
+               f"difference" if agree else "phase 8 not run"))
+        del eng
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--warm-serve"],
+            capture_output=True, text=True, timeout=900,
+            env={**os.environ, "REPRO_TORCH_COMPILE_CACHE": str(root),
+                 "REPRO_TORCH_COMPILE_CACHE_MAX_MB": "8192"})
+        warm_proc_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"warm serving process (rc {r.returncode})"
+                                 f":\n{r.stdout[-2000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        warm = json.loads(r.stdout.strip().splitlines()[-1])
+        warm["process_s"] = warm_proc_s
+        same = [rid for rid, t in warm.pop("token_lists").items()
+                if t == tokens[int(rid)]]
+        warm["wave_tokens_equal_cold"] = len(same)
+        st = warm["step_alone"]
+        log(f"compiled serve, warm process (a fresh python on the same "
+            f"store): warmup {warm['warmup_s']:.2f} s, sources "
+            f"{sorted(set(warm['sources']))}; one wave of "
+            f"{warm['requests']} requests in {warm['wall_s']:.3f} s "
+            f"({warm['tok_per_s']:.1f} tok/s), {len(same)} of them with "
+            f"the cold process's tokens; the decode step alone "
+            f"{st['host_ms_per_step']:.3f} ms, device "
+            f"{st['device_ms_per_step']:.3f} ms ({st['busy_share']:.1%}), "
+            f"{st['kernels_per_step']} kernels (28 decode_partial_kernel, "
+            f"{st['decode_partial_per_launch_us']:.2f} us a launch); a "
+            f"1024-token prefill {st['prefill_1024']['device_ms']:.3f} ms "
+            f"device, {st['prefill_1024']['kernels']} kernels (28 "
+            f"flash_wgmma_kernel, "
+            f"{st['prefill_1024']['flash_per_launch_us']:.2f} us a "
+            f"launch); process {warm_proc_s:.1f} s")
+        return dict(
+            arch=ARCH, layers=cfg.n_layers, dtype=cfg.dtype,
+            batch_sizes=COMPILED_BATCH_SIZES, buckets=list(info["buckets"]),
+            cold_warmup_s=warm_s, compile_processes_up=up, sources=info,
+            executables=exes, wall_s=wall, tokens_out=n_tok,
+            tok_per_s=n_tok / wall, prefill_calls=n_pre,
+            prefill_s=stats.s["prefill"], decode_steps=n_dec,
+            decode_s=stats.s["decode"],
+            decode_ms_per_step=stats.s["decode"] / n_dec * 1e3,
+            launches=counts, agreement_with_eager=agree,
+            step_alone=warm["step_alone"], warm_process=warm,
+            token_lists=tokens)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def warm_serving() -> dict:
+    """Phase 24's warm half, run as ``chip_smoke.py --warm-serve`` in a
+    fresh process on phase 24's store (``$REPRO_TORCH_COMPILE_CACHE``):
+    phase 24's engine warmed up through ``default_cache()``, as
+    ``launch.serve`` warms up (no executable ``"compiled"``), one wave of
+    phase 8's requests through the compiled steps, then
+    :func:`_compiled_step_profile` (a fresh process: the profiler there
+    has seen no earlier session; in the long main process it missed 3
+    kernel records of each one).  Returns what it measured."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_cache import default_cache
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServingEngine, serve_requests
+    cfg = dataclasses.replace(get_config(ARCH), attn_impl="kernel")
+    params = lm.init_params(cfg, SERVE["seed"])
+    eng = ServingEngine(
+        ServeConfig(batch_slots=SERVE["slots"], max_seq=SERVE["max_seq"]),
+        batched=lm.serving_adapter(params, cfg, max_seq=SERVE["max_seq"]))
+    t0 = time.perf_counter()
+    info = eng.warmup(cache=default_cache(), batch_sizes=COMPILED_BATCH_SIZES)
+    warm_s = time.perf_counter() - t0
+    sources = [s for _, _, s in eng.compile_log]
+    if not info["ok"] or "compiled" in sources:
+        raise AssertionError(f"warm process: {info}")
+    wave = _serve_requests(cfg)[:SERVE["slots"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serve_requests(eng, wave)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(v) for v in res.values())
+    if n_tok != SERVE["max_new"] * len(wave):
+        raise AssertionError(f"warm process: tokens {res}")
+    return dict(warmup_s=warm_s, sources=sources, requests=len(wave),
+                wall_s=wall, tok_per_s=n_tok / wall,
+                token_lists={r.rid: res[r.rid] for r in wave},
+                step_alone=_compiled_step_profile(eng, wave, cfg))
+
+
+def _compiled_step_profile(eng, wave: list, cfg) -> dict:
+    """The engine's compiled decode step alone on a packed cache holding
+    ``wave`` (written by the compiled prefill and slot write), as the
+    serving loop calls it (tokens to the card and back a step):
+    ``COMPILED_STEPS`` steps timed, then one under the profiler (kernels
+    launched and device ms a step, each flash-decode launch one
+    ``decode_partial_kernel``); then one compiled prefill of a
+    1024-token prompt: one ``flash_wgmma_kernel`` a layer."""
+    n, bucket = len(wave), SERVE["max_seq"]
+    pre = eng._compiled["prefill"][0]
+    step = eng._compiled["decode_step"][0]
+    write = eng._compiled["write_slot"][0]
+    toks = np.zeros((n, bucket), np.int32)
+    lens = np.array([len(r.prompt) for r in wave], np.int32)
+    for i, r in enumerate(wave):
+        toks[i, :len(r.prompt)] = r.prompt
+    packed = eng.batched.init_slots(n)
+    first, cache = pre(_dev32(toks), _dev32(lens), _dev32(0))
+    for i in range(n):
+        write(packed, cache, _dev32(i), _dev32(i))
+    del cache
+    tok = first.cpu().numpy()
+
+    def step_once(s: int) -> None:
+        nonlocal tok
+        nxt, _ = step(_dev32(tok), packed, _dev32(s))
+        tok = nxt.cpu().numpy()
+
+    for s in range(2):                      # warm
+        step_once(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(COMPILED_STEPS):
+        step_once(s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def run():
+        step_once(0)
+        torch.cuda.synchronize()
+
+    def check(prof, _):
+        _, kern = _device_times(prof)
+        _check_decode_route(kern, cfg.n_layers, "compiled decode step")
+        return kern, _device_kernels(prof)
+
+    # one step under the profiler (a long profile loses records on this
+    # card now and then), the steps above timed without it
+    _, _, (kern, (n_kern, us)) = _profiled(run, check,
+                                          "compiled decode step")
+    one = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, 1024)).astype(np.int32))
+
+    def run_prefill():
+        return pre(one.to(DEV), _dev32([1024]), _dev32(0))
+
+    def check_prefill(prof, out):
+        _, k = _device_times(prof)
+        _check_flash_route(k, cfg.n_layers, "compiled prefill")
+        return k, _device_kernels(prof)
+
+    _, _, (pkern, (p_n, p_us)) = _profiled(run_prefill, check_prefill,
+                                           "compiled prefill")
+    host_ms = wall / COMPILED_STEPS * 1e3
+    out = dict(
+        steps=COMPILED_STEPS, slots=n, host_ms_per_step=host_ms,
+        device_ms_per_step=us / 1e3, kernels_per_step=n_kern,
+        busy_share=us / 1e3 / host_ms if us else None,
+        decode_partial_per_launch_us=kern["decode_attention"][1]
+        / kern["decode_attention"][0],
+        prefill_1024=dict(kernels=p_n, device_ms=p_us / 1e3,
+                          flash_per_launch_us=pkern["flash_attention"][1]
+                          / pkern["flash_attention"][0]))
+    log(f"compiled decode step alone ({n} slots, {COMPILED_STEPS} steps "
+        f"timed, one profiled): {out['host_ms_per_step']:.3f} ms a step, "
+        f"device {out['device_ms_per_step']:.3f} ms "
+        f"({out['busy_share']:.1%}), {out['kernels_per_step']} kernels a "
+        f"step, flash-decode "
+        f"{out['decode_partial_per_launch_us']:.2f} us device a launch; "
+        f"compiled prefill of 1024 tokens: {p_n} kernels, "
+        f"{p_us / 1e3:.3f} ms device, flash "
+        f"{out['prefill_1024']['flash_per_launch_us']:.2f} us a launch")
+    return out
+
+
+def _qwen_case(kv_quant: bool, root: Path) -> dict:
+    """Phase 25's Qwen3 case: full width cut to 2 layers, float32, the
+    same weights on the card and the CPU, an adapter on each (sampling:
+    its graphs return logits) and the card's engine, with the warmup
+    through the compile cache (``warm``) still to run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32",
+                              attn_impl="kernel", kv_quant=kv_quant)
+    p_cpu = lm.init_params(cfg, 1, device="cpu")
+
+    def to_card(t):
+        return {k: to_card(v) for k, v in t.items()} \
+            if isinstance(t, dict) else t.to(DEV)
+    p_card = to_card(p_cpu)
+    n, bucket, max_seq = 4, 512, 1024
+    ad = {dev: lm.serving_adapter(p, cfg, max_seq=max_seq, temperature=1.0,
+                                  device=dev)
+          for dev, p in (("cpu", p_cpu), (DEV, p_card))}
+    eng = ServingEngine(ServeConfig(batch_slots=n, max_seq=max_seq,
+                                    prefill_buckets=(bucket,)),
+                        batched=ad[DEV])
+    cc = CompileCache(root=root / f"qwen_kvq{int(kv_quant)}")
+    return dict(kind="qwen", kv_quant=kv_quant, cfg=cfg, n=n, bucket=bucket,
+                par={"compiled": p_card, "eager": p_card, "cpu": p_cpu},
+                ad=ad, eng=eng,
+                warm=lambda: eng.warmup(cache=cc, batch_sizes=(n,)))
+
+
+def _qwen_check(case: dict, info: dict, warm_s: float) -> dict:
+    """Phase 25, Qwen3: the engine's compiled prefill, slot write and
+    decode step against the same graphs run eagerly on the card and on
+    the CPU: 4 ragged prompts in a 512 bucket, then 8 decode steps on
+    the CPU's greedy tokens; logits within ``LOGIT_REL_TOL`` of their
+    largest magnitude and greedy tokens equal, compiled and eager card
+    each against the CPU.  With kv_quant the card's caches are set to
+    the CPU's int8 cache before each step (``resync``), and the codes
+    that differed are counted."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    kv_quant, cfg, eng, ad = (case[k] for k in ("kv_quant", "cfg", "eng",
+                                                "ad"))
+    n, bucket, par = case["n"], case["bucket"], case["par"]
+    if not info["ok"] or {s for _, _, s in eng.compile_log} != {"compiled"}:
+        raise AssertionError(f"compiled warmup (kv_quant={kv_quant}): "
+                             f"{info}")
+    exe = eng.executables
+    rng = np.random.default_rng(3)
+    lens = np.array([37, 512, *rng.integers(38, 512, 2)], np.int32)
+    toks = np.zeros((n, bucket), np.int32)
+    for i, k in enumerate(lens):
+        toks[i, :k] = rng.integers(0, cfg.vocab, k)
+    paths = ("compiled", "eager", "cpu")
+    dev_of = {"compiled": DEV, "eager": DEV, "cpu": "cpu"}
+
+    def t32(x, dev):
+        return torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+
+    reset_launches()
+    logits, packed = {}, {}
+    for pth in paths:
+        dev = dev_of[pth]
+        args = (par[pth], t32(toks, dev), t32(lens, dev), t32(0, dev))
+        logits[pth], cache = exe["prefill"](*args) if pth == "compiled" \
+            else ad[dev].prefill_graph(*args)
+        packed[pth] = ad[dev].init_slots(n)
+        for i in range(n):
+            if pth == "compiled":
+                exe["write_slot"](packed[pth], cache, t32(i, dev),
+                                  t32(i, dev))
+            else:
+                lm.write_slot(packed[pth], cache, t32(i, dev), t32(i, dev))
+    steps = []
+    flips = {"compiled": 0, "eager": 0}
+
+    def resync() -> None:
+        """kv_quant: the card's packed caches take the CPU's (int8 codes
+        and fp16 scales) before a step, so the three paths decode from
+        one cache: a float difference of ~1e-7 moves a value across a
+        rounding boundary now and then, and its code by one step, ~1% of
+        that row's largest magnitude (counted, float-class)."""
+        for pth in flips:
+            for key in ("k", "v"):
+                flips[pth] += int((packed[pth][key].cpu()
+                                   != packed["cpu"][key]).sum())
+            for key, t in packed["cpu"].items():
+                packed[pth][key].copy_(t)
+
+    def compare(what: str) -> torch.Tensor:
+        want = logits["cpu"].double()
+        row = dict(what=what)
+        for pth in ("compiled", "eager"):
+            got = logits[pth].cpu().double()
+            rel = float((got - want).abs().max() / want.abs().max())
+            equal = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+            row[pth] = dict(rel_err=rel, greedy_equal=equal)
+            if rel > LOGIT_REL_TOL or not equal:
+                raise AssertionError(
+                    f"compiled vs CPU (kv_quant={kv_quant}) at {what}: "
+                    f"{pth} rel {rel:.3e} (limit {LOGIT_REL_TOL:g}), greedy "
+                    f"equal {equal}")
+        row["compiled_vs_eager"] = float(
+            (logits["compiled"] - logits["eager"]).abs().max().cpu()
+            / logits["eager"].abs().max().cpu())
+        steps.append(row)
+        return logits["cpu"].argmax(-1).to(torch.int32)
+
+    tok = compare("prefill")
+    for s in range(8):
+        if kv_quant:
+            resync()
+        for pth in paths:
+            dev = dev_of[pth]
+            args = (par[pth], tok.to(dev), packed[pth], t32(s + 1, dev))
+            logits[pth] = exe["decode_step"](*args) if pth == "compiled" \
+                else ad[dev].step_graph(*args)
+        tok = compare(f"decode {s}")
+    counts = launch_counts()
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "decode_attention": 0 if kv_quant else 2 * 8 * cfg.n_layers}
+    if any(counts.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"compiled vs CPU (kv_quant={kv_quant}): "
+                             f"launches {counts}, expected {want}")
+    worst = {pth: max(r[pth]["rel_err"] for r in steps)
+             for pth in ("compiled", "eager")}
+    log(f"compiled vs cpu: {ARCH} at 2 float32 layers, kv_quant={kv_quant}, "
+        f"prompts {lens.tolist()} + 8 ragged decode steps through the "
+        f"compiled prefill, slot write and step ({warm_s:.1f} s to warm "
+        f"up): compiled within {worst['compiled']:.2e}, eager card within "
+        f"{worst['eager']:.2e} of max |cpu logit| (limit "
+        f"{LOGIT_REL_TOL:g}), greedy tokens equal; compiled vs eager "
+        f"{max(r['compiled_vs_eager'] for r in steps):.2e}; launches "
+        f"{counts}" + (f"; int8 codes that differed from the CPU's before "
+                       f"a step's resync: {flips}" if kv_quant else ""))
+    return dict(kv_quant=kv_quant, layers=cfg.n_layers, code_flips=flips,
+                prompt_lens=lens.tolist(), warmup_s=warm_s,
+                executables=_exe_report(eng), steps=steps,
+                max_rel_err=worst, launches=counts)
+
+
+def _mamba2_case(root: Path) -> dict:
+    """Phase 25's mamba2-130m case: full width cut to 2 float32 layers,
+    per slot (``launch.serve``'s ``per_slot_engine``): the eager engine's
+    tokens for 4 requests of ``COMPILED_PROMPT`` tokens (the compiled
+    prefill's shape) and one of 37, and a second engine whose warmup
+    through the compile cache (``warm``) is still to run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.launch.serve import per_slot_engine
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeConfig, serve_requests
+    cfg = dataclasses.replace(get_config(MAMBA_CPU_ARCH), n_layers=2,
+                              dtype="float32")
+    params = lm.init_params(cfg, 1)
+    scfg = ServeConfig(batch_slots=2, max_seq=COMPILED_PROMPT + 16)
+    rng = np.random.default_rng(4)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, k).tolist(), max_new=8)
+            for i, k in enumerate([COMPILED_PROMPT] * 4 + [37])]
+    eager = per_slot_engine(params, cfg, scfg, torch.device(DEV))
+    eager.warmup()
+    want = serve_requests(eager, reqs)
+    eng = per_slot_engine(params, cfg, scfg, torch.device(DEV))
+    cc = CompileCache(root=root / "mamba2")
+    return dict(kind="mamba2", cfg=cfg, reqs=reqs, want=want, eng=eng,
+                warm=lambda: eng.warmup(prompt_len=COMPILED_PROMPT,
+                                        cache=cc))
+
+
+def _mamba2_check(case: dict, info: dict, warm_s: float) -> dict:
+    """Phase 25, mamba2 per slot through the compile cache: prefill and
+    decode ``"compiled"``; the requests give the eager engine's tokens
+    (the one of 37 tokens: an eager prefill, then the compiled decode),
+    with no fall-off to eager decode; the SSD kernel inside the compiled
+    prefill (the profile of one call: one ``ssd_state_mma`` a layer)."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.serve import serve_requests
+    cfg, reqs, want, eng = (case[k] for k in ("cfg", "reqs", "want", "eng"))
+    if info != {"ok": True, "prefill": "compiled", "decode": "compiled"}:
+        raise AssertionError(f"mamba2 per-slot compiled warmup: {info}")
+    reset_launches()
+    got = serve_requests(eng, reqs)
+    counts = launch_counts()
+    if got != want or eng.fall_offs:
+        raise AssertionError(f"mamba2 compiled per slot: tokens {got} vs "
+                             f"eager {want}; fall-offs {eng.fall_offs}")
+    if counts.get("ssd_scan", 0) != cfg.n_layers * len(reqs):
+        raise AssertionError(f"mamba2 compiled per slot: launches {counts}")
+    pre = eng._aot_prefill[(1, COMPILED_PROMPT)]
+    prompt = np.asarray(reqs[0].prompt, np.int32)[None]
+
+    def check(prof, out):
+        n = us = 0
+        for e in prof.key_averages():
+            if any(k in e.key for k in SSD_KERNELS):
+                n += e.count if SSD_KERNELS[0] in e.key else 0
+                us += float(e.self_device_time_total)
+        if n != cfg.n_layers:
+            raise AssertionError(f"compiled mamba2 prefill: the profiler "
+                                 f"saw {n} {SSD_KERNELS[0]}, expected "
+                                 f"{cfg.n_layers}")
+        return n, us
+
+    _, _, (n_ssd, us) = _profiled(lambda: pre(prompt), check,
+                                  "compiled mamba2 prefill")
+    log(f"compiled mamba2 per slot: 2 float32 layers, prefill and decode "
+        f"compiled ({warm_s:.1f} s to warm up); {len(reqs)} requests (4 of "
+        f"{COMPILED_PROMPT} tokens, one of 37) give the eager engine's "
+        f"tokens, no fall-off; SSD launches {counts.get('ssd_scan')}; the "
+        f"compiled prefill ran {n_ssd} SSD launches ({us / n_ssd:.2f} us "
+        f"device each, its three kernels)")
+    return dict(layers=cfg.n_layers, prompt=COMPILED_PROMPT,
+                warmup_s=warm_s, executables=_exe_report(eng),
+                tokens_equal=True, fall_offs=len(eng.fall_offs),
+                launches=counts, ssd_in_prefill=n_ssd,
+                ssd_device_us=us / n_ssd)
+
+
+def compiled_vs_cpu() -> dict:
+    """Phase 25: the compiled steps at float32 against the eager ones and
+    the CPU (Qwen3, kv_quant off and on) and mamba2 per slot compiled;
+    the three engines warm up together (their exports one at a time,
+    their packages side by side in the free compile processes), then each
+    is checked; stores under a temporary ``build/serve_cache_*``,
+    deleted."""
+    import shutil
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="serve_cache_", dir=ROOT / "build"))
+    try:
+        def warm(make):         # a case set up, then warmed up
+            case = make()
+            t0 = time.perf_counter()
+            info = case["warm"]()
+            return case, info, time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            warmed = list(pool.map(warm, (
+                lambda: _qwen_case(False, root),
+                lambda: _qwen_case(True, root),
+                lambda: _mamba2_case(root))))
+        warm_s = time.perf_counter() - t0
+        log(f"compiled vs cpu: the three engines set up and warmed up "
+            f"together in {warm_s:.1f} s")
+        checks = [(_qwen_check if c["kind"] == "qwen" else _mamba2_check)(
+            c, info, s) for c, info, s in warmed]
+        return {"warmup_s": warm_s, "qwen3": checks[:2],
+                "mamba2": checks[2]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_only(phases: set, phase) -> int:
+    """``--only 8,24,25``: the build, then only the named phases among
+    17, 8, 24 and 25 (a development run: no kernels line, no result line);
+    what they return goes to ``chiprun_out/chip_smoke_only.json``."""
+    from repro_torch.core.compile_cache import shutdown_workers
+    out = {}
+    try:
+        if "17" in phases:
+            out["codegen"] = phase("17 codegen", codegen_phase)
+        if "8" in phases:
+            out["serving"] = phase("8 serving", serving_phase)[0]
+        if "24" in phases:
+            out["compiled_serving"] = phase(
+                "24 serving compiled", compiled_serving_phase,
+                out.get("serving", {}).get("token_lists"))
+        if "25" in phases:
+            out["compiled_vs_cpu"] = phase("25 compiled card vs cpu",
+                                           compiled_vs_cpu)
+    finally:
+        shutdown_workers()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_only.json").write_text(json.dumps(
+        out, indent=1, default=str))
+    return 0
+
+
 def kernel_resources() -> list:
     """Phase 2: each kernel's registers, shared memory and spills as
     ``ptxas -v`` reported them, and the dynamic shared memory a block asks
@@ -3995,6 +4666,9 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--warm-serve"]:        # phase 24's warm half
+        print(json.dumps(warm_serving()))
+        return 0
 
     # 1. device
     smi = subprocess.run(
@@ -4027,6 +4701,9 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t
         log(f"phase {name}: {seconds[name]:.1f} s")
         return out
+
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        return run_only(set(sys.argv[2].split(",")), phase)
 
     # 3-6: the synthesis path
     timing, errs, kernel_checks = phase("3 kernels", kernel_phase)
@@ -4077,6 +4754,18 @@ def main() -> int:
     recurrent_cpu = {arch: phase(f"23 card vs cpu {arch}", family_vs_cpu,
                                  arch)
                      for arch in (*RECURRENT_ARCHS, AUDIO_ARCH)}
+    # 24-25: the serving engine's compiled steps through the compile cache
+    compiled = phase("24 serving compiled", compiled_serving_phase,
+                     serving["token_lists"])
+    compiled_cpu = phase("25 compiled card vs cpu", compiled_vs_cpu)
+    from repro_torch.core.compile_cache import shutdown_workers
+    shutdown_workers()
+    compiled_dev_us = {
+        "flash_attention": compiled["step_alone"]["prefill_1024"][
+            "flash_per_launch_us"],
+        "decode_attention": compiled["step_alone"][
+            "decode_partial_per_launch_us"]}
+
     by_model = {**{arch: r["launches"] for arch, r in families.items()},
                 **{arch: r["launches"] for arch, r in recurrent.items()},
                 AUDIO_ARCH: whisper["decode"]["launches"]}
@@ -4106,6 +4795,8 @@ def main() -> int:
             train_launches=qwen["launches"].get(name, 0),
             launches_by_model={arch: c.get(name, 0)
                                for arch, c in by_model.items()},
+            launches_compiled=compiled["launches"].get(name, 0),
+            device_us_compiled=compiled_dev_us[name],
             max_abs_err_by_hd={k: v for k, v in attn_errs.items()
                                if k.startswith(f"{name} hd")}))
     kernels.append(dict(
@@ -4117,7 +4808,9 @@ def main() -> int:
         device_ms=ssd_time["device_ms"], shape=ssd_time["shape"],
         timing=ssd_time,
         launches_by_model={arch: r["launches"]["ssd_scan"]
-                           for arch, r in recurrent.items()}))
+                           for arch, r in recurrent.items()},
+        launches_compiled=compiled_cpu["mamba2"]["launches"]["ssd_scan"],
+        device_us_compiled=compiled_cpu["mamba2"]["ssd_device_us"]))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -4136,6 +4829,7 @@ def main() -> int:
         family_serving=families, family_card_vs_cpu=families_cpu,
         recurrent_serving=recurrent, whisper=whisper,
         recurrent_audio_card_vs_cpu=recurrent_cpu,
+        compiled_serving=compiled, compiled_card_vs_cpu=compiled_cpu,
         kernel_resources=resources,
         phase_seconds=seconds), indent=1))
     print(smi)

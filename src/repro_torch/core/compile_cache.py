@@ -316,15 +316,26 @@ def _torch_dtype(dtype: Any) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
 
 
+def _on(t: torch.Tensor, device: torch.device) -> bool:
+    """``t`` lies on ``device`` (an index-less device: any of its kind's
+    current one)."""
+    return t.device.type == device.type and (
+        device.index is None or t.device.index == device.index)
+
+
 def lower_spec(v: Any, device: Any) -> Any:
     """Replace what a stage is bound to with what its lowering should see.
     Every array-like (an mmap/async_mmap, a numpy array, a tensor) becomes
     a zero placeholder of its shape and dtype on ``device``: a runtime
-    input of the artifact, never a constant baked into it.  Scalars unwrap
-    to their value; containers are converted recursively."""
+    input of the artifact, never a constant baked into it (a tensor
+    already on ``device`` stands for itself: tracing reads its shape and
+    dtype only, and the saved artifact keeps no example input).  Scalars
+    unwrap to their value; containers are converted recursively."""
     k = getattr(v, "iface_kind", None)
     if k == "scalar":
         return v.value
+    if isinstance(v, torch.Tensor) and _on(v, torch.device(device)):
+        return v
     if k in ("mmap", "async_mmap") or isinstance(v, (np.ndarray,
                                                        torch.Tensor)):
         return torch.zeros(tuple(v.shape), dtype=_torch_dtype(v.dtype),
@@ -385,6 +396,29 @@ def _toolchain(device: torch.device, lowering: str) -> str:
             f"n{_device_count(device.type)}:{SCHEMA}")
 
 
+@dataclass(frozen=True)
+class Dyn:
+    """The dynamic axes of one tensor input of a compile: ``axes`` holds
+    ``(axis, name, min, max)`` tuples; inputs that name the same axis
+    share its size (``torch.export.Dim``).  A ``dynamic`` argument of
+    :meth:`CompileCache.compile_cached` is a prefix of the arguments'
+    structure with a ``Dyn`` (or ``None``, static) at each tensor or
+    subtree."""
+    axes: tuple
+
+
+def _dynamic_leaves(dynamic: Any, args: tuple, kwargs: dict) -> list:
+    """``dynamic`` broadcast to one ``Dyn`` or ``None`` a leaf of the
+    flattened ``(args, kwargs)``."""
+    _, spec = _flat(args, kwargs)
+    out = pytree._broadcast_to_and_flatten(
+        (tuple(dynamic), {k: None for k in sorted(kwargs)}), spec)
+    if out is None:
+        raise ValueError("dynamic: not a prefix of the arguments' "
+                         "structure")
+    return out
+
+
 def instance_key(fn: Callable, args: tuple = (), kwargs: Optional[dict] = None,
                  *, extra: Any = None, digest: Optional[str] = None,
                  device: Any = None, lowering: Optional[str] = None) -> str:
@@ -441,8 +475,8 @@ class Executable:
     the loaded runner.  Called with the stage's runtime arguments (the
     lowered call's structure), it feeds their array leaves to the
     artifact as tensors on its device, each checked against the shape and
-    dtype it was compiled for, and ignores the constants, which the key
-    pinned."""
+    dtype it was compiled for (any size on a dynamic axis, ``None`` in
+    ``avals``), and ignores the constants, which the key pinned."""
 
     def __init__(self, kind: str, payload: bytes, inputs: list,
                  avals: list, n_leaves: int, device: Any,
@@ -474,14 +508,18 @@ class Executable:
                             f"leaves, got {len(leaves)}")
         xs = [torch.as_tensor(leaves[i], device=self.device)
               for i in self.inputs]
-        got = [(tuple(x.shape), _dtype_name(x.dtype)) for x in xs]
-        if got != self.avals:
-            raise TypeError(f"compiled stage takes inputs {self.avals}, "
-                            f"got {got}")
+        for x, (shape, dtype) in zip(xs, self.avals):
+            if x.dim() != len(shape) or _dtype_name(x.dtype) != dtype or \
+                    any(n is not None and n != m
+                        for n, m in zip(shape, x.shape)):
+                got = [(tuple(x.shape), _dtype_name(x.dtype)) for x in xs]
+                raise TypeError(f"compiled stage takes inputs "
+                                f"{self.avals}, got {got}")
         return self._run(*xs)
 
 
 def _load(kind: str, payload: bytes) -> Callable:
+    from ..kernels import ops  # noqa: F401  (registers the operators)
     if kind == "export":
         return torch.export.load(io.BytesIO(payload)).module()
     import torch._inductor as inductor
@@ -491,17 +529,41 @@ def _load(kind: str, payload: bytes) -> Callable:
         return inductor.aoti_load_package(path)
 
 
-def _export(fn: Callable, args: tuple, kwargs: dict, device: torch.device):
-    """``torch.export`` of ``fn`` on placeholders of its lowered args."""
+def _export(fn: Callable, args: tuple, kwargs: dict, device: torch.device,
+            dynamic: Any = None):
+    """``torch.export`` of ``fn`` on placeholders of its lowered args (no
+    autograd: a compiled stage runs forward only), with the axes
+    ``dynamic`` names (:class:`Dyn`) left symbolic.  Returns the program,
+    without its example inputs, and ``(inputs, avals, n_leaves,
+    examples)``: each input's ``(shape, stride, dtype)``, what a package
+    compile needs in their place."""
     leaves, spec = _flat(lower_spec(tuple(args), device),
                          lower_spec(dict(kwargs), device))
     inputs = [i for i, v in enumerate(leaves) if isinstance(v, torch.Tensor)]
     consts = [None if i in inputs else v for i, v in enumerate(leaves)]
-    ep = torch.export.export(_Stage(fn, consts, inputs, spec),
-                             tuple(leaves[i] for i in inputs))
-    avals = [(tuple(leaves[i].shape), _dtype_name(leaves[i].dtype))
-             for i in inputs]
-    return ep, inputs, avals, len(leaves)
+    dyn = [None] * len(leaves) if dynamic is None else \
+        _dynamic_leaves(dynamic, tuple(args), dict(kwargs))
+    dims: dict = {}
+    shapes = None
+    if dynamic is not None:
+        shapes = (tuple({axis: dims.setdefault(
+            name, torch.export.Dim(name, min=lo, max=hi))
+            for axis, name, lo, hi in dyn[i].axes} if dyn[i] else None
+            for i in inputs),)
+    with torch.no_grad():
+        ep = torch.export.export(_Stage(fn, consts, inputs, spec),
+                                 tuple(leaves[i] for i in inputs),
+                                 dynamic_shapes=shapes)
+    ep.example_inputs = None
+    avals, examples = [], []
+    for i in inputs:
+        x, axes = leaves[i], {a[0] for a in dyn[i].axes} if dyn[i] else ()
+        avals.append((tuple(None if a in axes else n
+                            for a, n in enumerate(x.shape)),
+                      _dtype_name(x.dtype)))
+        examples.append((tuple(x.shape), tuple(x.stride()),
+                         _dtype_name(x.dtype)))
+    return ep, inputs, avals, len(leaves), examples
 
 
 def _openmp_cxx() -> str:
@@ -530,14 +592,22 @@ def _openmp_cxx() -> str:
                        f"CXX to one that does")
 
 
-def aoti_package(ep_path: str, pkg_path: str) -> float:
+def aoti_package(ep_path: str, pkg_path: str, examples: list,
+                 device: str) -> float:
     """Compile a saved exported program into an AOTInductor package with
     inductor's own caches off (they would turn a repeated compile of one
-    definition into a hit), and return the compile's seconds.  Runs in a
-    worker process (:func:`compile_artifacts`), whose ``$CXX`` is
-    :func:`_openmp_cxx`'s choice."""
+    definition into a hit), and return the compile's seconds.  The
+    program is saved without example inputs; uninitialised tensors of
+    each input's ``(shape, stride, dtype)`` on ``device`` stand in for
+    them.  Runs in a worker process (:func:`compile_artifacts`), whose
+    ``$CXX`` is :func:`_openmp_cxx`'s choice."""
     import torch._inductor as inductor
+    from ..kernels import ops  # noqa: F401  (registers the operators)
     ep = torch.export.load(ep_path)
+    ep.example_inputs = (tuple(
+        torch.empty_strided(shape, stride, dtype=getattr(torch, dtype),
+                            device=device)
+        for shape, stride, dtype in examples), {})
     t0 = time.perf_counter()
     with inductor.config.patch(force_disable_caches=True):
         inductor.aoti_compile_and_package(ep, package_path=pkg_path)
@@ -548,9 +618,9 @@ _WORKER = """
 import json, sys, traceback
 from repro_torch.core.compile_cache import aoti_package
 for line in sys.stdin:
-    ep_path, pkg_path = json.loads(line)
+    job = json.loads(line)
     try:
-        out = {"s": aoti_package(ep_path, pkg_path)}
+        out = {"s": aoti_package(*job)}
     except Exception:
         out = {"error": traceback.format_exc()}
     print("%s" + json.dumps(out), flush=True)
@@ -560,8 +630,9 @@ _REPLY = "repro-torch-aoti "          # marks a worker's reply line
 
 class _Worker:
     """One package-compile process: a fresh interpreter (no state of the
-    caller's, no re-import of its ``__main__``) that takes ``(exported,
-    package)`` path pairs on stdin and answers each with its seconds.  It
+    caller's, no re-import of its ``__main__``) that takes
+    :func:`aoti_package`'s arguments on stdin and answers each job with
+    its seconds.  It
     lives until :func:`shutdown_workers`, so its first compile's one-time
     cost (imports, the toolchain's probes: 92-103 s a process with 4
     starting at once on an H100 host's 8 cores, PERF.md §6) is paid once
@@ -578,21 +649,21 @@ class _Worker:
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.log,
             text=True)
 
-    def compile(self, ep_path: str, pkg_path: str) -> float:
-        with self.lock:
-            self.proc.stdin.write(json.dumps([ep_path, pkg_path]) + "\n")
-            self.proc.stdin.flush()
-            for line in self.proc.stdout:
-                if line.startswith(_REPLY):
-                    out = json.loads(line[len(_REPLY):])
-                    if "error" in out:
-                        raise RuntimeError(f"AOTInductor compile failed:\n"
-                                           f"{out['error'][-4000:]}")
-                    return out["s"]
-            self.log.seek(0)
-            raise RuntimeError(f"AOTInductor compile process ended (rc "
-                               f"{self.proc.wait()}):\n"
-                               f"{self.log.read()[-4000:]}")
+    def compile(self, *job) -> float:
+        """Run one job; the caller holds :attr:`lock`."""
+        self.proc.stdin.write(json.dumps(job) + "\n")
+        self.proc.stdin.flush()
+        for line in self.proc.stdout:
+            if line.startswith(_REPLY):
+                out = json.loads(line[len(_REPLY):])
+                if "error" in out:
+                    raise RuntimeError(f"AOTInductor compile failed:\n"
+                                       f"{out['error'][-4000:]}")
+                return out["s"]
+        self.log.seek(0)
+        raise RuntimeError(f"AOTInductor compile process ended (rc "
+                           f"{self.proc.wait()}):\n"
+                           f"{self.log.read()[-4000:]}")
 
     def close(self) -> None:
         self.proc.stdin.close()
@@ -615,6 +686,19 @@ def _get_workers(n: int) -> list:
         return _workers[:n]
 
 
+def _compile_on_a_free_worker(*job) -> float:
+    """Run ``job`` in the first compile process that is free (another
+    thread's compiles may hold some), waiting for one."""
+    while True:
+        for w in list(_workers):
+            if w.lock.acquire(blocking=False):
+                try:
+                    return w.compile(*job)
+                finally:
+                    w.lock.release()
+        time.sleep(0.05)
+
+
 def shutdown_workers() -> None:
     """Stop every package-compile process (also done at exit)."""
     with _workers_lock:
@@ -626,61 +710,60 @@ def shutdown_workers() -> None:
 atexit.register(shutdown_workers)
 
 
-def _compile_packages(jobs: list, workers: int) -> list:
-    """Run :func:`aoti_package` on each ``(exported, package)`` path pair
-    in ``workers`` compile processes, the jobs dealt round-robin, and
-    return each job's compile seconds."""
-    procs = _get_workers(workers)
-
-    def run(i):
-        return [(j, procs[i].compile(*jobs[j]))
-                for j in range(i, len(jobs), workers)]
-
-    out = [0.0] * len(jobs)
-    with ThreadPoolExecutor(workers) as pool:
-        for batch in pool.map(run, range(workers)):
-            for j, sec in batch:
-                out[j] = sec
-    return out
+_export_lock = threading.Lock()
 
 
 def compile_artifacts(specs: list, *, device: Any, lowering: str,
                       max_workers: Optional[int] = None) -> list:
-    """Lower and compile each ``(fn, args, kwargs)`` of ``specs`` into an
+    """Lower and compile each ``(fn, args, kwargs)`` (or ``(fn, args,
+    kwargs, dynamic)``, :class:`Dyn`) of ``specs`` into an
     :class:`Executable` on ``device``.
 
-    The exports run one after another in the calling thread (tracing in
-    ``torch.export`` is not documented as thread-safe).  AOTInductor
-    packages then compile in up to ``max_workers`` worker processes
-    (``None``: one a CPU core), each reading saved exported programs and
-    writing packages.  A failed export or compile raises.
+    The exports run one after another, one at a time across threads too
+    (tracing in ``torch.export`` is not documented as thread-safe).
+    Each AOTInductor package compiles as soon as its exported program is
+    saved (while the next one exports), in the first free one of the
+    worker processes, of which at least ``max_workers`` run (``None``:
+    one a CPU core, at most one a spec).  A failed export or compile
+    raises.
     """
     dev = torch.device(device)
-    exported = []
-    for fn, args, kwargs in specs:
+
+    def export(fn, args, kwargs, *dynamic):
         t0 = time.perf_counter()
-        ep, *sig = _export(fn, args, kwargs, dev)
-        exported.append((ep, sig, time.perf_counter() - t0))
+        with _export_lock:
+            ep, *sig, examples = _export(fn, args, kwargs, dev, *dynamic)
+        return ep, sig, examples, time.perf_counter() - t0
+
     if lowering == "export":
         out = []
-        for ep, sig, export_s in exported:
+        for spec in specs:
+            ep, sig, _, export_s = export(*spec)
             buf = io.BytesIO()
             torch.export.save(ep, buf)
             out.append(Executable("export", buf.getvalue(), *sig, dev,
                                   {"export_s": export_s, "compile_s": 0.0}))
         return out
     workers = max(1, min(max_workers or os.cpu_count() or 1, len(specs)))
-    with tempfile.TemporaryDirectory(prefix="repro-torch-aoti-") as d:
-        jobs = [(os.path.join(d, f"ep{j}.pt2"),
-                 os.path.join(d, f"pkg{j}.pt2"))
-                for j in range(len(exported))]
-        for (ep, *_), (ep_path, _) in zip(exported, jobs):
+    _get_workers(workers)
+    with tempfile.TemporaryDirectory(prefix="repro-torch-aoti-") as d, \
+            ThreadPoolExecutor(workers) as pool:
+        jobs = []
+        for j, spec in enumerate(specs):
+            ep, sig, examples, export_s = export(*spec)
+            ep_path = os.path.join(d, f"ep{j}.pt2")
+            pkg_path = os.path.join(d, f"pkg{j}.pt2")
             torch.export.save(ep, ep_path)
-        secs = _compile_packages(jobs, workers)
-        return [Executable("aoti", Path(p).read_bytes(), *sig, dev,
-                           {"export_s": export_s, "compile_s": s})
-                for (_, sig, export_s), (_, p), s
-                in zip(exported, jobs, secs)]
+            jobs.append((sig, export_s, pkg_path, pool.submit(
+                _compile_on_a_free_worker, ep_path, pkg_path, examples,
+                str(dev))))
+        out = []
+        for sig, export_s, pkg_path, job in jobs:
+            compile_s = job.result()        # the package is written
+            out.append(Executable("aoti", Path(pkg_path).read_bytes(), *sig,
+                                  dev, {"export_s": export_s,
+                                        "compile_s": compile_s}))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -850,27 +933,51 @@ class CompileCache:
     def compile_cached(self, fn: Callable, args: tuple = (),
                        kwargs: Optional[dict] = None, *,
                        key: Optional[str] = None, device: Any = None,
-                       lowering: Optional[str] = None):
+                       lowering: Optional[str] = None, extra: Any = None,
+                       dynamic: Any = None):
         """Lower and compile ``fn`` on ``args`` through the cache.
 
-        ``key``: a precomputed :func:`instance_key`.  ``device`` defaults
-        to the card (an error without one); ``lowering`` to the device's
-        artifact (:func:`resolve_lowering`).  Returns ``(executable,
-        source)``.
+        ``key``: a precomputed :func:`instance_key`; ``extra`` is folded
+        into a key computed here (the reference's ``extra``), and so is
+        ``dynamic`` (:class:`Dyn`: the axes one executable takes at any
+        size in its range).  ``device`` defaults to the card (an error
+        without one); ``lowering`` to the device's artifact
+        (:func:`resolve_lowering`).  Returns ``(executable, source)``.
         """
+        return self.compile_many([(fn, args, kwargs, extra, dynamic)],
+                                 keys=[key], device=device,
+                                 lowering=lowering)[0]
+
+    def compile_many(self, jobs: list, *, keys: Optional[list] = None,
+                     device: Any = None, lowering: Optional[str] = None,
+                     max_workers: Optional[int] = None) -> list:
+        """:meth:`compile_cached` of each ``(fn, args, kwargs, extra,
+        dynamic)`` of ``jobs`` (``keys``: precomputed keys or ``None``s),
+        the misses compiled together (:func:`compile_artifacts`: the
+        packages of a cold store in parallel processes).  Returns
+        ``[(executable, source)]`` in the jobs' order."""
         from .synth import resolve_device
         dev = resolve_device(device)
         lowering = resolve_lowering(dev, lowering)
-        kwargs = kwargs or {}
-        key = key or instance_key(fn, args, kwargs, device=dev,
-                                  lowering=lowering)
-        exe, source = self.get_with_source(key)
-        if exe is None:
-            exe, = compile_artifacts([(fn, args, kwargs)], device=dev,
-                                     lowering=lowering)
-            self.put(key, exe)
-            source = "compiled"
-        return exe, source
+        keys = list(keys or [None] * len(jobs))
+        out, miss = [], []
+        for i, (fn, args, kwargs, extra, dynamic) in enumerate(jobs):
+            if keys[i] is None:
+                keys[i] = instance_key(
+                    fn, args, kwargs or {}, device=dev, lowering=lowering,
+                    extra=extra if dynamic is None else (extra, dynamic))
+            out.append(self.get_with_source(keys[i]))
+            if out[-1][0] is None:
+                miss.append(i)
+        if miss:
+            exes = compile_artifacts(
+                [(jobs[i][0], jobs[i][1], jobs[i][2] or {}, jobs[i][4])
+                 for i in miss], device=dev, lowering=lowering,
+                max_workers=max_workers)
+            for i, exe in zip(miss, exes):
+                self.put(keys[i], exe)
+                out[i] = (exe, "compiled")
+        return out
 
     # -- memoized JSON results (QoR-tuning measurements) ---------------------
 

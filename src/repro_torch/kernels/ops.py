@@ -27,6 +27,20 @@ Gradients, as the reference's ``jax.custom_vjp`` rules give them:
   layer here.)
 * :func:`decode_attention` is serving only: an input that needs a
   gradient raises ``NotImplementedError``.
+
+The three kernels' forwards are operators of the ``repro_torch``
+namespace (``torch.ops.repro_torch.flash_attention_fwd``,
+``decode_attention_fwd``, ``ssd_scan_fwd``), so ``torch.export`` keeps
+each as one node and an AOTInductor package calls it through the
+dispatcher (:mod:`repro_torch.core.compile_cache`): a CUDA tensor
+reaches the wrapper that launches the kernel (and counts the launch), a
+CPU tensor its plain version, and a fake tensor the operator's shape
+function.  The entry points below call the operators; a call that needs
+a gradient goes through the ``autograd.Function`` on top of the same
+operator.  The registration is Python's (``torch.library.custom_op``):
+the wrappers are Python over ``ctypes``, and a package run in a process
+that imported this module finds them in the dispatcher as a C++
+registration would be found.
 """
 
 from __future__ import annotations
@@ -39,6 +53,59 @@ import torch
 from .decode_attention import decode_attention_fwd
 from .flash_attention import _masks, flash_attention_fwd
 from .ssd_scan import ssd_scan_fwd, ssd_sequence
+
+Tensor = torch.Tensor
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' forwards as operators
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                       window: Optional[int]) -> tuple[Tensor, Tensor]:
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    B, Sq, nh, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, nh, Sq),
+                                             dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_fwd",
+                         mutates_args=())
+def decode_attention_op(q: Tensor, k: Tensor, v: Tensor,
+                        kv_len: Tensor) -> Tensor:
+    return decode_attention_fwd(q, k, v, kv_len)
+
+
+@decode_attention_op.register_fake
+def _(q, k, v, kv_len):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
+def ssd_scan_op(xdt: Tensor, dA: Tensor, Bm: Tensor, Cm: Tensor, s0: Tensor,
+                chunk: int) -> tuple[Tensor, Tensor]:
+    return ssd_scan_fwd(xdt, dA, Bm, Cm, s0, chunk=chunk)
+
+
+@ssd_scan_op.register_fake
+def _(xdt, dA, Bm, Cm, s0, chunk):
+    B, S, H, P = xdt.shape
+    f32 = torch.float32
+    return xdt.new_empty((B, S, H, P), dtype=f32), \
+        xdt.new_empty((B, H, P, Bm.shape[3]), dtype=f32)
+
+
+def _ssd_scan(xdt, dA, Bm, Cm, s0, *, chunk: int) -> tuple:
+    return ssd_scan_op(xdt, dA, Bm, Cm, s0, chunk)
 
 
 def _forward_only(op: str, *tensors: torch.Tensor) -> None:
@@ -81,7 +148,7 @@ def flash_backward(q, k, v, out, lse, dout, *, causal: bool,
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        out, lse = flash_attention_op(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -101,7 +168,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: [B, Sq, nh, hd]; k/v: [B, Sk, nkv, hd].  Returns [B, Sq, nh, hd].
     """
-    return _Flash.apply(q, k, v, causal, window)
+    if _needs_grad(q, k, v):
+        return _Flash.apply(q, k, v, causal, window)
+    return flash_attention_op(q, k, v, causal, window)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -116,7 +185,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths on q's device.  Returns [B, nh, hd].
     """
     _forward_only("decode_attention", q, k, v)
-    return decode_attention_fwd(q, k, v, kv_len)
+    return decode_attention_op(q, k, v, kv_len)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +197,7 @@ class _SSD(torch.autograd.Function):
     def forward(ctx, x, dt, A, Bm, Cm, D, s0, chunk):
         ctx.save_for_backward(x, dt, A, Bm, Cm, D, s0)
         ctx.chunk = chunk
-        return ssd_sequence(ssd_scan_fwd, x, dt, A, Bm, Cm, D, chunk, s0)
+        return ssd_sequence(_ssd_scan, x, dt, A, Bm, Cm, D, chunk, s0)
 
     @staticmethod
     def backward(ctx, dy, dfinal):
@@ -163,4 +232,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     N = Bm.shape[3]
     s0 = init_state if init_state is not None else \
         torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
-    return _SSD.apply(x, dt, A, Bm, Cm, D, s0, chunk)
+    if _needs_grad(x, dt, A, Bm, Cm, D, s0):
+        return _SSD.apply(x, dt, A, Bm, Cm, D, s0, chunk)
+    return ssd_sequence(_ssd_scan, x, dt, A, Bm, Cm, D, chunk, s0)

@@ -14,7 +14,12 @@ transactions (EoT) run as a task graph under the coroutine engine; the
 compute inside is the batched packed-slot decode of the selected model:
 one decode step call per iteration for every slot (its attention through
 the flash-decode kernel), on-device sampling, and length-bucketed
-prefill, every shape run once at warmup.  ``--per-slot`` selects the
+prefill (through the flash kernel), every shape resolved at warmup through the persistent compile
+cache (``repro_torch.core.compile_cache.default_cache()``: AOTInductor
+packages on the card, exported programs on the CPU), so a warm process
+compiles nothing; a warmup that fails raises, and nothing then serves
+eagerly or on another path.  ``--no-cache`` runs every shape once
+eagerly instead.  ``--per-slot`` selects the
 seed per-slot path instead: one prefill and one decode call a request
 and token, greedy.  The attention-cache families (dense, vlm text-only
 as the reference serves it, moe) take the batched path; the recurrent
@@ -31,11 +36,13 @@ import argparse
 import dataclasses
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..configs import get_config
+from ..core.compile_cache import default_cache
 from ..core.synth import resolve_device
 from ..ft import PreemptionGuard
 from ..models import lm
@@ -51,26 +58,33 @@ def per_slot_engine(params, cfg, scfg: ServeConfig,
     ``attn_impl="kernel"`` and ``use_kernel``, so every kernel-backed op
     takes its kernel on the card (the SSD scan, flash attention,
     flash-decode over the scalar-length cache) and its plain version on
-    the CPU."""
+    the CPU.  The steps take the weights as their first argument (bound
+    with ``partial``), so a compiled step holds none."""
     max_seq = scfg.max_seq
     cfg = dataclasses.replace(cfg, attn_impl="kernel")
 
-    def prefill_fn(tokens):
-        return lm.prefill(params, cfg, torch.from_numpy(tokens).to(device),
+    # tokens: the engine's host arrays (eager) or device tensors (the
+    # compiled steps)
+    def prefill_fn(params, tokens):
+        return lm.prefill(params, cfg, torch.as_tensor(tokens, device=device),
                           max_seq=max_seq, use_kernel=True)
 
-    def decode_fn(token, cache):
+    def decode_fn(params, token, cache):
         return lm.decode_step(params, cfg,
-                              torch.from_numpy(token).to(device), cache)
+                              torch.as_tensor(token, device=device), cache)
 
-    return ServingEngine(scfg, prefill_fn, decode_fn)
+    return ServingEngine(scfg, partial(prefill_fn, params),
+                         partial(decode_fn, params), device=device)
 
 
 def _build_engine(cfg, params, scfg: ServeConfig, args,
                   device: torch.device) -> ServingEngine:
     if not args.per_slot:
+        # the prefill's attention through the flash kernel (its plain
+        # version on the CPU), as in the per-slot engine
         adapter = lm.serving_adapter(
-            params, cfg, max_seq=scfg.max_seq,
+            params, dataclasses.replace(cfg, attn_impl="kernel"),
+            max_seq=scfg.max_seq,
             temperature=args.temperature, top_k=args.top_k,
             seed=args.seed, device=device)
         return ServingEngine(scfg, batched=adapter)
@@ -81,9 +95,15 @@ def _build_engine(cfg, params, scfg: ServeConfig, args,
 
 
 def _print_warmup(info: dict) -> None:
-    if "buckets" in info:
+    if "buckets" in info and info["decode"] == "eager":
         print(f"[serve] warmup: ran prefill buckets "
-              f"{list(info['buckets'])}; decode step: {info['decode']}")
+              f"{list(info['buckets'])}; decode step: eager")
+    elif "buckets" in info:
+        hits = [k for k, v in info["buckets"].items() if v != "compiled"]
+        fresh = [k for k, v in info["buckets"].items() if v == "compiled"]
+        print(f"[serve] warmup: prefill buckets cached={hits or '-'} "
+              f"fresh-compile={fresh or '-'}; "
+              f"decode step: {info['decode']}")
     else:
         print(f"[serve] warmup: prefill={info['prefill']} "
               f"decode={info['decode']}")
@@ -134,6 +154,9 @@ def serve(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the CUDA "
                          "card; without one, pass --device cpu)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="warm up by running every shape once eagerly, "
+                         "not through the compile cache")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -161,6 +184,7 @@ def serve(argv=None) -> int:
     engine = _build_engine(cfg, params, scfg, args, device)
 
     t0 = time.perf_counter()
+    cache = None if args.no_cache else default_cache()
     if engine.batched is not None:
         # warm every admission shape a serving process can meet: all
         # power-of-two prefill batch dims up to the slot count, plus the
@@ -168,11 +192,15 @@ def serve(argv=None) -> int:
         sizes = tuple(sorted({min(2 ** k, args.slots)
                               for k in range(args.slots.bit_length())}
                              | {args.slots}))
-        # a kernel that does not build or launch raises here: the batched
-        # path never gives way to the per-slot one (--per-slot chooses it)
-        info = engine.warmup(batch_sizes=sizes)
+        info = engine.warmup(batch_sizes=sizes, cache=cache)
     else:
-        info = engine.warmup()
+        info = engine.warmup(cache=cache)
+    if not info.get("ok"):
+        # a step that cannot be compiled fails here: the batched path
+        # never gives way to the per-slot one (--per-slot chooses it),
+        # nor the compiled path to eager (--no-cache chooses it)
+        raise RuntimeError(f"[serve] warmup through the compile cache "
+                           f"failed: {info.get('reason')}")
     warm = time.perf_counter() - t0
     mode = "batched" if engine.batched is not None else "per-slot"
     _print_warmup(info)

@@ -2,8 +2,10 @@
 
 The port's counterpart of the reference's ``models/layers.py``: RMSNorm
 and LayerNorm, rotary embedding, grouped-query attention with optional
-qk-norm and sliding window (full-sequence, cross-attention and one-token
-decode against a KV cache), the SwiGLU and two-matrix GELU MLPs, the
+qk-norm and sliding window (full-sequence — naive, chunked online
+softmax, the flash kernel, or the score-free measurement stand-in —,
+cross-attention and one-token decode against a KV cache, bf16/fp32 or
+int8 with per-(position, head) scales), the SwiGLU and two-matrix GELU MLPs, the
 token-dropping top-k MoE (scatter and GShard dispatch), the Mamba2 block
 (causal conv, chunked SSD) for training and prefill and its one-token
 recurrence, and the cross-entropy loss.  Parameters are plain nested
@@ -21,6 +23,7 @@ arrays are immutable and it relies on buffer donation instead).
 from __future__ import annotations
 
 import dataclasses
+import fractions
 import math
 from typing import Optional
 
@@ -162,21 +165,81 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, nh, hd).to(q.dtype)
 
 
-def _attend(cfg: ModelConfig, q, k, v, *, causal: bool,
-            use_kernel: bool) -> torch.Tensor:
-    """Full-sequence attention routed by ``cfg.attn_impl``: ``kernel``
-    (or ``use_kernel``) goes through the flash kernel, ``naive`` through
-    :func:`sdpa`; the reference's ``chunked``/``noscore`` measurement
-    variants are not ported yet."""
+def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: Optional[int] = None,
+                 chunk: int = 1024) -> torch.Tensor:
+    """Memory-efficient attention: online softmax over KV chunks, the
+    reference's ``sdpa_chunked`` (``layers.py:164``).
+
+    The flash recurrence in torch ops (a Python loop over KV blocks where
+    the reference scans; fp32 running max and sum): the ``[Sq, Sk]``
+    score matrix is never materialised whole.  The keys are zero-padded
+    to a multiple of ``chunk`` and the padded tail is masked.
+    Differentiable through autograd.
+    """
+    B, Sq, nh, hd = q.shape
+    Sk, nkv = k.shape[1], k.shape[2]
+    g = nh // nkv
+    chunk = min(chunk, Sk)
+    pad = (-Sk) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    qg = q.reshape(B, Sq, nkv, g, hd).float() / math.sqrt(hd)
+    qpos = torch.arange(Sq, device=dev)[:, None]
+    m = torch.full((B, nkv, g, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, nkv, g, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, nkv, g, Sq, hd), dtype=torch.float32, device=dev)
+    for bi in range(k.shape[1] // chunk):
+        kc = k[:, bi * chunk:(bi + 1) * chunk].float()
+        vc = v[:, bi * chunk:(bi + 1) * chunk].float()
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, kc)
+        kpos = bi * chunk + torch.arange(chunk, device=dev)[None, :]
+        mask = kpos < Sk                                  # padded tail
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p,
+                                                    vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]     # [B,nkv,g,Sq,hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, nh, hd).to(q.dtype)
+
+
+def _noscore_attention(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """The reference's measurement stand-in (``layers.py:245``): keeps the
+    q/k/v/o projections but computes no scores, ``q + (k + v) / 2`` with
+    each KV head repeated over its query group."""
+    g = q.shape[2] // k.shape[2]
+    return q + 0.5 * torch.repeat_interleave(k + v, g, dim=2)
+
+
+def _attend(cfg: ModelConfig, q, k, v, *, causal: bool, use_kernel: bool,
+            noscore: bool = True) -> torch.Tensor:
+    """Full-sequence attention routed by ``cfg.attn_impl`` as the
+    reference's ``attention`` routes it: ``kernel`` (or ``use_kernel``)
+    through the flash kernel, ``chunked`` through :func:`sdpa_chunked`,
+    ``noscore`` through :func:`_noscore_attention`, anything else through
+    :func:`sdpa`.  ``noscore=False`` is the reference's prefill branch
+    (``lm.py:364``), which sends ``noscore`` to :func:`sdpa`."""
     if use_kernel or cfg.attn_impl == "kernel":
         from ..kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal,
                                     window=cfg.sliding_window)
-    if cfg.attn_impl == "naive":
-        return sdpa(q, k, v, causal=causal, window=cfg.sliding_window)
-    raise NotImplementedError(
-        f"attn_impl={cfg.attn_impl!r} is not ported yet (the port keeps "
-        f"'naive' and 'kernel')")
+    if cfg.attn_impl == "chunked":
+        return sdpa_chunked(q, k, v, causal=causal,
+                            window=cfg.sliding_window)
+    if cfg.attn_impl == "noscore" and noscore:
+        return _noscore_attention(q, k, v)
+    return sdpa(q, k, v, causal=causal, window=cfg.sliding_window)
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -195,9 +258,14 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor,
-             cache_len: torch.Tensor) -> None:
-    """Write the one-token update ``new[B, 1, n, hd]`` into ``cache[B,
-    S_max, n, hd]`` in place, at each row's length.
+             cache_len: torch.Tensor, layer: Optional[int] = None) -> None:
+    """Write the one-token update ``new[B, 1, n, ...]`` into ``cache[B,
+    S_max, n, ...]`` in place, at each row's length (K/V rows ``[n,
+    hd]``, or an int8 cache's scales ``[n]``).  With ``layer``, ``cache``
+    is the stacked ``[L, B, S_max, ...]`` leaf and the write goes to its
+    layer ``layer`` by indexing the stacked tensor itself: no write
+    through a view, so a compiled step updates the cache in place where a
+    view's write would be a copy of the whole leaf.
 
     A ``[B]`` length is the ragged path: only the B rows are touched, and
     a row whose length equals S_max writes nothing (the capacity stop;
@@ -205,43 +273,80 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor,
     length writes the same position for every row, clamped to the last
     one as ``dynamic_update_slice`` clamps it.  No host sync either way.
     """
-    S = cache.shape[1]
+    B, S = new.shape[0], cache.shape[1 if layer is None else 2]
     new = new[:, 0].to(cache.dtype)
-    if cache_len.dim() == 0:
-        pos = cache_len.clamp(max=S - 1).reshape(1).long()
-        cache.index_copy_(1, pos, new[:, None])
-        return
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    pos = cache_len.clamp(max=S - 1).long()
-    keep = (cache_len >= S).reshape(-1, *([1] * (new.dim() - 1)))
-    cache[rows, pos] = torch.where(keep, cache[rows, pos], new)
+    rows = torch.arange(B, device=cache.device)
+    pos = cache_len.clamp(max=S - 1).long().expand(B)
+    idx = (rows, pos) if layer is None else \
+        (torch.full_like(rows, layer), rows, pos)
+    if cache_len.dim() == 1:
+        keep = (cache_len >= S).reshape(-1, *([1] * (new.dim() - 1)))
+        new = torch.where(keep, cache[idx], new)
+    cache.index_put_(idx, new)
+
+
+def quantize_kv(t: torch.Tensor) -> tuple:
+    """Per-(position, head) symmetric int8 quantization of K or V, the
+    reference's ``quantize_kv`` (``layers.py:256``).
+
+    t: [B, S, n, hd] -> (int8 values, fp16 scales [B, S, n]).  The scale
+    is ``max(|t|, 1e-6) / 127`` in float32 and the values round half to
+    even, as ``jnp.round`` does, so equal float32 inputs give equal bits.
+    """
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
 
 
 def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     cache_len: torch.Tensor) -> torch.Tensor:
+                     cache_len: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     layer: Optional[int] = None) -> torch.Tensor:
     """One-token decode against a KV cache, updating the cache in place.
 
-    x: [B, 1, d]; cache_k/v: [B, S_max, nkv, hd]; cache_len: [] or [B]
-    int32 on x's device.  Returns out [B, 1, d]; the new token's K/V are
-    written into ``cache_k``/``cache_v`` at each row's length
-    (:func:`write_kv`).
+    x: [B, 1, d]; cache_k/v: [B, S_max, nkv, hd], or with ``layer`` the
+    stacked ``[L, B, S_max, nkv, hd]`` leaves whose layer ``layer`` this
+    is (and the scales likewise); cache_len: [] or [B] int32 on x's
+    device.  Returns out [B, 1, d]; the new token's K/V are written into
+    ``cache_k``/``cache_v`` at each row's length (:func:`write_kv`).
 
     Routing as the reference's ``layers.py:328``: with no sliding window,
     a ragged ``[B]`` length (the packed serving batch) or
     ``attn_impl="kernel"`` takes the flash-decode kernel; otherwise
-    :func:`sdpa`.  A row at length 0 is a dead slot — its output is
+    :func:`sdpa`.  With ``cfg.kv_quant`` the caches are int8 with fp16
+    scales ``k_scale``/``v_scale`` ``[B, S_max, nkv]``: the new K/V are
+    quantized (:func:`quantize_kv`) and written with their scales, and
+    the dequantized cache goes through :func:`sdpa`, as in the reference
+    (no kernel).  A row at length 0 is a dead slot — its output is
     finite and the caller masks its token.
     """
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache (kv_quant) is not "
-                                  "ported yet")
     B = x.shape[0]
     ragged = cache_len.dim() == 1
     positions = cache_len.reshape(-1, 1).expand(B, 1)
     q, k, v = _qkv(p, cfg, x, positions)
-    write_kv(cache_k, k, cache_len)
-    write_kv(cache_v, v, cache_len)
+    def at(t):
+        return t if layer is None else t[layer]
+    if cfg.kv_quant:
+        (qk, sk), (qv, sv) = quantize_kv(k), quantize_kv(v)
+        for leaf, val in ((cache_k, qk), (cache_v, qv), (k_scale, sk),
+                          (v_scale, sv)):
+            write_kv(leaf, val, cache_len, layer)
+        out = sdpa(q, dequantize_kv(at(cache_k), at(k_scale), q.dtype),
+                   dequantize_kv(at(cache_v), at(v_scale), q.dtype),
+                   causal=False, q_offset=cache_len, kv_len=cache_len + 1,
+                   window=cfg.sliding_window)
+        return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    write_kv(cache_k, k, cache_len, layer)
+    write_kv(cache_v, v, cache_len, layer)
+    cache_k, cache_v = at(cache_k), at(cache_v)
     if cfg.sliding_window is None and (ragged or cfg.attn_impl == "kernel"):
         from ..kernels import ops as kops
         lens = cache_len + 1 if ragged else (cache_len + 1).expand(B)
@@ -315,10 +420,18 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
 def moe_capacity(tokens: int, cfg: ModelConfig,
                  capacity_factor: float = 1.25) -> int:
     """Slots an expert has for ``tokens`` tokens (of a group):
-    ``max(ceil(tokens * K / E * factor), 4)``."""
+    ``max(ceil(tokens * K / E * factor), 4)`` (symbolic under
+    ``torch.export`` when ``tokens`` is: no guard on its value)."""
     m = cfg.moe
-    return max(int(math.ceil(tokens * m.top_k / m.n_experts
-                             * capacity_factor)), 4)
+    if isinstance(tokens, int):
+        return max(int(math.ceil(tokens * m.top_k / m.n_experts
+                                 * capacity_factor)), 4)
+    # a symbolic count: the same ceiling in integers (exact where the
+    # float form is, e.g. a power-of-two expert count)
+    f = fractions.Fraction(capacity_factor).limit_denominator(1 << 16)
+    den = m.n_experts * f.denominator
+    return torch.sym_max((tokens * m.top_k * f.numerator + den - 1) // den,
+                         4)
 
 
 def moe_router(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple:

@@ -9,7 +9,7 @@ has no layer axis); the forward passes loop over layers in Python
 (PyTorch runs eagerly; the reference's ``lax.scan`` and ``lax.cond``
 have nothing to save here), and ``remat`` checkpoints each layer
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
-``cfg.attn_impl`` keeps ``naive`` and ``kernel``.  The vlm family takes
+The vlm family takes
 its precomputed patch embeddings as ``extra={"patches": [B, n_patches,
 d_patch]}`` (serving is text-only, as in the reference), the audio
 family its encoder's frame embeddings as ``extra={"frames": [B,
@@ -19,10 +19,12 @@ through the engine's per-slot path: a bucket's pads would enter their
 state, so :func:`serving_adapter` refuses them, as the reference's does.
 
 In-place updates (the reference's arrays are immutable; it donates
-buffers instead): :func:`decode_step` writes each new token's K/V, and
-the recurrent families' new SSM and conv states, into the cache it is
-given, and :func:`write_slot` / :func:`retire_slot` update the packed
-cache they are given and return it.
+buffers instead): :func:`decode_step` writes each new token's K/V (int8
+with fp16 scales under ``cfg.kv_quant``), and the recurrent families'
+new SSM and conv states, into the cache it is given, and
+:func:`write_slot` / :func:`retire_slot` update the packed cache they
+are given and return it.  ``cfg.attn_impl`` takes ``naive``,
+``chunked``, ``kernel`` and ``noscore`` as the reference's does.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (:func:`init_params`, :func:`serving_adapter`).
@@ -33,8 +35,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.synth import resolve_device
@@ -339,6 +341,11 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     h = _embed(params, cfg, tokens, extra)
     positions = torch.arange(S, device=dev).expand(B, S)
     cache = init_decode_cache(cfg, B, max_seq, dev)
+
+    def pad(x):     # [B, S, ...] -> [B, max_seq, ...], as the reference's
+        # pad_kv: a whole layer written, so a symbolic S (torch.export)
+        # meets no guard on the cache's strides
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (0, max_seq - S))
     if cfg.family == "audio":
         enc_out = _encode_audio(params, cfg, _frames(cfg, extra), use_kernel)
     shared = params.get("shared_attn")
@@ -357,10 +364,15 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         norm = L.layer_norm if cfg.family == "audio" else L.rms_norm
         q, k, v = L._qkv(lp["attn"], cfg, norm(lp["attn_norm"], h, eps),
                          positions)
-        o = L._attend(cfg, q, k, v, causal=True, use_kernel=use_kernel)
+        o = L._attend(cfg, q, k, v, causal=True, use_kernel=use_kernel,
+                      noscore=False)
         h = h + o.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-        cache["k"][c, :, :S] = k
-        cache["v"][c, :, :S] = v
+        if "k_scale" in cache:
+            (k, ks), (v, vs) = L.quantize_kv(k), L.quantize_kv(v)
+            cache["k_scale"][c] = pad(ks)
+            cache["v_scale"][c] = pad(vs)
+        cache["k"][c] = pad(k)
+        cache["v"][c] = pad(v)
         if cfg.family == "audio":
             kv = _cross_kv(lp, cfg, enc_out)
             h = h + _cross(lp, cfg, h, kv, positions, use_kernel)
@@ -387,10 +399,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> dict:
     """Zero cache for :func:`decode_step`: scalar ``len`` and the
-    family's leaves as :func:`prefill` describes them."""
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache (kv_quant) is not "
-                                  "ported yet")
+    family's leaves as :func:`prefill` describes them; with
+    ``cfg.kv_quant`` (dense, vlm, moe) K/V are int8 with fp16 scales
+    ``k_scale``/``v_scale`` ``[L, B, max_seq, nkv]`` beside them."""
+    if cfg.kv_quant and cfg.family in ("hybrid", "audio"):
+        raise ValueError(f"kv_quant applies to the attention-cache "
+                         f"families (dense, vlm, moe), not {cfg.family!r}")
     dev = torch.device(device)
     dt = torch_dtype(cfg)
     Lc, d = cfg.n_layers, cfg.d_model
@@ -407,8 +421,16 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
     if cfg.family != "ssm":
         n_kv = Lc // cfg.hybrid.attn_period if cfg.family == "hybrid" \
             else Lc
-        c["k"] = zeros(n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        c["v"] = zeros(n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        kv_dt = torch.int8 if cfg.kv_quant else dt
+        c["k"] = zeros(n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd,
+                       dtype=kv_dt)
+        c["v"] = zeros(n_kv, batch, max_seq, cfg.n_kv_heads, cfg.hd,
+                       dtype=kv_dt)
+        if cfg.kv_quant:
+            c["k_scale"] = zeros(n_kv, batch, max_seq, cfg.n_kv_heads,
+                                 dtype=torch.float16)
+            c["v_scale"] = zeros(n_kv, batch, max_seq, cfg.n_kv_heads,
+                                 dtype=torch.float16)
     if cfg.family == "audio":
         ctx = cfg.encdec.n_audio_ctx
         c["xk"] = zeros(Lc, batch, ctx, cfg.n_heads, cfg.hd)
@@ -440,7 +462,12 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             y, st, conv = L.mamba2_decode(
                 lp["mamba"], cfg, L.rms_norm(lp["norm"], h, eps),
                 cache["ssm"][i], cache["conv"][i])
-            cache["ssm"][i], cache["conv"][i] = st, conv
+            # into the stacked leaves, not through a view of layer i: a
+            # compiled step then writes them in place (layers.write_kv)
+            layer = torch.full((1,), i, device=h.device)
+            cache["ssm"].index_put_((layer,), st[None])
+            cache["conv"].index_put_((layer,), conv[None].to(
+                cache["conv"].dtype))
             h = h + y
             if not _shared_at(cfg, i):
                 continue
@@ -448,9 +475,13 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         else:
             c = i
         norm = L.layer_norm if cfg.family == "audio" else L.rms_norm
+        scales = (cache["k_scale"], cache["v_scale"]) if cfg.kv_quant \
+            else (None, None)
+        # the stacked leaves and the layer: written in place, not through
+        # a view (see layers.write_kv)
         h = h + L.attention_decode(
-            lp["attn"], cfg, norm(lp["attn_norm"], h, eps), cache["k"][c],
-            cache["v"][c], clen)
+            lp["attn"], cfg, norm(lp["attn_norm"], h, eps), cache["k"],
+            cache["v"], clen, *scales, layer=c)
         if cfg.family == "audio":
             # positions of zero: the cross-attention's q takes no RoPE
             h = h + _cross(lp, cfg, h, (cache["xk"][i], cache["xv"][i]),
@@ -471,6 +502,11 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 # Admission writes a prefilled request's rows into a slot, retirement
 # zeroes its length, and the decode step runs once per iteration over all
 # slots — live or dead — with dead slots marked by ``len == 0``.
+#
+# Every function here takes tensors only (indices as 0-d int32 tensors,
+# as the reference's ``sds((), int32)`` arguments), so ``torch.export``
+# can take each as it is: the engine compiles them through the compile
+# cache (``ServingEngine.warmup(cache=...)``), or calls them eagerly.
 
 def init_packed_cache(cfg: ModelConfig, slots: int, max_seq: int,
                       device) -> dict:
@@ -480,22 +516,33 @@ def init_packed_cache(cfg: ModelConfig, slots: int, max_seq: int,
     return c
 
 
+def _index(i, device) -> torch.Tensor:
+    """A row or slot index (a 0-d tensor, or an int) as the ``[1]`` int64
+    index ``index_select``/``index_copy_`` take."""
+    if isinstance(i, torch.Tensor):
+        return i.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.tensor([int(i)], device=device)
+
+
 def write_slot(packed: dict, cache: dict, row, slot) -> dict:
     """Copy row ``row`` of a prefill ``cache`` (per-row ``len`` form) into
-    slot ``slot`` of ``packed``, in place; returns ``packed``."""
-    row, slot = int(row), int(slot)
+    slot ``slot`` of ``packed``, in place, leaf by leaf (the int8 cache's
+    scales included); returns ``packed``.  ``row``/``slot``: 0-d int
+    tensors or ints."""
+    dev = packed["len"].device
+    row, slot = _index(row, dev), _index(slot, dev)
     for key, dst in packed.items():
-        if key == "len":
-            dst[slot] = cache["len"][row]
-        else:
-            dst[:, slot] = cache[key][:, row]
+        axis = 0 if key == "len" else 1
+        dst.index_copy_(axis, slot,
+                        cache[key].index_select(axis, row).to(dst.dtype))
     return packed
 
 
 def retire_slot(packed: dict, slot) -> dict:
     """Free a slot in place: zero its length.  Its stale K/V rows are dead
     weight (masked by ``len``) until the next admission overwrites them."""
-    packed["len"][int(slot)] = 0
+    n = packed["len"]
+    n.index_fill_(0, _index(slot, n.device), 0)
     return packed
 
 
@@ -529,11 +576,21 @@ class ServingAdapter:
     ``write_slot_fn(packed, cache, row, slot) -> packed``
     ``retire_fn(packed, slot) -> packed``
 
-    Token and length arguments arrive as host (numpy) arrays and ``step``
-    as an int; sampled tokens are returned as int32 tensors on
-    ``device``, which the engine copies to the host once per call.
-    ``step_fn``, ``write_slot_fn`` and ``retire_fn`` update ``packed`` in
-    place and return it.
+    Arguments are tensors on ``device`` (the engine moves tokens, lengths,
+    indices and ``step``, a 0-d int32 tensor, there); sampled tokens come
+    back as int32 tensors on ``device``, which the engine copies to the
+    host once per call.  ``step_fn``, ``write_slot_fn`` and ``retire_fn``
+    update ``packed`` in place and return it.
+
+    A model's adapter (:func:`serving_adapter`) also carries what the
+    engine compiles: ``params`` and the graphs ``prefill_graph(params,
+    tokens, true_len, step) -> (out, cache)`` and ``step_graph(params,
+    tokens, packed, step) -> out`` (``packed`` updated in place), whose
+    ``out`` is the tokens when greedy and the logits otherwise; ``draw(out,
+    step, lens=None)`` turns it into tokens (one eager call when sampling;
+    ``lens``, the packed lengths after a step, zeroes the dead slots).
+    ``prefill_fn``/``step_fn`` are the graphs called eagerly, then
+    ``draw``.  An adapter without graphs (a toy) serves eagerly only.
     """
     cfg: Optional[ModelConfig]
     max_seq: int
@@ -544,6 +601,10 @@ class ServingAdapter:
     temperature: float = 0.0
     top_k: int = 0
     device: Any = "cpu"
+    params: Any = None
+    prefill_graph: Any = None
+    step_graph: Any = None
+    draw: Any = None
 
     def init_slots(self, slots: int) -> dict:
         return init_packed_cache(self.cfg, slots, self.max_seq, self.device)
@@ -564,6 +625,12 @@ def serving_adapter(params: dict, cfg: ModelConfig, *, max_seq: int,
     into their state and the audio family needs its frames: they raise
     ``ValueError`` as the reference does (ssm and hybrid serve through
     the engine's per-slot path, :mod:`repro_torch.launch.serve`).
+
+    The weights are an argument of the graphs, not a constant inside
+    them: a compiled step holds none, and one copy on the card serves
+    every executable.  Greedy decoding takes its argmax inside the graph;
+    with ``temperature > 0`` the graphs return logits and the draw is one
+    eager call (a ``torch.Generator`` seeded from ``seed`` and the step).
     """
     if cfg.family not in BATCHED_FAMILIES:
         raise ValueError(
@@ -574,32 +641,42 @@ def serving_adapter(params: dict, cfg: ModelConfig, *, max_seq: int,
             dev.type == "cuda" and params["embed"].is_cuda):
         raise ValueError(f"serving_adapter: parameters lie on "
                          f"{params['embed'].device}, not {dev}")
+    greedy = temperature <= 0.0
 
-    def _sample(logits, step):
-        if temperature <= 0.0:
-            return sample_tokens(logits)
-        gen = torch.Generator(device=dev).manual_seed(
-            (seed * 1_000_003 + int(step)) % (2 ** 63))
-        return sample_tokens(logits, gen, temperature, top_k)
+    def prefill_graph(params, tokens, true_len, step):
+        logits, cache = prefill(params, cfg, tokens, max_seq=max_seq,
+                                true_len=true_len)
+        return (sample_tokens(logits) if greedy else logits), cache
 
-    def _dev(x) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(x, np.int32)).to(dev)
-
-    def prefill_fn(tokens, true_len, step):
-        logits, cache = prefill(params, cfg, _dev(tokens), max_seq=max_seq,
-                                true_len=_dev(true_len))
-        return _sample(logits, step), cache
-
-    def step_fn(tokens, packed, step):
+    def step_graph(params, tokens, packed, step):
         live = packed["len"] > 0
-        logits, _ = decode_step(params, cfg, _dev(tokens), packed)
+        logits, _ = decode_step(params, cfg, tokens, packed)
         # dead slots stay at len 0 (liveness is derived from it) and emit
         # a harmless pad token
         packed["len"].copy_(torch.where(live, packed["len"] + 1, 0))
-        nxt = _sample(logits, step)
-        return torch.where(live, nxt, 0).to(torch.int32), packed
+        if not greedy:
+            return logits
+        return torch.where(live, sample_tokens(logits), 0).to(torch.int32)
+
+    def draw(out, step, lens=None):
+        if greedy:
+            return out
+        gen = torch.Generator(device=dev).manual_seed(
+            (seed * 1_000_003 + int(step)) % (2 ** 63))
+        tok = sample_tokens(out, gen, temperature, top_k)
+        return tok if lens is None else torch.where(lens > 0, tok, 0)
+
+    def prefill_fn(tokens, true_len, step):
+        out, cache = prefill_graph(params, tokens, true_len, step)
+        return draw(out, step), cache
+
+    def step_fn(tokens, packed, step):
+        out = step_graph(params, tokens, packed, step)
+        return draw(out, step, packed["len"]), packed
 
     return ServingAdapter(cfg=cfg, max_seq=max_seq, prefill_fn=prefill_fn,
                           step_fn=step_fn, write_slot_fn=write_slot,
                           retire_fn=retire_slot, temperature=temperature,
-                          top_k=top_k, device=dev)
+                          top_k=top_k, device=dev, params=params,
+                          prefill_graph=prefill_graph, step_graph=step_graph,
+                          draw=draw)

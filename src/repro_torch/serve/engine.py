@@ -1,11 +1,18 @@
 """Serving engine: continuous batching built on TAPA channels.
 
 The port's copy of the reference's ``serve/engine.py``.  What differs:
-the step functions are eager PyTorch callables, not XLA executables —
-``warmup`` runs every serving shape once (so CUDA libraries and kernels
-load before the first request) and logs its source as ``"eager"``; the
-packed cache is updated in place by the adapter's functions; and step
-outputs come back as device tensors, copied to the host once per call.
+``warmup(cache=...)`` resolves the serving steps through the port's
+compile cache as the reference's does (an AOTInductor package on the
+card, the exported program on the CPU; the weights an input of each
+executable, not a constant inside it; one prefill executable for every
+batch size and bucket, its batch and length axes dynamic), while
+``warmup()`` with no cache runs every shape once eagerly and logs its
+source as ``"eager"`` (the reference's ``None`` means its default
+cache); the engine moves tokens, lengths, indices and the step counter
+to the device as tensors before a step function sees them; the packed
+cache is updated in place by the step functions (compiled or eager), as
+the reference's donation does; and step outputs come back as device
+tensors, copied to the host once per call.
 
 This subsystem uses the paper's two motivating APIs *as motivated*:
 
@@ -63,9 +70,11 @@ response to each, from least to most severe:
   inside it cannot be pinned on one request and may leave the cache
   torn: every live request gets a :class:`RequestError` and the packed
   cache is rebuilt from scratch.
-* **Batched path unavailable** — warmup raises (a kernel that does not
-  build or launch): the engine does not switch to the per-slot path on
-  its own; the per-slot path runs only when it is the one built.
+* **Batched path unavailable** — an eager warmup raises (a kernel that
+  does not build or launch) and a compiled one returns ``{"ok":
+  False}``: the engine does not switch to the per-slot path on its own;
+  the per-slot path runs only when it is the one built
+  (``launch/serve.py`` raises on a failed warmup).
 * **Preemption** — a ``stop_flag`` (wired to
   :class:`~repro_torch.ft.PreemptionGuard` by ``launch/serve.py``) makes the
   scheduler reject all queued/future admissions with ``"preempted"``
@@ -104,7 +113,10 @@ spent on it:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
+from functools import partial
+from pathlib import Path
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -183,6 +195,34 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _int32(x, device) -> torch.Tensor:
+    """A host value (numpy array, int) as an int32 tensor on ``device``."""
+    return torch.from_numpy(np.asarray(x, np.int32)).to(device)
+
+
+def _unbind(fn: Callable) -> tuple:
+    """``(f, bound)`` of a step function given as ``partial(f, *bound)``
+    (how a model's per-slot steps take their weights): ``f`` is what is
+    compiled, with ``bound`` as inputs, never as constants."""
+    if isinstance(fn, partial) and not fn.keywords:
+        return fn.func, fn.args
+    return fn, ()
+
+
+def _in_place(fn: Callable) -> Callable:
+    """``fn`` run for its in-place update only: the form the engine
+    compiles the slot write and retire in, so a compiled call returns
+    nothing that aliases the packed cache (a copy of its last argument,
+    the slot index: an exported program has an output)."""
+    def run(*args):
+        fn(*args)
+        return args[-1].clone()
+    return run
+
+
+_MODEL_SOURCES = ("models/lm.py", "models/layers.py", "kernels/ops.py")
+
+
 def _pow2_at_least(n: int, cap: int) -> int:
     b = 1
     while b < n and b < cap:
@@ -197,8 +237,14 @@ class ServingEngine:
     ``decode_fn(token[B], cache) -> (logits[B,V], cache)`` — typically the
     model steps; tests may pass toy closures.
 
+    Their tokens arrive as int32 host arrays, and as int32 tensors on
+    ``device`` (default: the CPU) where ``warmup(cache=...)`` compiled
+    them; a model's steps given as ``functools.partial(f, params)``
+    compile ``f`` with the weights as an input.
+
     Batched mode: pass ``batched=lm.serving_adapter(...)`` instead; the
-    decode loop runs one step call per iteration for all slots.
+    decode loop runs one step call per iteration for all slots, on the
+    adapter's device.
     """
 
     def __init__(self, scfg: ServeConfig, prefill_fn: Callable = None,
@@ -207,7 +253,8 @@ class ServingEngine:
                  stop_flag: Callable = None, journal: Any = None,
                  admission: Any = None, metrics: Any = None,
                  breaker: Any = None, clock: Callable = None,
-                 pace: Optional[str] = None, step_dt: float = 0.0):
+                 pace: Optional[str] = None, step_dt: float = 0.0,
+                 device: Any = None):
         self.scfg = scfg
         self.prefill_fn = prefill_fn
         self.decode_fn = decode_fn
@@ -215,6 +262,9 @@ class ServingEngine:
         self.batched = batched
         if batched is None and (prefill_fn is None or decode_fn is None):
             raise ValueError("need prefill_fn/decode_fn or batched=adapter")
+        self.device = torch.device(
+            device if device is not None
+            else batched.device if batched is not None else "cpu")
         # chaos harness (repro_torch.core.faults): poisoned/cancelled requests and
         # transient step failures; None in normal operation
         if faults is not None and not hasattr(faults, "serving_check"):
@@ -256,89 +306,247 @@ class ServingEngine:
             admission.clock = self.clock
         self.breaker = breaker             # admission.CircuitBreaker
         self.retry_log: list = []          # (site, attempt, error) tuples
-        # batched mode: step callables by shape key, and the shapes run
-        # so far with where each came from ("eager": run once, at warmup
-        # or at first use)
+        # per-slot mode: the steps compiled at warmup, and every decode
+        # that fell off the compiled path, (rid, reason)
+        self._aot_prefill: dict = {}       # (B, S) -> callable
+        self._aot_decode: Optional[tuple] = None   # (aval sig, callable)
+        self.fall_offs: list = []
+        # batched mode: step callables by shape key, and the shapes
+        # resolved so far with where each came from ("compiled",
+        # "memory", "disk": the compile cache; "eager": run once, at
+        # warmup or at first use, when no cache was given)
         self._exe: dict = {}
+        # kind -> (callable, source), once warmup compiled the steps
+        self._compiled: dict = {}
         self.compile_log: list = []        # (kind, shape, source) tuples
+        # the compiled steps' executables by kind (their artifact, bytes
+        # and export/compile/load seconds)
+        self.executables: dict = {}
 
     def buckets(self) -> tuple:
         return self.scfg.prefill_buckets or _default_buckets(
             self.scfg.max_seq)
 
-    # -- warmup: run every serving shape once -------------------------------
+    # -- warmup --------------------------------------------------------------
 
-    def warmup(self, prompt_len: int = 8, batch_sizes: tuple = (1,)) -> dict:
-        """Run the serving steps once at every shape a request can meet.
+    def warmup(self, prompt_len: int = 8, cache=None,
+               batch_sizes: tuple = (1,)) -> dict:
+        """Resolve the serving steps before the first request.
 
-        PyTorch runs eagerly, so there is nothing to compile ahead; what
-        the first request should not pay is the first call of each shape:
-        CUDA context and library loads, kernel builds, allocator growth.
-        Batched mode runs one prefill per (batch-size, bucket) —
-        ``batch_sizes`` x ``buckets()`` — plus the packed decode step,
-        one slot write per batch size and one retire, on a scratch packed
-        cache, and reports the source of each (``"eager"``; ``"pinned"``
-        if this engine already ran it).  Per-slot mode runs a single
-        ``(1, prompt_len)`` prefill and one decode.  A failure (a kernel
-        that does not build or launch) raises: the engine never switches
-        to another path on its own.
+        With ``cache`` (a :class:`~repro_torch.core.compile_cache.
+        CompileCache`) every step resolves through the compile cache, as
+        in the reference: a warm store (any earlier process that served
+        the same model and shapes) loads it, otherwise it is exported and
+        compiled once; the executables are pinned for the decode loop.
+        Batched mode resolves one prefill for every (batch size, bucket)
+        of ``batch_sizes`` x ``buckets()`` — one executable, dynamic in
+        both — plus the packed decode step, the slot write (dynamic in
+        the batch size) and the retire, and reports each (batch size,
+        bucket)'s source and the decode step's (``"compiled"``,
+        ``"memory"``, ``"disk"``).  Per-slot mode compiles a single
+        ``(1, prompt_len)`` prefill and the decode step.  A step that
+        cannot be exported (a toy closure over numpy) gives ``{"ok":
+        False, "reason": ...}``: a per-slot engine then serves eagerly;
+        a batched one has no such way round, and its caller should not
+        serve.
+
+        Without ``cache`` it runs every one of those shapes once, eagerly
+        (so CUDA libraries and kernels load before the first request),
+        and reports ``"eager"`` (``"pinned"`` where this engine already
+        ran it); a failure raises.
         """
-        if self.batched is not None:
-            return self._warmup_batched(batch_sizes)
         toks = np.zeros((1, prompt_len), np.int32)
-        _, kv = self.prefill_fn(toks)
-        self.decode_fn(np.zeros((1,), np.int32), kv)
-        return {"ok": True, "prefill": "eager", "decode": "eager"}
+        tok = np.zeros((1,), np.int32)
+        if cache is None:
+            if self.batched is not None:
+                return self._warmup_eager(batch_sizes)
+            _, kv = self.prefill_fn(toks)
+            self.decode_fn(tok, kv)
+            return {"ok": True, "prefill": "eager", "decode": "eager"}
+        if self.batched is not None:
+            return self._warmup_batched(cache, batch_sizes)
+        from ..core.compile_cache import aval_signature
+        dev = self.device
+        try:
+            # the decode's example cache from one eager prefill (on the
+            # tensor the compiled prefill takes), so the two compile
+            # together
+            _, kv = self.prefill_fn(_int32(toks, dev))
+            got = self._compile_all({
+                "prefill": (self.prefill_fn, (_int32(toks, dev),), None),
+                "decode": (self.decode_fn, (_int32(tok, dev), kv), None)},
+                cache)
+        except Exception as e:  # noqa: BLE001 - non-exportable step fns
+            return {"ok": False, "reason": repr(e)[:200]}
+        (pre, src_p), (dec, src_d) = got["prefill"], got["decode"]
+        # the per-slot loop hands its steps host arrays, as to the eager
+        # closures; the compiled ones take them on the device
+        self._aot_prefill[(1, prompt_len)] = \
+            lambda toks: pre(_int32(toks, dev))
+        self._aot_decode = (aval_signature((tok, kv), {}),
+                            lambda tok, cache: dec(_int32(tok, dev), cache))
+        return {"ok": True, "prefill": src_p, "decode": src_d}
 
-    def _warmup_batched(self, batch_sizes: tuple) -> dict:
+    def _compile_all(self, jobs: dict, cc) -> dict:
+        """``{kind: (fn, args, dynamic)}`` compiled through ``cc`` in one
+        batch with the serving key salt: ``{kind: (callable of args,
+        source)}`` (a ``partial``'s bound arguments, the weights, fed as
+        inputs); each executable is kept in :attr:`executables`."""
+        items, bound = [], []
+        for fn, args, dynamic in jobs.values():
+            f, b = _unbind(fn)
+            bound.append(b)
+            items.append((f, (*b, *args), None, self._key_salt(),
+                          None if dynamic is None
+                          else (None,) * len(b) + dynamic))
+        got = cc.compile_many(items, device=self.device)
+        out = {}
+        for kind, b, (exe, src) in zip(jobs, bound, got):
+            self.executables[kind] = exe
+            out[kind] = (partial(exe, *b), src)
+        return out
+
+    def _warmup_batched(self, cc, batch_sizes: tuple) -> dict:
         report: dict = {"ok": True, "buckets": {}, "decode": None}
-        n = self.scfg.batch_slots
+        try:
+            self._compile_batched(cc)
+            for L in self.buckets():
+                for bk in batch_sizes:
+                    _, src = self._resolve_prefill(bk, L)
+                    report["buckets"][f"{bk}x{L}"] = src
+            _, src = self._resolve_step()
+            report["decode"] = src
+            for bk in batch_sizes:
+                self._resolve_write(bk)
+            self._resolve_retire()
+        except Exception as e:  # noqa: BLE001 - the caller decides
+            return {"ok": False, "reason": repr(e)[:200]}
+        return report
+
+    def _compile_batched(self, cc) -> None:
+        """The adapter's four graphs through ``cc`` in one batch (a cold
+        store compiles their packages in parallel): the prefill, one
+        executable for every (batch size, bucket) — tokens ``[bk, L]``
+        and lengths ``[bk]`` dynamic in ``bk`` up to the slot count and
+        ``L`` up to ``max_seq`` —, the decode step, the slot write (the
+        prefill cache dynamic in ``bk``) and the retire, each wrapped to
+        the adapter's eager protocol in :attr:`_compiled`."""
+        from ..core.compile_cache import Dyn
+        a = self.batched
+        if a.prefill_graph is None:
+            raise TypeError("the adapter has no exportable graphs")
+        n, S = self.scfg.batch_slots, self.scfg.max_seq
+
+        def i32(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+        def bk(axis):
+            return Dyn(((axis, "bk", 1, n),)) if n > 1 else None
+        packed, cache = a.init_slots(n), a.init_slots(n)
+        got = self._compile_all({
+            "prefill": (partial(a.prefill_graph, a.params),
+                        (i32(n, S), i32(n), i32()),
+                        (Dyn(((0, "bk", 1, n),) * (n > 1)
+                             + ((1, "L", 1, S),)), bk(0), None)),
+            "decode_step": (partial(a.step_graph, a.params),
+                            (i32(n), packed, i32()), None),
+            "write_slot": (_in_place(a.write_slot_fn),
+                           (packed, cache, i32(), i32()),
+                           (None, {k: bk(0 if k == "len" else 1)
+                                   for k in cache}, None, None)),
+            "retire": (_in_place(a.retire_fn), (packed, i32()), None)},
+            cc)
+        pre, step, write, retire = (got[k][0] for k in got)
+
+        def prefill_fn(tokens, true_len, step_i):
+            out, cache = pre(tokens, true_len, step_i)
+            return a.draw(out, step_i), cache
+
+        def step_fn(tokens, packed, step_i):
+            out = step(tokens, packed, step_i)
+            return a.draw(out, step_i, packed["len"]), packed
+
+        def write_fn(packed, cache, row, slot):
+            write(packed, cache, row, slot)
+            return packed
+
+        def retire_fn(packed, slot):
+            retire(packed, slot)
+            return packed
+        self._compiled = {
+            "prefill": (prefill_fn, got["prefill"][1]),
+            "decode_step": (step_fn, got["decode_step"][1]),
+            "write_slot": (write_fn, got["write_slot"][1]),
+            "retire": (retire_fn, got["retire"][1])}
+
+    def _warmup_eager(self, batch_sizes: tuple) -> dict:
+        report: dict = {"ok": True, "buckets": {}, "decode": None}
+        n, dev = self.scfg.batch_slots, self.device
         scratch = self.batched.init_slots(n)
         caches = {}
+        zero = _int32(0, dev)
         for L in self.buckets():
             for bk in batch_sizes:
                 fn, src = self._resolve_prefill(bk, L)
-                _, caches[bk] = fn(np.zeros((bk, L), np.int32),
-                                   np.full((bk,), L, np.int32), 0)
+                _, caches[bk] = fn(_int32(np.zeros((bk, L)), dev),
+                                   _int32(np.full(bk, L), dev), zero)
                 report["buckets"][f"{bk}x{L}"] = src
         fn, src = self._resolve_step()
-        fn(np.zeros((n,), np.int32), scratch, 0)
+        fn(_int32(np.zeros(n), dev), scratch, zero)
         report["decode"] = src
         # the slot-maintenance steps, so the first admission wave runs
         # nothing for the first time
         for bk in batch_sizes:
-            self._resolve_write(bk)(scratch, caches[bk], 0, 0)
-        self._resolve_retire()(scratch, 0)
+            self._resolve_write(bk)(scratch, caches[bk], zero, zero)
+        self._resolve_retire()(scratch, zero)
         del scratch, caches
         _synchronize()
         return report
 
     # -- batched-mode step resolution ----------------------------------------
 
-    def _resolve(self, key: tuple, fn: Callable, kind: str, shape: tuple):
-        """The callable for one serving shape; the first resolution of a
-        shape is logged in :attr:`compile_log` with source ``"eager"``."""
+    @staticmethod
+    def _key_salt():
+        """Salt of every serving executable's key.  The reference's is its
+        env-selected decode-attention dispatch; the port's dispatch is the
+        device's, already in the key, so its salt is a digest of the model
+        code's sources: the structural digest follows a function's
+        references only so deep, and a traced step depends on all of
+        it."""
+        h = hashlib.sha256()
+        root = Path(__file__).resolve().parents[1]
+        for rel in _MODEL_SOURCES:
+            h.update((root / rel).read_bytes())
+        return ("serve", h.hexdigest()[:16])
+
+    def _resolve(self, key: tuple, kind: str, shape: tuple,
+                 eager: Callable):
+        """The callable for one serving shape and its source: the compiled
+        one after ``warmup(cache=...)`` (one executable may serve many
+        shapes), else ``eager``; logged in :attr:`compile_log` once an
+        engine, ``"pinned"`` after."""
         if key in self._exe:
             return self._exe[key], "pinned"
+        fn, src = self._compiled.get(kind, (eager, "eager"))
         self._exe[key] = fn
-        self.compile_log.append((kind, shape, "eager"))
-        return fn, "eager"
+        self.compile_log.append((kind, shape, src))
+        return fn, src
 
     def _resolve_prefill(self, bk: int, L: int):
-        return self._resolve(("prefill", bk, L), self.batched.prefill_fn,
-                             "prefill", (bk, L))
+        return self._resolve(("prefill", bk, L), "prefill", (bk, L),
+                             self.batched.prefill_fn)
 
     def _resolve_step(self):
-        return self._resolve(("step",), self.batched.step_fn, "decode_step",
-                             (self.scfg.batch_slots,))
+        return self._resolve(("step",), "decode_step",
+                             (self.scfg.batch_slots,), self.batched.step_fn)
 
     def _resolve_write(self, bk: int):
-        return self._resolve(("write", bk), self.batched.write_slot_fn,
-                             "write_slot", (bk,))[0]
+        return self._resolve(("write", bk), "write_slot", (bk,),
+                             self.batched.write_slot_fn)[0]
 
     def _resolve_retire(self):
-        return self._resolve(("retire",), self.batched.retire_fn, "retire",
-                             ())[0]
+        return self._resolve(("retire",), "retire", (),
+                             self.batched.retire_fn)[0]
 
     # -- task bodies ---------------------------------------------------------
 
@@ -814,13 +1022,33 @@ class ServingEngine:
 
     def _do_prefill(self, s: dict) -> None:
         toks = np.asarray(s["prompt"], np.int32)[None, :]
-        logits, s["cache"] = self.prefill_fn(toks)
+        prefill = self._aot_prefill.get(toks.shape, self.prefill_fn)
+        logits, cache = prefill(toks)
+        s["cache"] = cache
         s["next"] = int(np.argmax(_host(logits)[0]))
         self._note_tok(s, s["next"])
+        # decide the compiled-vs-eager decode once per slot, not per
+        # token (the cache's signature is fixed after prefill)
+        if self._aot_decode is not None:
+            from ..core.compile_cache import aval_signature
+            sig, exe = self._aot_decode
+            tok0 = np.zeros((1,), np.int32)
+            s["aot_decode"] = exe if aval_signature(
+                (tok0, cache), {}) == sig else None
 
     def _do_decode(self, s: dict) -> None:
         tok = np.asarray([s["next"]], np.int32)
-        logits, s["cache"] = self.decode_fn(tok, s["cache"])
+        decode = s.get("aot_decode") or self.decode_fn
+        try:
+            logits, s["cache"] = decode(tok, s["cache"])
+        except (TypeError, ValueError) as e:
+            # a decode_fn that reshapes its cache mid-stream falls off
+            # the compiled path instead of erroring; each fall-off is kept
+            if decode is self.decode_fn:
+                raise
+            self.fall_offs.append((s["rid"], repr(e)[:200]))
+            s["aot_decode"] = None
+            logits, s["cache"] = self.decode_fn(tok, s["cache"])
         s["next"] = int(np.argmax(_host(logits)[0]))
         self._note_tok(s, s["next"])
 
@@ -860,7 +1088,12 @@ class ServingEngine:
         slots: list[Optional[dict]] = [None] * n
         packed = self.batched.init_slots(n)
         step_exe, _ = self._resolve_step()
-        retire_exe = self._resolve_retire()
+        retire = self._resolve_retire()
+        dev = self.device
+        idx = [_int32(i, dev) for i in range(n)]  # slot indices, on device
+
+        def retire_exe(packed, i):
+            return retire(packed, idx[i])
         toks = np.zeros((n,), np.int32)    # reused host-side staging buffer
         shutdown = False
         step_i = 0
@@ -891,7 +1124,7 @@ class ServingEngine:
                 for i, s in enumerate(slots):
                     if s is not None and self._finished(s):
                         self._emit(out_chan, s["rid"], s["new"], slot=s)
-                        packed = retire_exe(packed, np.int32(i))
+                        packed = retire_exe(packed, i)
                         slots[i] = None
 
             # -- retire deadline-blown / cancelled slots before stepping --
@@ -901,7 +1134,7 @@ class ServingEngine:
                 ab = self._abnormal(s)
                 if ab is not None:
                     self._emit_err(out_chan, s["rid"], *ab, slot=s)
-                    packed = retire_exe(packed, np.int32(i))
+                    packed = retire_exe(packed, i)
                     slots[i] = None
 
             if not any(s is not None for s in slots):
@@ -921,7 +1154,8 @@ class ServingEngine:
                 if (self.admission is not None and not coop) else None
             try:
                 nxt, packed = self._call_step("decode", rids, step_exe,
-                                              toks, packed, np.int32(step_i),
+                                              _int32(toks, dev), packed,
+                                              _int32(step_i, dev),
                                               slots=slots)
             except PoisonError as e:
                 # raised before the step executed, so the packed cache is
@@ -930,7 +1164,7 @@ class ServingEngine:
                     if s is not None and s["rid"] == e.rid:
                         self._emit_err(out_chan, e.rid, "poisoned", str(e),
                                        slot=s)
-                        packed = retire_exe(packed, np.int32(i))
+                        packed = retire_exe(packed, i)
                         slots[i] = None
                 continue
             except BreakerOpen as e:
@@ -942,7 +1176,7 @@ class ServingEngine:
                     if s is not None:
                         self._emit_err(out_chan, s["rid"], "overloaded",
                                        str(e), slot=s)
-                        packed = retire_exe(packed, np.int32(i))
+                        packed = retire_exe(packed, i)
                         slots[i] = None
                 continue
             except Exception as e:  # noqa: BLE001 - unattributable failure
@@ -970,7 +1204,7 @@ class ServingEngine:
                 s["next"] = t
                 if self._finished(s):
                     self._emit(out_chan, s["rid"], s["new"], slot=s)
-                    packed = retire_exe(packed, np.int32(i))
+                    packed = retire_exe(packed, i)
                     slots[i] = None
 
     def _prefill_admit(self, newly: list, slots: list, packed,
@@ -980,7 +1214,7 @@ class ServingEngine:
         Prompts are right-padded to the smallest power-of-two bucket and
         same-bucket requests share one prefill call whose batch dimension
         is itself padded to a power of two — so the shape space stays
-        bounded and ``warmup`` can run every shape.  Returns
+        bounded and ``warmup`` can resolve every shape.  Returns
         ``(packed, step_i)``: the step counter advances once per prefill
         call so every sampler invocation draws from a distinct seed.
 
@@ -998,6 +1232,7 @@ class ServingEngine:
                      self.scfg.max_seq)
             groups.setdefault(L, []).append(s)
         free = iter(i for i, s in enumerate(slots) if s is None)
+        dev = self.device
         for L, grp in sorted(groups.items()):
             while grp:
                 bk = _pow2_at_least(len(grp), self.scfg.batch_slots)
@@ -1010,8 +1245,9 @@ class ServingEngine:
                 rids = [s["rid"] for s in grp]
                 try:
                     first, cache = self._call_step("prefill", rids, exe,
-                                                   toks, lens,
-                                                   np.int32(step_i),
+                                                   _int32(toks, dev),
+                                                   _int32(lens, dev),
+                                                   _int32(step_i, dev),
                                                    slots=grp)
                 except PoisonError as e:
                     bad = next(s for s in grp if s["rid"] == e.rid)
@@ -1033,8 +1269,8 @@ class ServingEngine:
                 write = self._resolve_write(bk)
                 for row, s in enumerate(grp):
                     slot = next(free)
-                    packed = write(packed, cache, np.int32(row),
-                                   np.int32(slot))
+                    packed = write(packed, cache, _int32(row, dev),
+                                   _int32(slot, dev))
                     s["next"] = int(first[row])
                     self._note_tok(s, s["next"])
                     slots[slot] = s

@@ -62,10 +62,10 @@ print(json.dumps({"compiled": rep.n_compiled,
 """
 
 
-def _run(prog: str) -> dict:
+def _run(prog: str, **env) -> dict:
     out = subprocess.run([sys.executable, "-c", prog], capture_output=True,
                          text=True, timeout=120, cwd=SRC,
-                         env={**os.environ, "PYTHONPATH": SRC})
+                         env={**os.environ, "PYTHONPATH": SRC, **env})
     assert out.returncode == 0, out.stderr
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -78,6 +78,35 @@ def test_serving_on_cpu_imports_neither_jax_nor_reference():
     """``repro_torch.launch.serve --device cpu`` on the reduced config
     serves every request and never imports jax, jaxlib or repro."""
     assert _run(SERVE) == {"rc": 0, "mods": []}
+
+
+COMPILED_SERVE = """
+import contextlib, io, json, sys
+from repro_torch.core.compile_cache import default_cache
+from repro_torch.launch.serve import serve
+runs = []
+for _ in range(2):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve(["--device", "cpu", "--requests", "2", "--max-new", "2",
+                    "--slots", "2", "--max-seq", "16"])
+    warm = [l for l in out.getvalue().splitlines()
+            if l.startswith("[serve] warmup:")][0]
+    runs.append([rc, "fresh-compile=-" in warm, warm.endswith("compiled")])
+    default_cache().clear_memory()     # the second run: from disk
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"runs": runs, "mods": mods}))
+"""
+
+
+def test_compiled_serving_on_cpu_imports_neither_jax_nor_reference(
+        tmp_path):
+    """``launch.serve --device cpu`` warms up through the compile cache:
+    the first run compiles every step, the second loads them all from
+    the store; neither imports jax, jaxlib or repro."""
+    assert _run(COMPILED_SERVE, REPRO_TORCH_COMPILE_CACHE=str(tmp_path)) \
+        == {"runs": [[0, False, True], [0, True, False]], "mods": []}
 
 
 MOE_VLM = """
