@@ -26,9 +26,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gaussian's 3-phase stencils), with every task dead, with the done flag
    set, at T = 1 and T = 1000, and with the flags a graph with async ports
    gives it, ``SWEEP_STATES`` random carries each and 40
-   launches back to back on one carry; its times at gemm's tables (per
-   call through a prepared handle, device time a launch, plain version)
-   beside its bound.  ``service_ports`` (the async ports' latency queues
+   launches back to back on one carry; with a partition's owner mask and
+   heads (phase 26's launches: the head and size moves of the tasks
+   fired on other partitions) at gemm's, gaussian's and the T = 1000
+   tables, heads and sizes compared too; its times at gemm's tables (per
+   call through a prepared handle, device time a launch, plain version),
+   without and with the mask, beside its bound.  ``service_ports`` (the async ports' latency queues
    and the sweep's commit) bit for bit on ``SERVICE_STATES`` random port
    carries a case and 40 chained launches (``SERVICE_CASES``: depths 1, 4
    and 8; rows of 8 B, 7 B, 60 B, 39 KiB and 256 KiB; response rings full;
@@ -299,6 +302,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    of the compiled prefill.  The three engines warm up together (one
    export at a time, the packages side by side in the compile processes
    phase 17 started, which this phase stops).
+26. partitioned synthesis — gemm and page_rank at phase 4's full widths
+   (``PARTITIONED``) through ``CompiledEngine(mesh=[cuda:0] * N)`` for N
+   in ``MESHES`` (2 and 4 partitions sharing the card, named explicitly),
+   placed on the port's own cost probes (``core/cost.py``,
+   ``core/floorplan.py``; memoized under a temporary
+   ``build/partition_cache_*``, deleted), and gemm over 2 with
+   ``MANUAL_PINS``: outputs bitwise equal to the single-device compiled
+   run of the same graph on the card, the same sweeps and fires, gemm on
+   more than one partition, the pins honoured; the ring kernels' counted
+   launches summed over the partitions equal to the firings' pops and
+   pushes, ``sweep_guards`` once a partition a replay, each partition's
+   sweep graph the guards, one node a (task, phase) it owns and its sweep
+   end; the async gemm (``FULL_ASYNC``) refused under a mesh, naming its
+   ports and tasks.  Printed: the cost probes' cells and seconds, the
+   placement (tasks a partition, cut channels and bytes, objective),
+   lowering and capture seconds, graph nodes a partition, host syncs,
+   sweeps/s and device us a sweep (CUDA events around each replay)
+   against the single-device run, the cut bytes copied a sweep.
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -709,34 +730,60 @@ def _guard_state(rng, tab: dict, how: str) -> tuple:
     return fires, sizes, [int(how == "done"), int(rng.integers(0, 100))]
 
 
+def _owner_mask(rng, tab: dict, parts: int = 2) -> tuple:
+    """A partition's owner mask (the tasks of partition 0 of ``parts``,
+    drawn at random) and heads inside each ring, as numpy."""
+    owned = rng.integers(0, parts, len(tab["totals"])) == 0
+    return owned, rng.integers(0, np.maximum(tab["caps"], 1))
+
+
+def _mask_args(mask) -> dict:
+    """``owned``/``heads`` keyword arguments of ``sweep_guards`` on the card,
+    a copy of their own (none without a mask)."""
+    if mask is None:
+        return {}
+    return dict(owned=torch.from_numpy(mask[0]).cuda(),
+                heads=torch.from_numpy(mask[1].astype(np.int32)).cuda())
+
+
 def check_sweep_guards(tag: str, tab: dict, how: str, seed: int) -> dict:
     """``SWEEP_STATES`` random carries through the kernel and through the
     plain version on the card, every output and the carry compared
     exactly; then one carry through 40 launches back to back (the kernel
-    reading what it wrote, no sync between) against 40 plain calls."""
+    reading what it wrote, no sync between) against 40 plain calls.  With
+    ``+owned`` each carry also has a partition's owner mask and heads: the
+    heads and sizes the kernel moves for the tasks fired elsewhere are
+    compared too."""
     from repro_torch.kernels import ring
     rng = np.random.default_rng(seed)
     fired = 0
     flags = lambda: [torch.zeros(2, dtype=torch.int32, device="cuda")] \
         if how.endswith("+flags") else []     # noqa: E731
+    owned = how.endswith("+owned")
     for _ in range(SWEEP_STATES):
         st = _guard_state(rng, tab, how)
+        mask = _owner_mask(rng, tab) if owned else None
         k, p = _guard_carry(tab, *st) + flags(), _guard_carry(tab, *st) + \
             flags()
-        ring.sweep_guards(*k)
-        ring.sweep_guards_plain(*p)
+        km, pm = _mask_args(mask), _mask_args(mask)
+        ring.sweep_guards(*k, **km)
+        ring.sweep_guards_plain(*p, **pm)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(k, p)):
+        if not all(torch.equal(a, b) for a, b in zip(
+                k + list(km.values()), p + list(pm.values()))):
             raise AssertionError(f"sweep_guards differs from plain: {tag}, "
                                  f"{how}")
         fired += int(k[8].sum())
     st = _guard_state(rng, tab, how)
+    mask = _owner_mask(rng, tab) if owned else None
     k, p = _guard_carry(tab, *st) + flags(), _guard_carry(tab, *st) + flags()
-    handle = ring.SweepGuards(*k)
+    km, pm = _mask_args(mask), _mask_args(mask)
+    handle = ring.SweepGuards(*k, **km)
     for _ in range(40):
         handle()
-        ring.sweep_guards_plain(*p)
+        ring.sweep_guards_plain(*p, **pm)
     torch.cuda.synchronize()
+    k, p = k + list(km.values()), p + list(pm.values())
     if not all(torch.equal(a, b) for a, b in zip(k, p)):
         raise AssertionError(f"40 chained sweep_guards launches differ from "
                              f"plain: {tag}, {how}")
@@ -746,19 +793,28 @@ def check_sweep_guards(tag: str, tab: dict, how: str, seed: int) -> dict:
                 fired=fired, chained_sweeps=int(k[6][1]), max_abs_err=0.0)
 
 
-def _guard_work(tab: dict, fires, sizes) -> tuple[int, int]:
+def _guard_work(tab: dict, fires, sizes, owned=None) -> tuple[int, int]:
     """Bytes and integer operations one ``sweep_guards`` call needs on
     this carry: each live task reads its counter, total, bounds, its
     row's two offsets, entries and the sizes they name; every task writes
-    its fire, phase and run row, a fired one its counter."""
+    its fire, phase and run row, a fired one its counter.  Under an owner
+    mask every task also reads its mask byte, and the heads and sizes of
+    each entry of a fired task it does not own are read and written (an
+    upper bound on fired: every live task)."""
     n_tasks, n_ph = len(tab["totals"]), tab["n_ph"]
     ph = (fires[:, None] >= tab["bounds"]).sum(1)
     rows = np.arange(n_tasks) * n_ph + ph
     live = fires < tab["totals"]
-    nnz = int((tab["row_ptr"][rows + 1] - tab["row_ptr"][rows])[live].sum())
+    per_row = tab["row_ptr"][rows + 1] - tab["row_ptr"][rows]
+    nnz = int(per_row[live].sum())
     nbytes = (n_tasks * (4 + 4 + 4 * (n_ph - 1) + 8) + 20 * nnz + 4
               + n_tasks * (n_ph + 1 + 4) + 4 * n_tasks + 8)
-    return nbytes, n_tasks * (n_ph - 1) + 3 * nnz + 3 * n_tasks
+    ops = n_tasks * (n_ph - 1) + 3 * nnz + 3 * n_tasks
+    if owned is not None:
+        moved = int(per_row[live & ~owned].sum())
+        nbytes += n_tasks + 16 * moved
+        ops += 3 * moved
+    return nbytes, ops
 
 
 def sweep_guard_phase(timing: dict) -> list:
@@ -783,7 +839,9 @@ def sweep_guard_phase(timing: dict) -> list:
                   ("gemm", "random"), ("gaussian", "random"),
                   ("gemm", "dead"), ("gemm", "done"), ("T=1", "random"),
                   ("T=1000", "random"), ("T=1000", "done"),
-                  ("gemm", "random+flags"), ("gemm", "done+flags")])]
+                  ("gemm", "random+flags"), ("gemm", "done+flags"),
+                  ("gemm", "random+owned"), ("gaussian", "random+owned"),
+                  ("T=1000", "random+owned")])]
     for c in checks:
         log(f"kernels: sweep_guards exact at {c['case']} ({c['tasks']} tasks "
             f"x {c['phases']} phases, {c['channels']} channels, {c['nnz']} "
@@ -802,11 +860,29 @@ def sweep_guard_phase(timing: dict) -> list:
                     warm=10)
     nb, ops = _guard_work(tab, st[0], st[1])
     bnd, by = bound_ms(nb, ops)
+    shape = (f"gemm {len(tab['totals'])} tasks x {tab['n_ph']} phases, "
+             f"{len(tab['caps'])} channels")
     timing["sweep_guards"] = [dict(
-        shape=f"gemm {len(tab['totals'])} tasks x {tab['n_ph']} phases, "
-              f"{len(tab['caps'])} channels", ms=ms, device_ms=dev,
-        plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
-        bytes=nb, ops=ops)]
+        shape=shape, ms=ms, device_ms=dev, plain_ms=plain, library_ms=None,
+        bound_ms=bnd, bound_by=by, bytes=nb, ops=ops)]
+    # with a partition's owner mask (phase 26's launches): the moves of the
+    # tasks fired elsewhere on top, each timed call on a carry of its own
+    mask = _owner_mask(np.random.default_rng(12), tab)
+    hs = [ring.SweepGuards(*_guard_carry(tab, *st), **_mask_args(mask))
+          for _ in range(n)]
+    ms = time_ms(lambda i: hs[i]())
+    hs = [ring.SweepGuards(*_guard_carry(tab, *st), **_mask_args(mask))
+          for _ in range(n)]
+    dev = _counted_device_ms(lambda i: hs[i](), "sweep_guards_kernel",
+                             "sweep_guards", n)
+    ps = [(_guard_carry(tab, *st), _mask_args(mask)) for _ in range(60)]
+    plain = time_ms(lambda i: ring.sweep_guards_plain(*ps[i][0], **ps[i][1]),
+                    reps=50, warm=10)
+    nb_m, ops_m = _guard_work(tab, st[0], st[1], mask[0])
+    bnd, by = bound_ms(nb_m, ops_m)
+    timing["sweep_guards"].append(dict(
+        shape=shape + ", owner mask", ms=ms, device_ms=dev, plain_ms=plain,
+        library_ms=None, bound_ms=bnd, bound_by=by, bytes=nb_m, ops=ops_m))
     return checks
 
 
@@ -4571,9 +4647,262 @@ def compiled_vs_cpu() -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 26: partitioned synthesis, partitions sharing the card
+# ---------------------------------------------------------------------------
+
+# gemm and page_rank at phase 4's full widths, placed over 2 and 4
+# partitions of one card (an explicit device list: nothing picks a shared
+# card silently), and gemm over 2 with two tasks pinned
+PARTITIONED = {"gemm": FULL["gemm"], "page_rank": FULL["page_rank"]}
+MESHES = (2, 4)
+MANUAL_PINS = {"PE0_0": 0, "PE1_1": 1}
+
+
+def _partitioned_run(name: str, built: tuple, mesh, pins, cache) -> dict:
+    """One run of ``name``'s graph (``built``: what ``build_step`` returned)
+    through the compiled engine on the card (``mesh=None``: the
+    single-device run), its outputs zeroed first, its launch counts zeroed
+    just before and read just after, CUDA events around each replay of a
+    sweep graph; its outputs, as the engine left them."""
+    from repro_torch import ENGINES
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    top, args, check = built
+    for m in (args[2] if name == "gemm" else [args[1]]):
+        m.data.zero_()
+    eng = ENGINES["compiled"](device="cuda", mesh=mesh, placement=pins,
+                              cache=cache)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with _TimedReplays() as tr:
+        rep = eng.run(top, *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: launch_counts().get(k, 0) for k in REPLACES}
+    graph_s = tr.device_s()[0]
+    correct, err = check() if rep.ok else (False, float("nan"))
+    if not (rep.ok and correct):
+        raise AssertionError(f"partitioned {name} mesh={mesh}: the run or "
+                             f"check() failed: {rep.error} err={err}")
+    return dict(eng=eng, rep=rep, out=_outputs(name, args).clone(),
+                wall_s=wall, launches=launches, graph_s=graph_s,
+                max_err=err)
+
+
+def _fired(r: dict) -> tuple:
+    """A run's sweeps, each task's end state, each channel's tokens read
+    and written (the firing counters times each phase's rates) and the
+    ring ops the firings made."""
+    import re
+    rep, eng = r["rep"], r["eng"]
+    return (rep.switches, rep.tokens,
+            [(re.sub(r"#\d+", "", n), st) for n, st in rep.instances],
+            sorted((c.name, c.total_read, c.total_written)
+                   for c in eng.channel_set), eng.ring_ops)
+
+
+def _partition_gates(tag: str, r: dict, gold: dict, n: int, plan) -> None:
+    """Phase 26's gates on one partitioned run against the single-device
+    run of the same graph on the card."""
+    eng = r["eng"]
+    if not torch.equal(r["out"], gold["out"]):
+        raise AssertionError(f"{tag}: outputs differ from the single-device "
+                             f"run: max |d| "
+                             f"{(r['out'] - gold['out']).abs().max():.3e}")
+    if _fired(r) != _fired(gold):
+        raise AssertionError(f"{tag}: sweeps {r['rep'].switches} or fires "
+                             f"differ from the single-device run's "
+                             f"{gold['rep'].switches}")
+    want = dict(eng.ring_ops, sweep_guards=n * eng.n_replays,
+                service_ports=0)
+    if r["launches"] != want:
+        raise AssertionError(f"{tag}: the kernels counted {r['launches']} "
+                             f"launches on the card; the partitions' "
+                             f"replays and the firings make {want}")
+    pl = eng.placement_used
+    bodies = [sum(len(tp.phases) for tp, o in zip(plan.tasks, pl.owners)
+                  if o == p) for p in range(n)]
+    if eng.partition_nodes != [1 + b + 1 for b in bodies]:
+        raise AssertionError(f"{tag}: sweep graphs of {eng.partition_nodes} "
+                             f"nodes; the guards, {bodies} bodies and the "
+                             f"sweep end make {[b + 2 for b in bodies]}")
+    if not (eng.n_replays > 0 and eng.n_host_syncs <= eng.n_blocks + 1):
+        raise AssertionError(f"{tag}: {eng.n_replays} replays, "
+                             f"{eng.n_host_syncs} host syncs in "
+                             f"{eng.n_blocks} blocks")
+
+
+def partitioned_phase() -> dict:
+    """Phase 26: gemm and page_rank at full width, each placed over 2 and
+    4 partitions sharing the card on the port's own cost probes, and
+    gemm over 2 with ``MANUAL_PINS``: bit-identical to the single-device
+    run on the card, the same sweeps and fires, the counted ring launches
+    summed over the partitions equal to the firings' pops and pushes,
+    ``sweep_guards`` once a partition a replay, each partition's graph
+    the guards, its own bodies and its sweep end; gemm over more than one
+    partition, the pins honoured; the async gemm refused under a mesh.
+    Recorded: the cost probes' cells and seconds, the placement, lowering
+    and capture seconds, host syncs, sweeps/s and device us a sweep (CUDA
+    events around each replay) against the single-device run, and the
+    cut bytes copied a sweep.  Each app is built once (page_rank's build
+    takes seconds) and its outputs zeroed before each run.  The
+    placements are memoized in a compile cache under a temporary
+    ``build/partition_cache_*`` (deleted)."""
+    import shutil
+    from repro_torch import ENGINES, SynthesisError
+    from repro_torch.apps import APPS
+    from repro_torch.core import cost
+    from repro_torch.core.compile_cache import CompileCache
+    from repro_torch.core.synth import elaborate_step_graph
+    root = ROOT / "build" / f"partition_cache_{os.getpid()}"
+    cc = CompileCache(root=root)
+    card = [torch.device("cuda", torch.cuda.current_device())]
+    out = {}
+    try:
+        for name, kw in PARTITIONED.items():
+            built = APPS[name].build_step(device="cuda", **kw)
+            plan, _, _ = elaborate_step_graph(built[0], *built[1])
+            cost.clear_cost_cells()
+            t0 = time.perf_counter()
+            costs = [cost.task_cost(plan, tp, cache=cc)["seconds"]
+                     for tp in plan.tasks]
+            probe_s = time.perf_counter() - t0
+            cells = len(cost._CELLS)
+            log(f"partitioned {name}: cost probes {cells} cells in "
+                f"{probe_s:.3f} s for {len(plan.tasks)} tasks (roofline "
+                f"{min(costs) * 1e6:.3f}-{max(costs) * 1e6:.3f} us a task)")
+            rows = {}
+            runs = [("single", None, None)] + [
+                (f"mesh={n}", n, None) for n in MESHES]
+            if name == "gemm":
+                runs.append(("mesh=2 manual", 2, MANUAL_PINS))
+            runs.append(("single again", None, None))
+            for tag, n, pins in runs:
+                r = _partitioned_run(name, built, n and card * n, pins, cc)
+                eng = r["eng"]
+                if n is None:       # the single-device run, before and after
+                    if tag == "single":
+                        gold = r
+                    if not (torch.equal(r["out"], gold["out"])
+                            and _fired(r) == _fired(gold)):
+                        raise AssertionError(f"partitioned {name}: two "
+                                             f"single-device runs differ")
+                    rows[tag] = dict(
+                        sweeps=eng.n_sweeps, wall_s=r["wall_s"],
+                        program_s=eng.program_s, lower_s=eng.lower_s,
+                        capture_s=eng.capture_s, replays=eng.n_replays,
+                        host_syncs=eng.n_host_syncs,
+                        graph_nodes=eng.n_graph_nodes,
+                        sweeps_per_s=eng.n_sweeps / eng.program_s,
+                        device_us_per_sweep=r["graph_s"] / eng.n_sweeps * 1e6,
+                        launches=r["launches"])
+                    log(f"partitioned {name} {tag}: {eng.n_sweeps} sweeps, "
+                        f"{rows[tag]['sweeps_per_s']:.1f} sweeps/s, device "
+                        f"{rows[tag]['device_us_per_sweep']:.1f} us a sweep"
+                        f", lower {eng.lower_s:.3f} s, capture "
+                        f"{eng.capture_s:.3f} s, {eng.n_graph_nodes} graph "
+                        f"nodes, {eng.n_host_syncs} host syncs")
+                    continue
+                _partition_gates(f"partitioned {name} {tag}", r, gold, n,
+                                 plan)
+                pl = eng.placement_used
+                if name == "gemm" and len(set(pl.owners)) < 2:
+                    raise AssertionError(f"partitioned gemm {tag}: every "
+                                         f"task on one partition")
+                byname = dict(zip(pl.task_names, pl.owners))
+                if pins and any(byname[k] != v for k, v in pins.items()):
+                    raise AssertionError(f"partitioned gemm {tag}: pins "
+                                         f"{pins} not honoured: "
+                                         f"{ {k: byname[k] for k in pins} }")
+                per = [int(sum(1 for o in pl.owners if o == p))
+                       for p in range(n)]
+                ob = pl.objective
+                row = dict(
+                    partitions=n, pins=pins, source=eng.partition_source,
+                    tasks_per_partition=per, owners=list(pl.owners),
+                    cut_channels=len(ob["cut_channels"]),
+                    cut_bytes_run=ob["cut_bytes"],
+                    objective_s=ob["objective_s"],
+                    max_load_s=ob["max_load_s"], loads_s=ob["loads_s"],
+                    place_s=eng.place_s, lower_s=eng.lower_s,
+                    capture_s=eng.capture_s, program_s=eng.program_s,
+                    wall_s=r["wall_s"], sweeps=eng.n_sweeps,
+                    replays=eng.n_replays, blocks=eng.n_blocks,
+                    host_syncs=eng.n_host_syncs,
+                    graph_nodes=eng.partition_nodes,
+                    sweeps_per_s=eng.n_sweeps / eng.program_s,
+                    device_us_per_sweep=r["graph_s"] / eng.n_sweeps * 1e6,
+                    cut_bytes_per_sweep=eng.cut_bytes,
+                    launches=r["launches"])
+                rows[tag] = row
+                single = rows["single"]
+                log(f"partitioned {name} {tag}: bit-identical to the "
+                    f"single-device run; placed ({eng.partition_source}, "
+                    f"{eng.place_s:.3f} s) {per} tasks a partition, "
+                    f"{row['cut_channels']} cut channels, "
+                    f"{ob['cut_bytes']} cut bytes over the run, objective "
+                    f"{ob['objective_s'] * 1e6:.3f} us (max load "
+                    f"{ob['max_load_s'] * 1e6:.3f} us); lower "
+                    f"{eng.lower_s:.3f} s, capture {eng.capture_s:.3f} s, "
+                    f"graph nodes {eng.partition_nodes}; {eng.n_sweeps} "
+                    f"sweeps, {eng.n_replays} replays, {eng.n_host_syncs} "
+                    f"host syncs; {row['sweeps_per_s']:.1f} sweeps/s "
+                    f"(single {single['sweeps_per_s']:.1f}), device "
+                    f"{row['device_us_per_sweep']:.1f} us a sweep (single "
+                    f"{single['device_us_per_sweep']:.1f}); "
+                    f"{eng.cut_bytes} cut bytes copied a sweep; launches "
+                    f"{r['launches']} (counted on the card)")
+                del r, eng
+            out[name] = dict(cost_cells=cells, cost_probe_s=probe_s,
+                             tasks=len(plan.tasks),
+                             channels=len(plan.channels), runs=rows)
+            del built
+        top, args, _ = APPS["gemm"].build_step_async(device="cuda",
+                                                      **FULL_ASYNC["gemm"])
+        ports = [p.name for p in (*args[1], *args[2])]
+        try:
+            ENGINES["compiled"](device="cuda", mesh=card * 2,
+                                cache=False).run(top, *args)
+        except SynthesisError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("partitioned gemm async: not refused")
+        P = FULL_ASYNC["gemm"]["P"]
+        named = [f"AFetch{i}" for i in range(P)] + \
+            [f"CStore{i}" for i in range(P)]
+        if not ("does not cover async_mmap ports" in msg
+                and all(f"'{t}'" in msg for t in named + ports)):
+            raise AssertionError(f"partitioned gemm async: refused without "
+                                 f"naming its ports and tasks: {msg}")
+        out["async_refused"] = msg
+        log(f"partitioned gemm async: refused under mesh=[cuda]*2: "
+            f"{msg[:160]}...")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def owner_mask_checks() -> list:
+    """Phase 3's owner-mask cases of ``sweep_guards`` alone (``--only
+    26``): the kernel against its plain version at gemm's full-size
+    tables, exactly."""
+    from repro_torch.apps import APPS
+    from repro_torch.core.synth import elaborate_step_graph
+    top, args, _ = APPS["gemm"].build_step(device="cuda", **FULL["gemm"])
+    tab = _sweep_tables(elaborate_step_graph(top, *args)[0])
+    c = check_sweep_guards("gemm", tab, "random+owned", 9)
+    log(f"kernels: sweep_guards exact at gemm with an owner mask: "
+        f"{SWEEP_STATES} carries ({c['fired']} firings) and 40 chained "
+        f"launches")
+    return [c]
+
+
 def run_only(phases: set, phase) -> int:
     """``--only 8,24,25``: the build, then only the named phases among
-    17, 8, 24 and 25 (a development run: no kernels line, no result line);
+    17, 8, 24, 25 and 26 (26 with phase 3's owner-mask checks of
+    ``sweep_guards`` first; a development run: no kernels line, no result
+    line);
     what they return goes to ``chiprun_out/chip_smoke_only.json``."""
     from repro_torch.core.compile_cache import shutdown_workers
     out = {}
@@ -4589,6 +4918,9 @@ def run_only(phases: set, phase) -> int:
         if "25" in phases:
             out["compiled_vs_cpu"] = phase("25 compiled card vs cpu",
                                            compiled_vs_cpu)
+        if "26" in phases:
+            out["owner_mask"] = phase("26 owner mask", owner_mask_checks)
+            out["partitioned"] = phase("26 partitioned", partitioned_phase)
     finally:
         shutdown_workers()
     out_dir = ROOT / "chiprun_out"
@@ -4760,6 +5092,11 @@ def main() -> int:
     compiled_cpu = phase("25 compiled card vs cpu", compiled_vs_cpu)
     from repro_torch.core.compile_cache import shutdown_workers
     shutdown_workers()
+    # 26: partitioned synthesis, partitions sharing the card
+    partitioned = phase("26 partitioned", partitioned_phase)
+    part_launches = {k: sum(r["launches"][k] for app in PARTITIONED
+                            for t, r in partitioned[app]["runs"].items()
+                            if t.startswith("mesh")) for k in REPLACES}
     compiled_dev_us = {
         "flash_attention": compiled["step_alone"]["prefill_1024"][
             "flash_per_launch_us"],
@@ -4780,7 +5117,8 @@ def main() -> int:
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
-            device_ms=head["device_ms"], shape=head["shape"], by_shape=rows))
+            device_ms=head["device_ms"], shape=head["shape"], by_shape=rows,
+            launches_partitioned=part_launches[name]))
     for name, rows in attn_timing.items():
         head = rows[0]
         kernels.append(dict(
@@ -4830,7 +5168,7 @@ def main() -> int:
         recurrent_serving=recurrent, whisper=whisper,
         recurrent_audio_card_vs_cpu=recurrent_cpu,
         compiled_serving=compiled, compiled_card_vs_cpu=compiled_cpu,
-        kernel_resources=resources,
+        partitioned=partitioned, kernel_resources=resources,
         phase_seconds=seconds), indent=1))
     print(smi)
     line = json.dumps({"kernels": kernels})

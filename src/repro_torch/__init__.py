@@ -28,7 +28,9 @@ The public API mirrors the reference's::
 
 Step-form graphs (:class:`StepTask` leaves) also run under
 ``CompiledEngine``, which synthesizes them to ring buffers on the card
-(``device=None`` means CUDA; pass ``device="cpu"`` to run on the CPU).
+(``device=None`` means CUDA; pass ``device="cpu"`` to run on the CPU);
+``CompiledEngine(mesh=N)`` places it over N partitions on per-task costs
+(``plan_placement``), bit-identical to the single-device run.
 ``invoke(Top, ..., target="compiled")`` and ``compile_stages`` compile a
 graph's stage definitions once each through the compile cache
 (AOTInductor packages on the card, exported programs on the CPU).
@@ -41,7 +43,8 @@ from .core import (EOT, Channel, IStream, OStream, channel, select, run,
                    Deadlock, DeadlockError, DeadlockReport,
                    SequentialSimulationError, EndOfTransaction,
                    ChannelMisuse, ChannelInfo, CompiledEngine, StepTask,
-                   SynthesisError, to_torch_state)
+                   SynthesisError, to_torch_state, HW, task_cost, Placement,
+                   placement_key, plan_placement)
 
 __all__ = [
     "EOT", "Channel", "IStream", "OStream", "channel", "select", "run",
@@ -51,5 +54,6 @@ __all__ = [
     "Deadlock", "DeadlockError", "DeadlockReport",
     "SequentialSimulationError", "EndOfTransaction", "ChannelMisuse",
     "ChannelInfo", "CompiledEngine", "StepTask", "SynthesisError",
-    "to_torch_state",
+    "to_torch_state", "HW", "task_cost", "Placement", "placement_key",
+    "plan_placement",
 ]

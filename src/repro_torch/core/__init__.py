@@ -3,7 +3,8 @@
 C1: channels with peek/EoT/transactions + typed task interfaces
     (streams / mmap / async_mmap / scalar) + hierarchical instantiation
 C2: universal software simulation (sequential / thread / coroutine engines)
-C3: whole-graph synthesis to device ring buffers (``CompiledEngine``), and
+C3: whole-graph synthesis to device ring buffers (``CompiledEngine``; over
+    partitions placed on per-task costs with ``mesh=``), and
     hierarchical code generation of stage graphs through the compile cache
     (``compile_stages``, ``invoke(target="compiled")``)
 """
@@ -30,6 +31,8 @@ from .interface import (AsyncMMap, Interface, InterfaceBinding, MMap,
                         Scalar, async_mmap, mmap, scalar)
 from .synth import (CompiledEngine, StepTask,   # registers ENGINES["compiled"]
                     elaborate_step_graph, to_torch_state)
+from .cost import HW, task_cost
+from .floorplan import Placement, placement_key, plan_placement
 from .task import TaskBuilder, TaskInstance, task
 from .invoke import invoke
 
@@ -50,5 +53,6 @@ __all__ = [
     "CacheStats", "CompileCache", "default_cache", "set_default_cache",
     "instance_key", "lower_spec", "runtime_value", "CompileReport",
     "DataflowProgram", "StageInstance", "build_dataflow", "compile_stages",
-    "diff_definitions", "invoke",
+    "diff_definitions", "invoke", "HW", "task_cost", "Placement",
+    "placement_key", "plan_placement",
 ]

@@ -1040,8 +1040,9 @@ class _Capture:
     on a side stream), all in one memory pool: a body's temporaries are
     dead when it ends, and the sweep runs the bodies one after another,
     so they may share memory.  ``graphs`` holds ``(row, graph)`` with
-    ``row = t * P + p``; ``tail`` the graph of the port service (a graph
-    with async ports), which runs after the bodies unconditionally."""
+    ``row = t * P + p``; ``tail`` the graph of what runs after the bodies
+    unconditionally: the port service of a graph with async ports, or a
+    partition's sweep end (:class:`_PartitionedProgram`)."""
 
     def __init__(self, plan: _Plan, device: torch.device, mode: str,
                  n_ph: int):
@@ -1079,8 +1080,8 @@ class _Capture:
         self.graphs.append((ti * self.n_ph + pi, graph))
 
     @contextlib.contextmanager
-    def port_service(self):
-        with self._graph("the port service") as graph:
+    def tail_graph(self, what: str):
+        with self._graph(what) as graph:
             yield
         self.tail = graph
 
@@ -1264,6 +1265,14 @@ class _SweepProgram:
     chunk-local sweep counter, then the due stamps rebased and the carry
     read to the host.
 
+    Given ``owned`` (a bool a task), the program is one partition of a
+    :class:`_PartitionedProgram`: its guards take the owner mask (they
+    also move the heads and sizes of the tasks fired on other
+    partitions), its sweep runs the bodies of its own tasks only, and its
+    tail is the sweep end (:meth:`_sweep_end`): the highwater marks
+    sampled from the sweep-end sizes, then the cut rings in
+    :attr:`copies`.
+
     After a run: ``capture_s`` (host seconds capturing, 0 on the CPU),
     ``n_captures`` (0 on the CPU), ``n_replays`` (sweeps replayed, those
     past the end included), ``n_blocks`` and ``n_host_syncs`` (one a block
@@ -1274,8 +1283,9 @@ class _SweepProgram:
     included (:mod:`..kernels.dispatch`).
     """
 
-    def __init__(self, plan: _Plan, device: torch.device):
-        self.plan, self.device = plan, device
+    def __init__(self, plan: _Plan, device: torch.device,
+                 owned: Optional[list] = None):
+        self.plan, self.device, self.owned = plan, device, owned
         need_r, need_w, bounds, self.n_ph = _guard_tables(plan)
         caps = [c.capacity for c in plan.channels]
         n_tasks = len(plan.tasks)
@@ -1298,6 +1308,9 @@ class _SweepProgram:
         totals = np.asarray([tp.total for tp in plan.tasks], np.int32)
         self._tables = [torch.from_numpy(a).to(device)
                         for a in (totals, bounds, row_ptr, entries)]
+        self._owned = None if owned is None else torch.tensor(
+            owned, dtype=torch.bool, device=device)
+        self.copies: list = []      # a partition's (dst, src) cut rings
         self.carry: Optional[_Carry] = None
         self.capture_s = 0.0
         self.n_replays = self.n_blocks = self.n_host_syncs = 0
@@ -1317,30 +1330,39 @@ class _SweepProgram:
             self.close()
 
     def prepare(self, states0: tuple, mmaps0: tuple,
-                ports0: tuple = ()) -> None:
+                ports0: tuple = (), capture: bool = True) -> None:
         """Build the carry from ``states0``/``mmaps0``/``ports0``, the
         guards, the port service and the bodies' views, and, on the card,
         capture the sweep's graph: once for a run, however many chunks it
-        takes (:meth:`run_chunk`).  :meth:`close` ends it."""
+        takes (:meth:`run_chunk`).  :meth:`close` ends it.  A partition
+        (``owned``) binds the views of its own tasks only, and its caller
+        captures it (``capture=False``) once every partition's carry
+        exists, since its sweep end copies rings between them."""
         c = self.carry = _Carry(self.plan, self.device, states0, mmaps0,
                                 self.n_ph, ports0)
         self._guards = SweepGuards(*self._tables, c.sizes, c.fires, c.state,
                                    c.run, c.fire, c.phase,
-                                   c.flags if c.ports else None)
-        self._service = ServicePorts(c.ports, c.rings, c.heads, c.sizes,
-                                     c.maxocc, c.state, c.flags) \
-            if c.ports else None
-        self._views = [_bind_views(self.plan, tp, c.ctx, None)
-                       for tp in self.plan.tasks]
+                                   c.flags if c.ports else None, self._owned,
+                                   None if self.owned is None else c.heads)
+        if c.ports:
+            self._tail = ServicePorts(c.ports, c.rings, c.heads, c.sizes,
+                                      c.maxocc, c.state, c.flags)
+        else:
+            self._tail = None if self.owned is None else self._sweep_end
+        mine = [self.owned is None or self.owned[ti]
+                for ti in range(len(self.plan.tasks))]
+        self._views = [_bind_views(self.plan, tp, c.ctx, None) if mine[ti]
+                       else None for ti, tp in enumerate(self.plan.tasks)]
         self._bodies = [(ti, pi, c.run[ti, pi])
-                        for ti, tp in enumerate(self.plan.tasks)
+                        for ti, tp in enumerate(self.plan.tasks) if mine[ti]
                         for pi in range(len(tp.phases))]
         self._own = [{x.untyped_storage().data_ptr() for x in _leaves(st)}
                      for st in c.states]
         self._blocks = _block_sizes()
         if self.device.type == "cuda":
             self._flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
-            self._build_graph()
+            if capture:
+                self._build_graph()
 
     def close(self) -> None:
         """Destroy the sweep's graph once the device is idle: no replay may
@@ -1441,10 +1463,12 @@ class _SweepProgram:
             with _if_node(pred, capture, (ti, pi)) as taken:
                 if taken:
                     self._fire(ti, pi, capture is not None)
-        if self._service is not None:
-            with capture.port_service() if capture is not None else \
-                    contextlib.nullcontext():
-                self._service()
+        if self._tail is not None:
+            with capture.tail_graph(
+                    "the port service" if self.owned is None else
+                    "the partition's sweep end") if capture is not None \
+                    else contextlib.nullcontext():
+                self._tail()
 
     def _fire(self, ti: int, pi: int, capturing: bool) -> None:
         tp, c = self.plan.tasks[ti], self.carry
@@ -1463,10 +1487,20 @@ class _SweepProgram:
                 f"({type(e).__name__}: {e}); a phase body must not read a "
                 f"device value on the host (.item(), .cpu(), a Python "
                 f"branch on a tensor)") from e
-        if tp.chan_ids:
+        if tp.chan_ids and self.owned is None:
             # only this task's channels moved since the last sample, so a
-            # whole-vector max is the per-channel max
+            # whole-vector max is the per-channel max (a partition samples
+            # at its sweep end: its sizes move with other partitions' tasks)
             torch.maximum(c.maxocc, c.sizes, out=c.maxocc)
+
+    def _sweep_end(self) -> None:
+        """A partition's sweep end: the highwater marks sampled from the
+        sweep-end sizes, then the cut rings this partition copies
+        (:attr:`copies`: consumer's ring, producer's ring)."""
+        c = self.carry
+        torch.maximum(c.maxocc, c.sizes, out=c.maxocc)
+        for dst, src in self.copies:
+            dst.copy_(src)
 
     def _store(self, ti: int, out: Any) -> None:
         """Copy a firing's returned state into the task's static buffers;
@@ -1545,6 +1579,141 @@ class _SweepProgram:
                 (counters, written))
 
 
+class _PartitionedProgram:
+    """The graph placed over partitions and run by one process: the
+    counterpart of the reference's ``_build_partitioned_program`` (one
+    ``shard_map`` over a 1-D mesh, ``src/repro/core/synth.py:1178``).
+    ``owners[t]`` is task ``t``'s partition, ``devices[p]`` partition
+    ``p``'s device; several partitions may share one.
+
+    Each partition is a :class:`_SweepProgram` with a carry of its own
+    (every ring, mmap and task state, on its device) whose sweep fires
+    only the tasks it owns.  The invariant is the reference's: at every
+    sweep start all partitions agree on every head, size and firing
+    counter, and on the contents of every ring they touch.
+
+    * The guards are replicated: every partition's ``sweep_guards`` reads
+      the same tables and the same occupancy, so all compute the same
+      predicates, counters and done flag.
+    * A partition's sweep holds the bodies of its own (task, phase) pairs
+      only.
+    * Heads and sizes agree again at the sweep's end by arithmetic, not by
+      exchange: a partition's guards apply the moves of the tasks fired
+      on the others (``sweep_guards``' owner mask), its bodies its own.
+    * Each cut channel (producer and consumer on different partitions)
+      has its ring copied from the producer's carry to the consumer's once
+      a sweep, once both have run their bodies: a pop never changes a
+      ring's contents and a push lands beyond the live tokens, so the
+      producer's ring holds every token the consumer may read.
+    * The highwater marks are sampled from the sweep-end sizes, as the
+      reference's partitioned lowering samples them, not after every
+      firing.
+
+    A sweep runs the partitions one after another, each its whole sweep
+    (on the card, one replay of its captured graph); a cut channel's copy
+    is captured at the end of the sweep of the later of its two
+    partitions.  The firing schedule, the values popped and the mmap
+    stores are the single-device program's, so the outputs are bit for
+    bit the same.  Partitions on one device run in its stream's order;
+    across devices each waits on the previous partition's event.  The
+    host reads partition 0's done flag once a block.
+
+    ``program(states0, mmaps0)`` (one tuple of each a partition) returns
+    ``(mmaps, fires, sweeps, maxocc, sizes)``: each written mmap from its
+    writer's partition (the one-writer rule makes it unique), the rest
+    from partition 0.  After a run: ``capture_s``, ``n_replays`` (sweeps
+    replayed, each by every partition), ``n_blocks``, ``n_host_syncs``,
+    ``nodes`` (each partition's sweep graph's top-level nodes, on the
+    card), ``cuts`` (channel, producer's partition, consumer's) and
+    ``cut_bytes`` (ring bytes copied a sweep).
+    """
+
+    def __init__(self, plan: _Plan, devices: list, owners: list):
+        self.plan, self.owners = plan, [int(o) for o in owners]
+        self.parts = [_SweepProgram(plan, dev, [o == p for o in self.owners])
+                      for p, dev in enumerate(devices)]
+        prod = [-1] * len(plan.channels)
+        cons = [-1] * len(plan.channels)
+        for ti, tp in enumerate(plan.tasks):
+            for ph in tp.phases:
+                for ci in ph.writes:
+                    prod[ci] = ti
+                for ci in ph.reads:
+                    cons[ci] = ti
+        self.cuts = [(ci, self.owners[prod[ci]], self.owners[cons[ci]])
+                     for ci in range(len(plan.channels))
+                     if prod[ci] >= 0 and cons[ci] >= 0
+                     and self.owners[prod[ci]] != self.owners[cons[ci]]]
+        self.cut_bytes = sum(
+            plan.channels[ci].capacity * canon_dtype(
+                plan.channels[ci].dtype).itemsize * int(np.prod(
+                    plan.channels[ci].shape, dtype=np.int64))
+            for ci, _, _ in self.cuts)
+        self.writer = {mi: self.owners[ti]
+                       for ti, tp in enumerate(plan.tasks)
+                       for ph in tp.phases for mi in ph.mmap_stores}
+        chain = devices[0].type == "cuda" and len(set(devices)) > 1
+        self._events = [None] * len(devices)
+        if chain:
+            self._events = []
+            for dev in devices:
+                with torch.cuda.device(dev):
+                    self._events.append(torch.cuda.Event())
+        self._prev = None
+        self.capture_s = 0.0
+        self.n_replays = self.n_blocks = self.n_host_syncs = 0
+        self.nodes: list = []
+
+    def __call__(self, states0: tuple, mmaps0: tuple):
+        parts = self.parts
+        for prog, st, mm in zip(parts, states0, mmaps0):
+            prog.prepare(st, mm, capture=False)
+        for ci, src, dst in self.cuts:
+            parts[max(src, dst)].copies.append(
+                (parts[dst].carry.rings[ci].buf,
+                 parts[src].carry.rings[ci].buf))
+        try:
+            for prog in parts:
+                if prog.device.type == "cuda":
+                    prog._build_graph()
+                    self.capture_s += prog.capture_s
+            self.nodes = [prog.n_graph_nodes for prog in parts]
+            for k in _block_sizes():
+                for _ in range(k):
+                    self._sweep()
+                self.n_replays += k
+                self.n_blocks += 1
+                self.n_host_syncs += 1
+                if parts[0]._done():
+                    break
+            return self._read()
+        finally:
+            for prog in parts:
+                prog.close()
+
+    def _sweep(self) -> None:
+        """One sweep: every partition's, in partition order."""
+        for prog, ev in zip(self.parts, self._events):
+            if ev is not None:
+                stream = torch.cuda.current_stream(prog.device)
+                if self._prev is not None:
+                    stream.wait_event(self._prev)
+            prog.block(1)
+            if ev is not None:
+                ev.record(stream)
+                self._prev = ev
+
+    def _read(self) -> tuple:
+        for dev in {prog.device for prog in self.parts[1:]}:
+            if dev.type == "cuda" and dev != self.parts[0].device:
+                torch.cuda.synchronize(dev)
+        mmaps, fires, sweeps, maxocc, sizes, _ = self.parts[0]._read()
+        self.n_host_syncs += 1
+        mmaps = tuple(self.parts[self.writer.get(mi, 0)].carry.mmaps[mi]
+                      for mi in range(len(mmaps)))
+        return mmaps, fires, sweeps, maxocc, sizes
+
+
 # ---------------------------------------------------------------------------
 # the fourth engine
 # ---------------------------------------------------------------------------
@@ -1564,6 +1733,23 @@ class CompiledEngine(EngineBase):
     for ``device="cpu"``.  On a CUDA device the interconnect runs the
     hand-written ring kernels; on the CPU, their plain versions.
 
+    ``mesh`` places the graph over partitions (the mesh floorplan path,
+    the counterpart of TAPA/AutoBridge floorplanning): an int ``N`` is N
+    partitions, on the first N cards (a ``ValueError`` where fewer are
+    visible) or, for ``device="cpu"``, N on the CPU; a flat sequence of
+    devices, which may repeat, puts partition ``p`` on the ``p``-th
+    (``[torch.device("cuda:0")] * 4``: four partitions sharing one card).
+    Tasks are placed on per-task costs (:mod:`.floorplan`, priced by
+    :mod:`.cost`), one process runs every partition
+    (:class:`_PartitionedProgram`), and every cut channel's ring is copied
+    from its producer's partition to its consumer's once a sweep; the
+    outputs are bit-identical to the single-device run.  ``placement``:
+    manual ``{task_name: partition}`` pins (the planner places the rest
+    around them) or a :class:`~.floorplan.Placement` to reuse.  ``cache``
+    memoizes placements and cost cells (``None``: the default compile
+    cache; ``False``: off; or a ``CompileCache``).  A graph with
+    ``async_mmap`` ports is refused under a mesh.
+
     A graph outside the synthesizable subset raises
     :class:`SynthesisError` naming the offending task/channel; a lowered
     graph that stalls (a genuine dataflow deadlock) returns ``ok=False``
@@ -1572,26 +1758,41 @@ class CompiledEngine(EngineBase):
 
     name = "compiled"
 
-    def __init__(self, track_stats: bool = False, device: Any = None, **kw):
+    def __init__(self, track_stats: bool = False, device: Any = None,
+                 mesh: Any = None, placement: Any = None, cache: Any = None,
+                 **kw):
         super().__init__(track_stats, **kw)
         self.device = resolve_device(device)
+        self.mesh, self.placement, self.cache = mesh, placement, cache
         self._cur: Optional[TaskInstance] = None
         # post-run introspection: sweeps, and host seconds spent in the
-        # wiring + counting pass (lower_s) and in the sweep loop with its
-        # capture and the write-back (program_s); of the sweep loop
-        # (_SweepProgram): the capture's host seconds (capture_s, 0 on the
-        # CPU), sweeps replayed (n_replays, those past the end included),
-        # blocks and host syncs (n_host_syncs: one a block and one final
-        # read), the sweep graph's top-level nodes (n_graph_nodes); the ring
-        # pops and pushes the firings made (ring_ops: on the card, the
-        # kernel launches the run should count)
+        # wiring + counting pass (lower_s), in placing the tasks under a
+        # mesh (place_s: cost probes and the planner) and in the sweep loop
+        # with its capture and the write-back (program_s); of the sweep loop
+        # (_SweepProgram, or _PartitionedProgram under a mesh): the
+        # capture's host seconds (capture_s, 0 on the CPU), sweeps replayed
+        # (n_replays, those past the end included; under a mesh each by
+        # every partition), blocks and host syncs (n_host_syncs: one a block
+        # and one final read), the sweep graph's top-level nodes
+        # (n_graph_nodes; under a mesh their sum, and partition_nodes each
+        # partition's); the ring pops and pushes the firings made
+        # (ring_ops: on the card, the kernel launches the run should count,
+        # summed over partitions); under a mesh the placement
+        # (placement_used: a floorplan.Placement; partition_source:
+        # "partitioned", or "memo" when read back from the cache) and the
+        # ring bytes the cut channels copy a sweep (cut_bytes)
         self.n_sweeps = 0
         self.lower_s = 0.0
+        self.place_s = 0.0
         self.program_s = 0.0
         self.capture_s = 0.0
         self.n_replays = self.n_blocks = self.n_host_syncs = 0
         self.n_graph_nodes = 0
         self.ring_ops: dict = {}
+        self.placement_used = None
+        self.partition_source: Optional[str] = None
+        self.partition_nodes: list = []
+        self.cut_bytes = 0
 
     # -- runtime protocol: any live stream op means "not step form" ----------
     def _refuse(self, op: str):
@@ -1773,9 +1974,13 @@ class CompiledEngine(EngineBase):
     def run(self, top: Callable, *args, **kwargs) -> SimReport:
         t0 = time.perf_counter()
         try:
+            devices = None if self.mesh is None else self._resolve_mesh()
             plan, graph, result = self._elaborate(top, *args, **kwargs)
             t1 = time.perf_counter()
             self.lower_s = t1 - t0
+            if devices is not None:
+                return self._run_partitioned(plan, graph, result, devices,
+                                             t0)
             states0 = tuple(_materialize_state(tp.state0, self.device)
                             for tp in plan.tasks)
             mmaps0 = tuple(_as_canon(m.data, self.device).clone()
@@ -1797,6 +2002,95 @@ class CompiledEngine(EngineBase):
             return rep
         finally:
             clear_context()
+
+    def _resolve_mesh(self) -> list:
+        """``self.mesh`` as the partitions' devices: an int N is the first
+        N cards (for ``device="cpu"``, N partitions on the CPU); a flat
+        sequence of devices is taken as it is."""
+        mesh = self.mesh
+        if isinstance(mesh, (int, np.integer)) and not isinstance(mesh, bool):
+            n = int(mesh)
+            if self.device.type != "cuda":
+                if n < 1:
+                    raise ValueError(f"requested a {n}-partition mesh")
+                return [self.device] * n
+            visible = torch.cuda.device_count()
+            if not 1 <= n <= visible:
+                raise ValueError(
+                    f"requested a {n}-partition mesh over the first {n} "
+                    f"cards but {visible} card(s) are visible; to place "
+                    f"several partitions on one card, pass the devices "
+                    f"explicitly, e.g. mesh=[torch.device('cuda:0')] * {n}")
+            return [torch.device("cuda", i) for i in range(n)]
+        if isinstance(mesh, (list, tuple)) and mesh and all(
+                isinstance(d, (torch.device, str)) for d in mesh):
+            devices = [torch.device(d) for d in mesh]
+            if len({d.type for d in devices}) == 1:
+                visible = torch.cuda.device_count()
+                for d in devices:
+                    if d.type == "cuda" and (d.index or 0) >= visible:
+                        raise ValueError(
+                            f"mesh names {d} but {visible} card(s) are "
+                            f"visible")
+                return devices
+        raise SynthesisError(
+            f"partitioned synthesis takes mesh=N (an int) or a flat "
+            f"sequence of devices of one type; got {mesh!r} — task graphs "
+            f"are placed along one device axis")
+
+    def _run_partitioned(self, plan: _Plan, graph, result, devices: list,
+                         t0: float) -> SimReport:
+        """The mesh floorplan path: place the tasks (a memoized artifact),
+        run the partitioned program, take each written mmap from its
+        writer's partition, and finish as the single-device path does."""
+        from .floorplan import Placement, plan_placement
+        t1 = time.perf_counter()
+        n_dev = len(devices)
+        if plan.ports:
+            member = {ci for cis in plan.port_chan_ids.values()
+                      for ci in cis}
+            users = sorted({tp.inst.name for tp in plan.tasks
+                            if member & set(tp.chan_ids)})
+            raise SynthesisError(
+                f"partitioned synthesis does not cover async_mmap ports "
+                f"yet: port(s) {[p.name for p in plan.ports]} bound by "
+                f"task(s) {users} — the latency queue is serviced by one "
+                f"device's sweep and has no cut protocol; run the graph "
+                f"single-device (mesh=None) or route the memory traffic "
+                f"through channels")
+        if isinstance(self.placement, Placement):
+            placement = self.placement
+            if placement.n_devices != n_dev or \
+                    len(placement.owners) != len(plan.tasks):
+                raise SynthesisError(
+                    f"placement reuse mismatch: placement is for "
+                    f"{placement.n_devices} devices / "
+                    f"{len(placement.owners)} tasks, graph has "
+                    f"{len(plan.tasks)} tasks on a {n_dev}-device mesh")
+        else:
+            placement = plan_placement(plan, graph, n_dev,
+                                       overrides=self.placement,
+                                       cache=self.cache)
+        self.placement_used = placement
+        self.partition_source = placement.source
+        t2 = time.perf_counter()
+        self.place_s = t2 - t1
+        states0 = tuple(tuple(_materialize_state(tp.state0, dev)
+                              for tp in plan.tasks) for dev in devices)
+        mmaps0 = tuple(tuple(_as_canon(m.data, dev).clone()
+                             for m in plan.mmaps) for dev in devices)
+        program = _PartitionedProgram(plan, devices, placement.owners)
+        mm_final, fires, sweeps, maxocc, sizes = program(states0, mmaps0)
+        self.capture_s = program.capture_s
+        self.n_replays, self.n_blocks, self.n_host_syncs = \
+            program.n_replays, program.n_blocks, program.n_host_syncs
+        self.partition_nodes = program.nodes
+        self.n_graph_nodes = sum(program.nodes)
+        self.cut_bytes = program.cut_bytes
+        rep = self._finish(plan, mm_final, fires, sweeps, maxocc, sizes,
+                           result, t0)
+        self.program_s = time.perf_counter() - t2
+        return rep
 
     def _finish(self, plan: _Plan, mm_final, fires, sweeps, maxocc,
                 sizes, result, t0: float) -> SimReport:

@@ -75,6 +75,21 @@
 // memory, so an entry costs one load from device memory after the phase is
 // known: two round trips in all, as eval_guards' compare.
 // __syncthreads_or gives any(live), any(fire) and any(left).
+// A partition of a partitioned program (one partition's sweep of a graph
+// placed over several, core/synth.py _PartitionedProgram) passes its owner
+// mask: the kernel then also applies the head and size moves of every task
+// that fires and that the partition does not own (head += need_r mod cap,
+// size += need_w - need_r over the phase's entries), as that task's owner
+// makes them with its pops and pushes.  Every partition's carry then ends
+// the sweep with the same heads and sizes, by arithmetic: the reference's
+// sweep-end recomputation (src/repro/core/synth.py:1309-1322).  Applying
+// them before the partition's own bodies run is sound because a channel
+// has one producer and one consumer: a remote pop leaves head + size, where
+// a local push lands, unchanged, and a remote push never moves head, where
+// a local pop reads.  The moves are atomicAdds, and the heads wrap at their
+// capacity after a barrier (a wrap is idempotent, so threads that wrap one
+// head together agree): the kernel is exact on any tables, a graph's one
+// consumer a channel or not.
 //
 // service_ports is the reference's per-sweep port service
 // (_service_ports, src/repro/core/synth.py:951; XLA ops there, no Pallas
@@ -134,7 +149,7 @@ struct SweepLaunch {
   const int32_t* bounds;    // [T, P - 1] cumulative phase bounds, padded
   const int32_t* row_ptr;   // [T * P + 1]
   const int4* entries;      // [nnz] (channel, need_r, need_w, cap)
-  const int32_t* sizes;     // [C] channel occupancy
+  int32_t* sizes;           // [C] channel occupancy (written under `owned`)
   int32_t* fires;           // [T] firing counters, advanced in place
   int32_t* state;           // [2] done, sweeps
   bool* run;                // [T, P] out: the phase that fires
@@ -151,6 +166,11 @@ struct SweepLaunch {
   int T;
   int P;
   int C;
+  // [T] a partition's owner mask, and the heads [C] it moves with the
+  // sizes: the moves of the fired tasks it does not own.  Null outside a
+  // partitioned program.
+  const bool* owned;
+  int32_t* heads;
 };
 
 // One async_mmap port's latency queue, prepared once by the Python wrapper
@@ -396,6 +416,23 @@ sweep_guards_kernel(const SweepLaunch a) {
   }
   const bool left = task && f + ok < total;
   if (ok && a.handles) cudaGraphSetConditional(a.handles[t * a.P + ph], 1u);
+  if (a.owned) {   // a partition's launch: the same branch for every thread
+    const bool away = ok && !a.owned[t];   // fired on another partition
+    if (away) {
+      for (int e = lo; e < hi; ++e) {
+        const int4 n = a.entries[e];
+        if (n.y) atomicAdd(&a.heads[n.x], n.y);
+        if (n.z != n.y) atomicAdd(&a.sizes[n.x], n.z - n.y);
+      }
+    }
+    __syncthreads();
+    if (away) {
+      for (int e = lo; e < hi; ++e) {
+        const int4 n = a.entries[e];
+        if (n.y) a.heads[n.x] %= n.w;
+      }
+    }
+  }
   const int any_live = __syncthreads_or(live);
   const int any_fire = __syncthreads_or(ok);
   const int any_left = __syncthreads_or(left);
@@ -718,7 +755,8 @@ int service_ports(const ServiceLaunch* s) {
 
 static bool sweep_args_ok(const SweepLaunch* s) {
   return s->T >= 1 && s->T <= kMaxSweepTasks && s->P >= 1 &&
-         s->P <= kMaxPhases && s->C >= 0 && s->C <= kMaxSweepChannels;
+         s->P <= kMaxPhases && s->C >= 0 && s->C <= kMaxSweepChannels &&
+         (s->owned == nullptr) == (s->heads == nullptr);
 }
 
 // sweep_guards: `s` is the program's prepared SweepLaunch (its stream the

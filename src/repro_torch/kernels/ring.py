@@ -12,7 +12,9 @@ those entries).  The ops of the sweep loop:
 * :class:`SweepGuards` / :func:`sweep_guards` — a sweep's control in one
   launch: every task's phase and fire predicate, the predicate of each
   (task, phase) body, the firing counters, the sweep count and the done
-  flag; the head of the captured sweep (``core/synth.py``);
+  flag; the head of the captured sweep (``core/synth.py``); in one
+  partition of a partitioned program, also the head and size moves of the
+  tasks that fired on the other partitions;
 * :func:`eval_guards` — every task's fire predicate in one op, the
   counterpart of the reference's API;
 * :class:`ServicePorts` (``service_ports``) — every ``async_mmap``
@@ -467,7 +469,8 @@ class _SweepLaunch(ctypes.Structure):
                 ("entries", _VP), ("sizes", _VP), ("fires", _VP),
                 ("state", _VP), ("run", _VP), ("fire", _VP), ("phase", _VP),
                 ("flags", _VP), ("handles", _VP), ("stream", _VP),
-                ("T", _INT), ("P", _INT), ("C", _INT)]
+                ("T", _INT), ("P", _INT), ("C", _INT), ("owned", _VP),
+                ("heads", _VP)]
 
 
 def sparse_needs(need_r, need_w, caps) -> tuple:
@@ -489,7 +492,8 @@ def sparse_needs(need_r, need_w, caps) -> tuple:
 
 
 def sweep_guards_plain(totals, bounds, row_ptr, entries, sizes, fires,
-                       state, run, fire, phase, flags=None) -> None:
+                       state, run, fire, phase, flags=None, owned=None,
+                       heads=None) -> None:
     """Plain version of :func:`sweep_guards` (CPU tensors; on the card,
     the comparison's)."""
     n_tasks, n_ph = run.shape
@@ -497,14 +501,25 @@ def sweep_guards_plain(totals, bounds, row_ptr, entries, sizes, fires,
     ph = (fires[:, None] >= bounds).sum(1, dtype=torch.int32)
     done = state[0] != 0
     live = (fires < totals) & ~done
-    owner = torch.repeat_interleave(
+    row = torch.repeat_interleave(
         torch.arange(n_tasks * n_ph, device=dev), row_ptr.diff().long())
-    s = sizes[entries[:, 0].long()]
+    chan = entries[:, 0].long()
+    s = sizes[chan]
     short = (entries[:, 1] > s) | (entries[:, 2] > entries[:, 3] - s)
     unmet = torch.zeros(n_tasks * n_ph, dtype=torch.int32, device=dev) \
-        .index_add_(0, owner, short.int())
+        .index_add_(0, row, short.int())
     ok = live & (unmet.view(n_tasks, n_ph)
                  .gather(1, ph.long()[:, None])[:, 0] == 0)
+    if owned is not None:       # the moves of the tasks fired elsewhere
+        t = row // n_ph
+        moves = (ok & ~owned)[t] & (row % n_ph == ph[t])
+        dr = torch.zeros_like(sizes).index_add_(
+            0, chan, torch.where(moves, entries[:, 1], 0))
+        dw = torch.zeros_like(sizes).index_add_(
+            0, chan, torch.where(moves, entries[:, 2], 0))
+        cap = torch.ones_like(sizes).index_copy_(0, chan, entries[:, 3])
+        heads.copy_(torch.where(dr > 0, (heads + dr) % cap, heads))
+        sizes.add_(dw - dr)
     any_live, any_fire = live.any(), ok.any()
     fires.add_(ok.int())
     any_left = (fires < totals).any()
@@ -539,6 +554,13 @@ class SweepGuards:
     * given ``flags`` (int32 ``[2]``, a graph with async ports) it writes
       any(fire) and any(firings left) there and leaves ``state`` to
       :class:`ServicePorts`, which commits the sweep after the bodies.
+    * given ``owned`` (bool ``[T]``, one partition's tasks of a
+      partitioned program) and ``heads`` (int32 ``[C]``), it also applies
+      the head and size moves of every task that fires and that the
+      partition does not own: ``heads[c] = (heads[c] + need_r) % cap`` and
+      ``sizes[c] += need_w - need_r`` over the entries of its phase, as
+      its owner's pops and pushes make them (the partition's own bodies
+      make the rest).  Without them it changes no head and no size.
 
     int32 tables and carry, bool ``run``/``fire``, int32 ``phase``, all
     contiguous on one device.  A CUDA program launches the kernel (one
@@ -547,21 +569,26 @@ class SweepGuards:
     channels); a CPU one takes :func:`sweep_guards_plain`.
     """
 
-    __slots__ = ("args", "flags", "_kernel", "_fn", "_lib", "_launch",
-                 "_ref", "_stream", "_st")
+    __slots__ = ("args", "flags", "owned", "heads", "_kernel", "_fn", "_lib",
+                 "_launch", "_ref", "_stream", "_st")
 
     def __init__(self, totals, bounds, row_ptr, entries, sizes, fires, state,
-                 run, fire, phase, flags=None):
+                 run, fire, phase, flags=None, owned=None, heads=None):
         n_tasks, n_ph = run.shape
         self.args = (totals, bounds, row_ptr, entries, sizes, fires, state,
                      run, fire, phase)
-        self.flags = flags
+        self.flags, self.owned, self.heads = flags, owned, heads
         i32, b = torch.int32, torch.bool
         if flags is not None and (flags.dtype != i32 or tuple(flags.shape)
                                   != (2,) or not flags.is_contiguous()):
             raise ValueError(f"sweep_guards: flags must be a contiguous "
                              f"{i32}(2,), got {flags.dtype}"
                              f"{tuple(flags.shape)}")
+        if (owned is None) != (heads is None):
+            raise ValueError("sweep_guards: owned and heads go together")
+        extra = [] if owned is None else [
+            ("owned", owned, b, (n_tasks,)),
+            ("heads", heads, i32, (sizes.shape[0],))]
         for name, x, dt, shape in (
                 ("totals", totals, i32, (n_tasks,)),
                 ("bounds", bounds, i32, (n_tasks, n_ph - 1)),
@@ -571,15 +598,15 @@ class SweepGuards:
                 ("fires", fires, i32, (n_tasks,)),
                 ("state", state, i32, (2,)), ("run", run, b, (n_tasks, n_ph)),
                 ("fire", fire, b, (n_tasks,)), ("phase", phase, i32,
-                                                (n_tasks,))):
+                                                (n_tasks,)), *extra):
             if x.dtype != dt or tuple(x.shape) != shape or \
                     not x.is_contiguous():
                 raise ValueError(f"sweep_guards: {name} must be a contiguous "
                                  f"{dt}{shape}, got {x.dtype}"
                                  f"{tuple(x.shape)}")
         self._kernel = uses_kernel(
-            "sweep_guards", *self.args, *([flags] if flags is not None
-                                          else []))
+            "sweep_guards", *self.args, *(x for x in (flags, owned, heads)
+                                          if x is not None))
         if not self._kernel:
             return
         n_chans = sizes.shape[0]
@@ -597,15 +624,16 @@ class SweepGuards:
         self._stream = functools.partial(torch._C._cuda_getCurrentRawStream,
                                          dev)
         self._st = self._stream()
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
         self._launch = _SweepLaunch(
-            *(x.data_ptr() for x in self.args),
-            None if flags is None else flags.data_ptr(), None, self._st,
-            n_tasks, n_ph, n_chans)
+            *(x.data_ptr() for x in self.args), ptr(flags), None, self._st,
+            n_tasks, n_ph, n_chans, ptr(owned), ptr(heads))
         self._ref = ctypes.addressof(self._launch)
 
     def __call__(self) -> None:
         if not self._kernel:
-            sweep_guards_plain(*self.args, flags=self.flags)
+            sweep_guards_plain(*self.args, flags=self.flags,
+                               owned=self.owned, heads=self.heads)
             return
         st = self._stream()
         if st != self._st:
@@ -616,11 +644,11 @@ class SweepGuards:
 
 
 def sweep_guards(totals, bounds, row_ptr, entries, sizes, fires, state, run,
-                 fire, phase, flags=None) -> None:
+                 fire, phase, flags=None, owned=None, heads=None) -> None:
     """One sweep's control in one op, in place: :class:`SweepGuards` built
     for the call."""
     SweepGuards(totals, bounds, row_ptr, entries, sizes, fires, state, run,
-                fire, phase, flags)()
+                fire, phase, flags, owned, heads)()
 
 
 class SweepGraph:

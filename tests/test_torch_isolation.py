@@ -179,6 +179,48 @@ def test_codegen_on_cpu_imports_neither_jax_nor_reference():
     assert _run(CODEGEN) == {"compiled": 3, "ok": True, "mods": []}
 
 
+PARTITIONED = """
+import json, sys
+import numpy as np
+from repro_torch.apps import gemm
+from repro_torch.core import CompiledEngine, plan_placement
+from repro_torch.core.cost import task_cost
+from repro_torch.core.synth import elaborate_step_graph
+top, args, check = gemm.build_step(P=2, n=4, K=2, device="cpu")
+plan, graph, _ = elaborate_step_graph(top, *args)
+pl = plan_placement(plan, graph, 2, cache=False)
+top, args, check = gemm.build_step(P=2, n=4, K=2, device="cpu")
+rep = CompiledEngine(device="cpu", mesh=2, cache=False).run(top, *args)
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"ok": rep.ok and bool(check()[0]),
+                  "spread": len(set(pl.owners)) > 1, "mods": mods}))
+"""
+
+
+def test_partitioned_synthesis_imports_neither_jax_nor_reference():
+    """The cost probes, the floorplanner and ``CompiledEngine(mesh=2)`` on
+    the CPU never import jax, jaxlib or repro."""
+    assert _run(PARTITIONED) == {"ok": True, "spread": True, "mods": []}
+
+
+@pytest.mark.parametrize("path", ["src/repro_torch/core/cost.py",
+                                  "src/repro_torch/core/floorplan.py",
+                                  "chip_smoke.py"])
+def test_sources_import_neither_jax_nor_reference(path):
+    """No import statement of these files names jax, jaxlib or repro (the
+    reference's floorplanner imports no JAX itself, through its cost
+    module; the port keeps its own copy)."""
+    import ast
+    tree = ast.parse((Path(SRC).parent / path).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+    assert names and not [m for m in names
+                          if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
 def test_codegen_defaults_to_cuda(monkeypatch):
     """With no device, ``compile_stages``, ``compile_app`` and the keys
     go to the card, and raise where there is none."""

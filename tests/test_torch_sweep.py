@@ -151,6 +151,80 @@ def test_sweep_control_equals_reference(n_tasks, n_chans, n_ph_max, seed):
         assert np.array_equal(g_run.numpy(), want_run)
 
 
+@pytest.mark.parametrize("n_tasks,n_chans,n_ph_max,n_parts,seed", [
+    (1, 1, 1, 2, 0), (6, 5, 2, 2, 1), (37, 64, 3, 4, 2), (88, 192, 2, 2, 3),
+    (100, 200, 3, 4, 4), (16, 200, 1, 3, 5),
+])
+def test_owner_mask_gives_the_reference_sweep_end(n_tasks, n_chans,
+                                                  n_ph_max, n_parts, seed):
+    """A partition's ``sweep_guards`` (its owner mask) applies the moves of
+    the tasks fired elsewhere; with the moves its own bodies' ring ops
+    make (a Python model of pops and pushes), every partition ends the
+    sweep on the reference's partitioned heads and sizes
+    (``src/repro/core/synth.py:1309-1322``: ``head += sum fired * reads
+    mod cap``, ``size += sum fired * (writes - reads)``), and every other
+    output is the unmasked call's.  With every task owned it moves
+    nothing."""
+    rng = np.random.default_rng(seed)
+    plan, caps = _random_plan(rng, n_tasks, n_chans, n_ph_max)
+    need_r, need_w, _, _ = ref_synth._guard_tables(plan)
+    totals = np.asarray([tp.total for tp in plan.tasks])
+    for trial in range(30):
+        fires = rng.integers(0, totals + 1)
+        sizes = rng.integers(0, caps + 1)
+        if trial % 2:
+            sizes = np.where(rng.random(n_chans) < 0.5, 0, caps)
+        heads = rng.integers(0, caps)
+        done, sweeps = int(trial % 9 == 8), int(rng.integers(0, 99))
+        phase, fire, _, _, _ = _reference_sweep(plan, caps, fires, sizes,
+                                                done, sweeps)
+        fv = np.asarray(fire, np.int64)[:, None]
+        rows = np.arange(n_tasks)
+        nr, nw = need_r[rows, phase], need_w[rows, phase]
+        want_heads = (heads + (fv * nr).sum(0)) % np.maximum(caps, 1)
+        want_sizes = sizes + (fv * (nw - nr)).sum(0)
+        plain = _masked_sweep(plan, caps, fires, sizes, heads, done, sweeps,
+                              None)
+        owners = rng.integers(0, n_parts, n_tasks)
+        for part in [*range(n_parts), "all"]:
+            owned = np.ones(n_tasks, bool) if part == "all" \
+                else owners == part
+            got = _masked_sweep(plan, caps, fires, sizes, heads, done,
+                                sweeps, owned)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(got["outputs"], plain["outputs"]))
+            h, z = got["heads"].numpy().copy(), got["sizes"].numpy().copy()
+            if part == "all":
+                assert h.tolist() == heads.tolist()
+                assert z.tolist() == sizes.tolist()
+            for t in np.flatnonzero(np.asarray(fire) & owned):
+                for c in range(n_chans):       # the bodies' pops and pushes
+                    h[c] = (h[c] + nr[t, c]) % caps[c]
+                    z[c] += nw[t, c] - nr[t, c]
+            assert h.tolist() == want_heads.tolist()
+            assert z.tolist() == want_sizes.tolist()
+
+
+def _masked_sweep(plan, caps, fires, sizes, heads, done, sweeps, owned):
+    need_r, need_w, bounds, n_ph = synth._guard_tables(plan)
+    n_tasks = len(plan.tasks)
+    if bounds is None:
+        bounds = np.zeros((n_tasks, 0), np.int32)
+    row_ptr, entries = ring.sparse_needs(need_r, need_w, caps)
+    totals = np.asarray([tp.total for tp in plan.tasks], np.int32)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    out = [i32(fires), torch.tensor([done, sweeps], dtype=I32),
+           torch.zeros((n_tasks, n_ph), dtype=torch.bool),
+           torch.zeros(n_tasks, dtype=torch.bool), torch.zeros(n_tasks,
+                                                               dtype=I32)]
+    h, z = i32(heads), i32(sizes)
+    mask = {} if owned is None else dict(owned=torch.from_numpy(owned),
+                                         heads=h)
+    ring.sweep_guards_plain(*(i32(a) for a in (totals, bounds, row_ptr,
+                                                 entries)), z, *out, **mask)
+    return dict(outputs=out, heads=h, sizes=z)
+
+
 def test_sparse_needs_hold_the_dense_tables():
     """gemm at P=8: 88 tasks over 192 channels, 2 phases; each row holds
     only the channels its phase touches, and the dense tables come back."""
@@ -198,6 +272,18 @@ def test_sweep_guards_checks_its_tables(name, bad):
         ring.SweepGuards(**args)
 
 
+def test_sweep_guards_checks_its_owner_mask():
+    args = _guard_args()
+    with pytest.raises(ValueError, match="owned and heads go together"):
+        ring.SweepGuards(**args, owned=torch.ones(3, dtype=torch.bool))
+    with pytest.raises(ValueError, match="sweep_guards: owned must be"):
+        ring.SweepGuards(**args, owned=torch.ones(2, dtype=torch.bool),
+                         heads=torch.zeros(2, dtype=I32))
+    with pytest.raises(ValueError, match="sweep_guards: heads must be"):
+        ring.SweepGuards(**args, owned=torch.ones(3, dtype=torch.bool),
+                         heads=torch.zeros(3, dtype=I32))
+
+
 def test_cpu_sweep_guards_takes_the_plain_version(monkeypatch):
     def no_build(name):
         raise AssertionError(f"a CPU program tried to build/load {name!r}")
@@ -216,14 +302,16 @@ def test_cpu_sweep_guards_takes_the_plain_version(monkeypatch):
 
 
 def test_sweep_launch_struct_matches_the_c_layout():
-    # csrc/ring.cu's struct SweepLaunch: thirteen pointers, then T, P and C
+    # csrc/ring.cu's struct SweepLaunch: thirteen pointers, then T, P and
+    # C, then a partition's owner mask and heads
     f = ring._SweepLaunch
     names = ["totals", "bounds", "row_ptr", "entries", "sizes", "fires",
              "state", "run", "fire", "phase", "flags", "handles", "stream"]
     assert [(n, getattr(f, n).offset) for n, _ in f._fields_] == \
-        [(n, 8 * i) for i, n in enumerate(names)] + [("T", 104), ("P", 108),
-                                                     ("C", 112)]
-    assert ctypes.sizeof(f) == 120
+        [(n, 8 * i) for i, n in enumerate(names)] + [
+            ("T", 104), ("P", 108), ("C", 112), ("owned", 120),
+            ("heads", 128)]
+    assert ctypes.sizeof(f) == 136
     vp = ctypes.c_void_p
     assert ring._ARGTYPES["sweep_guards"] == [vp]
     # launch, rows, bodies, n, tail, handles, out
