@@ -318,8 +318,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ports and tasks.  Printed: the cost probes' cells and seconds, the
    placement (tasks a partition, cut channels and bytes, objective),
    lowering and capture seconds, graph nodes a partition, host syncs,
-   sweeps/s and device us a sweep (CUDA events around each replay)
-   against the single-device run, the cut bytes copied a sweep.
+   sweeps/s over the sweep loop alone and device us a sweep (CUDA events
+   around each replay) against the single-device run, the cut bytes
+   copied a sweep.
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -793,27 +794,44 @@ def check_sweep_guards(tag: str, tab: dict, how: str, seed: int) -> dict:
                 fired=fired, chained_sweeps=int(k[6][1]), max_abs_err=0.0)
 
 
+def _guard_fire(tab: dict, fires, sizes) -> tuple:
+    """The guards on this carry (done not set), as numpy: each task's
+    fire predicate and its row's entries ``[chan, need_r, need_w, cap]``."""
+    n_ph, row_ptr, ent = tab["n_ph"], tab["row_ptr"], tab["entries"]
+    ph = (fires[:, None] >= tab["bounds"]).sum(1)
+    rows = [ent[row_ptr[r]:row_ptr[r + 1]]
+            for r in np.arange(len(fires)) * n_ph + ph]
+    fire = np.array([f < tot and bool(np.all(
+        (e[:, 1] <= sizes[e[:, 0]]) & (e[:, 2] <= e[:, 3] - sizes[e[:, 0]])))
+        for f, tot, e in zip(fires, tab["totals"], rows)], bool)
+    return fire, rows
+
+
 def _guard_work(tab: dict, fires, sizes, owned=None) -> tuple[int, int]:
     """Bytes and integer operations one ``sweep_guards`` call needs on
     this carry: each live task reads its counter, total, bounds, its
     row's two offsets, entries and the sizes they name; every task writes
     its fire, phase and run row, a fired one its counter.  Under an owner
-    mask every task also reads its mask byte, and the heads and sizes of
-    each entry of a fired task it does not own are read and written (an
-    upper bound on fired: every live task)."""
+    mask each task that fires reads its mask byte, and each fired task it
+    does not own moves the heads and sizes of its row's entries, as the
+    guards on this carry decide: each head it moves read and written
+    once, each size it moves written (the guards read it already), an
+    add for each head and each size moved and a modulo for each head."""
     n_tasks, n_ph = len(tab["totals"]), tab["n_ph"]
-    ph = (fires[:, None] >= tab["bounds"]).sum(1)
-    rows = np.arange(n_tasks) * n_ph + ph
     live = fires < tab["totals"]
-    per_row = tab["row_ptr"][rows + 1] - tab["row_ptr"][rows]
-    nnz = int(per_row[live].sum())
+    fire, rows = _guard_fire(tab, fires, sizes)
+    nnz = sum(len(e) for e, lv in zip(rows, live) if lv)
     nbytes = (n_tasks * (4 + 4 + 4 * (n_ph - 1) + 8) + 20 * nnz + 4
               + n_tasks * (n_ph + 1 + 4) + 4 * n_tasks + 8)
     ops = n_tasks * (n_ph - 1) + 3 * nnz + 3 * n_tasks
     if owned is not None:
-        moved = int(per_row[live & ~owned].sum())
-        nbytes += n_tasks + 16 * moved
-        ops += 3 * moved
+        moved = [e for e, away in zip(rows, fire & ~owned) if away]
+        moved = np.concatenate(moved) if moved else np.zeros((0, 4), int)
+        heads = moved[moved[:, 1] > 0]
+        sized = moved[moved[:, 2] != moved[:, 1]]
+        nbytes += (int(fire.sum()) + 8 * len(set(heads[:, 0]))
+                   + 4 * len(set(sized[:, 0])))
+        ops += 2 * len(heads) + len(sized)
     return nbytes, ops
 
 
@@ -4743,10 +4761,12 @@ def partitioned_phase() -> dict:
     the guards, its own bodies and its sweep end; gemm over more than one
     partition, the pins honoured; the async gemm refused under a mesh.
     Recorded: the cost probes' cells and seconds, the placement, lowering
-    and capture seconds, host syncs, sweeps/s and device us a sweep (CUDA
-    events around each replay) against the single-device run, and the
-    cut bytes copied a sweep.  Each app is built once (page_rank's build
-    takes seconds) and its outputs zeroed before each run.  The
+    and capture seconds, host syncs, sweeps/s over the sweep loop alone
+    (host seconds from the first sweep to the last done-flag read:
+    ``loop_s``) and device us a sweep (CUDA events around each replay)
+    against the single-device run, and the cut bytes copied a sweep.
+    Each app is built once (page_rank's build takes seconds) and its
+    outputs zeroed before each run.  The
     placements are memoized in a compile cache under a temporary
     ``build/partition_cache_*`` (deleted)."""
     import shutil
@@ -4794,11 +4814,13 @@ def partitioned_phase() -> dict:
                         capture_s=eng.capture_s, replays=eng.n_replays,
                         host_syncs=eng.n_host_syncs,
                         graph_nodes=eng.n_graph_nodes,
-                        sweeps_per_s=eng.n_sweeps / eng.program_s,
+                        loop_s=eng.loop_s,
+                        sweeps_per_s=eng.n_sweeps / eng.loop_s,
                         device_us_per_sweep=r["graph_s"] / eng.n_sweeps * 1e6,
                         launches=r["launches"])
                     log(f"partitioned {name} {tag}: {eng.n_sweeps} sweeps, "
-                        f"{rows[tag]['sweeps_per_s']:.1f} sweeps/s, device "
+                        f"{rows[tag]['sweeps_per_s']:.1f} sweeps/s (sweep "
+                        f"loop {eng.loop_s:.4f} s), device "
                         f"{rows[tag]['device_us_per_sweep']:.1f} us a sweep"
                         f", lower {eng.lower_s:.3f} s, capture "
                         f"{eng.capture_s:.3f} s, {eng.n_graph_nodes} graph "
@@ -4831,7 +4853,8 @@ def partitioned_phase() -> dict:
                     replays=eng.n_replays, blocks=eng.n_blocks,
                     host_syncs=eng.n_host_syncs,
                     graph_nodes=eng.partition_nodes,
-                    sweeps_per_s=eng.n_sweeps / eng.program_s,
+                    loop_s=eng.loop_s,
+                    sweeps_per_s=eng.n_sweeps / eng.loop_s,
                     device_us_per_sweep=r["graph_s"] / eng.n_sweeps * 1e6,
                     cut_bytes_per_sweep=eng.cut_bytes,
                     launches=r["launches"])
@@ -4848,7 +4871,8 @@ def partitioned_phase() -> dict:
                     f"graph nodes {eng.partition_nodes}; {eng.n_sweeps} "
                     f"sweeps, {eng.n_replays} replays, {eng.n_host_syncs} "
                     f"host syncs; {row['sweeps_per_s']:.1f} sweeps/s "
-                    f"(single {single['sweeps_per_s']:.1f}), device "
+                    f"over the sweep loop's {eng.loop_s:.4f} s (single "
+                    f"{single['sweeps_per_s']:.1f}), device "
                     f"{row['device_us_per_sweep']:.1f} us a sweep (single "
                     f"{single['device_us_per_sweep']:.1f}); "
                     f"{eng.cut_bytes} cut bytes copied a sweep; launches "

@@ -22,7 +22,11 @@ included.
   (``clone``) is not arithmetic: a task that only moves tokens costs 0
   FLOPs.
 * bytes: each operation's tensor inputs and outputs, once each; views
-  and allocations move nothing and are not counted.
+  and allocations move nothing and are not counted.  An indexed read or
+  in-place write (``index_select``, ``index_copy_``, ``index_add_``,
+  ``index_put_``: a ring's pop and push) moves the rows it touches, not
+  the whole tensor it indexes: a pop of ``n`` tokens from a ring of
+  ``cap`` costs ``n`` tokens, whatever ``cap`` is.
 * ``coll``: 0.  A firing is local to its partition by construction; the
   traffic a placement causes is priced per channel by the floorplanner.
 
@@ -37,6 +41,7 @@ from __future__ import annotations
 import hashlib
 from typing import Any, Optional
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -65,6 +70,41 @@ _ALLOCATIONS = {torch.ops.aten.empty.memory_format,
                 torch.ops.aten.empty_strided.default,
                 torch.ops.aten.empty_like.default}
 _COPIES = {torch.ops.aten.clone.default}
+_aten = torch.ops.aten
+
+
+def _index_put_rows(x, indices, values, accumulate=False) -> int:
+    """Bytes of ``x[indices] = values`` (``+=`` with ``accumulate``): the
+    elements it writes (read too when it accumulates), the values and the
+    indices; a boolean mask's elements are not known on meta tensors, so
+    such a write is charged the whole of ``x``."""
+    idx = [i for i in indices if i is not None]
+    if any(i.dtype == torch.bool for i in idx):
+        return 2 * _tensor_bytes(x) + _tensor_bytes((idx, values))
+    rows = torch.Size(torch.broadcast_shapes(*(i.shape for i in idx)))
+    rest = [n for i, n in enumerate(x.shape)
+            if i >= len(indices) or indices[i] is None]
+    moved = rows.numel() * int(np.prod(rest, dtype=np.int64)) \
+        * x.element_size()
+    return (1 + bool(accumulate)) * moved + _tensor_bytes((idx, values))
+
+
+# the bytes of an indexed read or in-place write, from its arguments
+# (its rows, its index and its source) instead of the tensor it indexes
+_INDEXED = {
+    _aten.index_select.default:
+        lambda x, dim, index, out: _tensor_bytes(index) + 2 * (
+            _tensor_bytes(out)),
+    _aten.index_copy_.default:
+        lambda x, dim, index, src, out: _tensor_bytes(index) + 2 * (
+            _tensor_bytes(src)),
+    _aten.index_add_.default:
+        lambda x, dim, index, src, out, alpha=1: _tensor_bytes(index) + 3 * (
+            _tensor_bytes(src)),
+    _aten.index_put_.default:
+        lambda x, indices, values, accumulate=False, out=None:
+            _index_put_rows(x, indices, values, accumulate),
+}
 
 
 def clear_cost_cells() -> None:
@@ -98,7 +138,11 @@ class _CostMode(TorchDispatchMode):
             self.flops += sum(x.numel() for x in tree_leaves(out)
                               if isinstance(x, torch.Tensor)
                               and (x.is_floating_point() or x.is_complex()))
-        self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        indexed = _INDEXED.get(func)
+        if indexed is not None:
+            self.bytes += indexed(*args, out=out, **kwargs)
+        else:
+            self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
         return out
 
 

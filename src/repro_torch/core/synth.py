@@ -1312,7 +1312,7 @@ class _SweepProgram:
             owned, dtype=torch.bool, device=device)
         self.copies: list = []      # a partition's (dst, src) cut rings
         self.carry: Optional[_Carry] = None
-        self.capture_s = 0.0
+        self.capture_s = self.loop_s = 0.0
         self.n_replays = self.n_blocks = self.n_host_syncs = 0
         self.n_graph_nodes = self.n_captures = 0
         self.read_s = 0.0
@@ -1321,10 +1321,12 @@ class _SweepProgram:
     def __call__(self, states0: tuple, mmaps0: tuple, ports0: tuple = ()):
         self.prepare(states0, mmaps0, ports0)
         try:
+            t0 = time.perf_counter()
             for k in self._blocks:
                 self.block(k)
                 if self._done():
                     break
+            self.loop_s = time.perf_counter() - t0
             return self._read()
         finally:
             self.close()
@@ -1614,9 +1616,9 @@ class _PartitionedProgram:
     is captured at the end of the sweep of the later of its two
     partitions.  The firing schedule, the values popped and the mmap
     stores are the single-device program's, so the outputs are bit for
-    bit the same.  Partitions on one device run in its stream's order;
-    across devices each waits on the previous partition's event.  The
-    host reads partition 0's done flag once a block.
+    bit the same.  The partitions share one device and run in its
+    stream's order (``CompiledEngine`` refuses a mesh over distinct
+    cards).  The host reads partition 0's done flag once a block.
 
     ``program(states0, mmaps0)`` (one tuple of each a partition) returns
     ``(mmaps, fires, sweeps, maxocc, sizes)``: each written mmap from its
@@ -1625,25 +1627,20 @@ class _PartitionedProgram:
     replayed, each by every partition), ``n_blocks``, ``n_host_syncs``,
     ``nodes`` (each partition's sweep graph's top-level nodes, on the
     card), ``cuts`` (channel, producer's partition, consumer's) and
-    ``cut_bytes`` (ring bytes copied a sweep).
+    ``cut_bytes`` (ring bytes copied a sweep) and ``loop_s`` (host
+    seconds from the first sweep to the last done-flag read).
     """
 
     def __init__(self, plan: _Plan, devices: list, owners: list):
+        from .floorplan import channel_endpoints
         self.plan, self.owners = plan, [int(o) for o in owners]
         self.parts = [_SweepProgram(plan, dev, [o == p for o in self.owners])
                       for p, dev in enumerate(devices)]
-        prod = [-1] * len(plan.channels)
-        cons = [-1] * len(plan.channels)
-        for ti, tp in enumerate(plan.tasks):
-            for ph in tp.phases:
-                for ci in ph.writes:
-                    prod[ci] = ti
-                for ci in ph.reads:
-                    cons[ci] = ti
-        self.cuts = [(ci, self.owners[prod[ci]], self.owners[cons[ci]])
-                     for ci in range(len(plan.channels))
-                     if prod[ci] >= 0 and cons[ci] >= 0
-                     and self.owners[prod[ci]] != self.owners[cons[ci]]]
+        self.cuts = [(ci, self.owners[prod], self.owners[cons])
+                     for ci, (prod, cons) in enumerate(
+                         channel_endpoints(plan))
+                     if prod >= 0 and cons >= 0
+                     and self.owners[prod] != self.owners[cons]]
         self.cut_bytes = sum(
             plan.channels[ci].capacity * canon_dtype(
                 plan.channels[ci].dtype).itemsize * int(np.prod(
@@ -1652,15 +1649,7 @@ class _PartitionedProgram:
         self.writer = {mi: self.owners[ti]
                        for ti, tp in enumerate(plan.tasks)
                        for ph in tp.phases for mi in ph.mmap_stores}
-        chain = devices[0].type == "cuda" and len(set(devices)) > 1
-        self._events = [None] * len(devices)
-        if chain:
-            self._events = []
-            for dev in devices:
-                with torch.cuda.device(dev):
-                    self._events.append(torch.cuda.Event())
-        self._prev = None
-        self.capture_s = 0.0
+        self.capture_s = self.loop_s = 0.0
         self.n_replays = self.n_blocks = self.n_host_syncs = 0
         self.nodes: list = []
 
@@ -1678,35 +1667,23 @@ class _PartitionedProgram:
                     prog._build_graph()
                     self.capture_s += prog.capture_s
             self.nodes = [prog.n_graph_nodes for prog in parts]
+            t0 = time.perf_counter()
             for k in _block_sizes():
                 for _ in range(k):
-                    self._sweep()
+                    for prog in parts:
+                        prog.block(1)
                 self.n_replays += k
                 self.n_blocks += 1
                 self.n_host_syncs += 1
                 if parts[0]._done():
                     break
+            self.loop_s = time.perf_counter() - t0
             return self._read()
         finally:
             for prog in parts:
                 prog.close()
 
-    def _sweep(self) -> None:
-        """One sweep: every partition's, in partition order."""
-        for prog, ev in zip(self.parts, self._events):
-            if ev is not None:
-                stream = torch.cuda.current_stream(prog.device)
-                if self._prev is not None:
-                    stream.wait_event(self._prev)
-            prog.block(1)
-            if ev is not None:
-                ev.record(stream)
-                self._prev = ev
-
     def _read(self) -> tuple:
-        for dev in {prog.device for prog in self.parts[1:]}:
-            if dev.type == "cuda" and dev != self.parts[0].device:
-                torch.cuda.synchronize(dev)
         mmaps, fires, sweeps, maxocc, sizes, _ = self.parts[0]._read()
         self.n_host_syncs += 1
         mmaps = tuple(self.parts[self.writer.get(mi, 0)].carry.mmaps[mi]
@@ -1739,6 +1716,9 @@ class CompiledEngine(EngineBase):
     visible) or, for ``device="cpu"``, N on the CPU; a flat sequence of
     devices, which may repeat, puts partition ``p`` on the ``p``-th
     (``[torch.device("cuda:0")] * 4``: four partitions sharing one card).
+    The partitions share one device: a mesh over distinct cards (so
+    ``mesh=N`` for N > 1 on the card) raises :class:`SynthesisError`
+    until a run over several cards has checked its cut copies.
     Tasks are placed on per-task costs (:mod:`.floorplan`, priced by
     :mod:`.cost`), one process runs every partition
     (:class:`_PartitionedProgram`), and every cut channel's ring is copied
@@ -1770,7 +1750,8 @@ class CompiledEngine(EngineBase):
         # mesh (place_s: cost probes and the planner) and in the sweep loop
         # with its capture and the write-back (program_s); of the sweep loop
         # (_SweepProgram, or _PartitionedProgram under a mesh): the
-        # capture's host seconds (capture_s, 0 on the CPU), sweeps replayed
+        # capture's host seconds (capture_s, 0 on the CPU), the loop's own
+        # (loop_s: first sweep to last done-flag read), sweeps replayed
         # (n_replays, those past the end included; under a mesh each by
         # every partition), blocks and host syncs (n_host_syncs: one a block
         # and one final read), the sweep graph's top-level nodes
@@ -1785,7 +1766,7 @@ class CompiledEngine(EngineBase):
         self.lower_s = 0.0
         self.place_s = 0.0
         self.program_s = 0.0
-        self.capture_s = 0.0
+        self.capture_s = self.loop_s = 0.0
         self.n_replays = self.n_blocks = self.n_host_syncs = 0
         self.n_graph_nodes = 0
         self.ring_ops: dict = {}
@@ -1990,7 +1971,7 @@ class CompiledEngine(EngineBase):
             program = _SweepProgram(plan, self.device)
             mm_final, fires, sweeps, maxocc, sizes, (counters, written) = \
                 program(states0, mmaps0, ports0)
-            self.capture_s = program.capture_s
+            self.capture_s, self.loop_s = program.capture_s, program.loop_s
             self.n_replays, self.n_blocks, self.n_host_syncs = \
                 program.n_replays, program.n_blocks, program.n_host_syncs
             self.n_graph_nodes = program.n_graph_nodes
@@ -2006,7 +1987,8 @@ class CompiledEngine(EngineBase):
     def _resolve_mesh(self) -> list:
         """``self.mesh`` as the partitions' devices: an int N is the first
         N cards (for ``device="cpu"``, N partitions on the CPU); a flat
-        sequence of devices is taken as it is."""
+        sequence of devices is taken as it is; either must come to one
+        device (:meth:`_one_card`)."""
         mesh = self.mesh
         if isinstance(mesh, (int, np.integer)) and not isinstance(mesh, bool):
             n = int(mesh)
@@ -2021,7 +2003,8 @@ class CompiledEngine(EngineBase):
                     f"cards but {visible} card(s) are visible; to place "
                     f"several partitions on one card, pass the devices "
                     f"explicitly, e.g. mesh=[torch.device('cuda:0')] * {n}")
-            return [torch.device("cuda", i) for i in range(n)]
+            return self._one_card([torch.device("cuda", i)
+                                   for i in range(n)])
         if isinstance(mesh, (list, tuple)) and mesh and all(
                 isinstance(d, (torch.device, str)) for d in mesh):
             devices = [torch.device(d) for d in mesh]
@@ -2032,11 +2015,28 @@ class CompiledEngine(EngineBase):
                         raise ValueError(
                             f"mesh names {d} but {visible} card(s) are "
                             f"visible")
-                return devices
+                return self._one_card(devices)
         raise SynthesisError(
             f"partitioned synthesis takes mesh=N (an int) or a flat "
             f"sequence of devices of one type; got {mesh!r} — task graphs "
             f"are placed along one device axis")
+
+    @staticmethod
+    def _one_card(devices: list) -> list:
+        """``devices`` when they are one device; a mesh over distinct cards
+        is refused: its cut copies would cross devices inside a captured
+        sweep, which no run has tried yet (ROADMAP A5)."""
+        devices = [torch.device("cuda", torch.cuda.current_device())
+                   if d.type == "cuda" and d.index is None else d
+                   for d in devices]
+        if len(set(devices)) > 1:
+            raise SynthesisError(
+                f"partitioned synthesis over distinct cards "
+                f"{sorted({str(d) for d in devices})} has not run yet "
+                f"(ROADMAP A5: a cut ring's copy across cards inside a "
+                f"partition's captured sweep); place the partitions on one "
+                f"card, e.g. mesh=[torch.device('cuda:0')] * {len(devices)}")
+        return devices
 
     def _run_partitioned(self, plan: _Plan, graph, result, devices: list,
                          t0: float) -> SimReport:
@@ -2081,7 +2081,7 @@ class CompiledEngine(EngineBase):
                              for m in plan.mmaps) for dev in devices)
         program = _PartitionedProgram(plan, devices, placement.owners)
         mm_final, fires, sweeps, maxocc, sizes = program(states0, mmaps0)
-        self.capture_s = program.capture_s
+        self.capture_s, self.loop_s = program.capture_s, program.loop_s
         self.n_replays, self.n_blocks, self.n_host_syncs = \
             program.n_replays, program.n_blocks, program.n_host_syncs
         self.partition_nodes = program.nodes

@@ -406,6 +406,21 @@ def test_mesh_wider_than_visible_cards_refuses(monkeypatch):
             cache=False).run(top, *args)
 
 
+@pytest.mark.parametrize("mesh", [2, ["cuda:0", "cuda:1"],
+                                  [torch.device("cuda", 3)] * 2 + ["cuda:0"]])
+def test_mesh_over_distinct_cards_refuses(monkeypatch, mesh):
+    """Partitions share one card: a mesh over distinct cards (``mesh=N``
+    with N cards visible, or a device list naming two cards) raises
+    ``SynthesisError`` naming ROADMAP A5 and the one-card form, before
+    anything touches a card."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    top, args, _ = relay_pipeline(stages=1)
+    with pytest.raises(SynthesisError, match=r"distinct cards.*ROADMAP A5"
+                       r".*mesh=\[torch.device\('cuda:0'\)\] \* \d"):
+        repro_torch.ENGINES["compiled"](device="cuda", mesh=mesh,
+                                        cache=False).run(top, *args)
+
+
 def test_placement_reuse_mismatch_refuses():
     plan, graph = _plan(stages=2)
     pl = plan_placement(plan, graph, 2, cache=False, cost_fn=_flat_cost)
@@ -611,6 +626,8 @@ def test_partition_program_counts_its_sweeps(monkeypatch):
     assert len(calls) == sum(seen["fires"])
     blocks = -(-seen["sweeps"] // 3)
     assert (eng.n_blocks, eng.n_replays) == (blocks, 3 * blocks)
+    assert 0.0 < eng.loop_s < eng.program_s
+    assert 0.0 < eng0.loop_s < eng0.program_s
 
 
 # ---------------------------------------------------------------------------
@@ -647,6 +664,21 @@ def test_cost_probe_per_firing():
     assert tc["flops"] == sum(p["flops"] * p["count"] for p in tc["phases"])
     assert tc["seconds"] == pytest.approx(
         tc["flops"] / cost.HW["peak_flops"] + tc["bytes"] / cost.HW["hbm_bw"])
+
+
+def test_cost_probe_charges_the_rows_a_ring_op_moves():
+    """A pop or a push moves its tokens, not its ring: every task of the
+    relay pipeline costs the same bytes a firing with rings of 16 and of
+    256 tokens.  Exact: the two probes dispatch the same operations on
+    the same token shapes."""
+    got = []
+    for cap in (16, 256):
+        cost.clear_cost_cells()
+        plan, _ = _plan(stages=1, capacity=cap)
+        got.append([cost.phase_cost(plan, tp, tp.phases[0], cache=False)
+                    for tp in plan.tasks])
+    assert got[0] == got[1]
+    assert all(c["bytes"] > 0 for c in got[0])
 
 
 def test_card_hw_table():
