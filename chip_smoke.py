@@ -165,10 +165,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    float32 CUDA cores' beside it), and each of the three kernels' device
    time per call.
 12. training — ``repro_torch.launch.train`` on Mamba2-130M at full width
-   (bf16, 8 x 2048, 20 steps, ``--use-kernel``): rc 0 (the driver's own
-   loss-decrease check), exactly 2 x 24 x 20 SSD launches (remat runs each
-   layer's forward twice), finite losses and gradient norms, the step-20
-   checkpoint restorable, and the same command again runs no step.
+   (bf16, 8 x 2048, 20 steps, ``--use-kernel``, ``--model-parallel 1``:
+   through a (1, 1) mesh of a one-rank NCCL group, parameters, AdamW
+   state and batches placed by the sharding rules, the step on DTensors):
+   rc 0 (``launch.train``'s own loss-decrease check), exactly 2 x 24 x 20 SSD
+   launches (remat runs each layer's forward twice), finite losses and
+   gradient norms, the step-20 checkpoint restorable (unsharded), and the
+   same command again runs no step.
 13. Qwen3-0.6B at full width, 3 ``make_train_step(use_kernel=True)``
    steps at 4 x 1024: flash launched 2 x 28 x 3 times, all finite; then
    a fourth step under the profiler, whose 56 flash launches must all be
@@ -266,8 +269,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    chunks), 8 decode steps each: logits, and the SSM and conv states
    after prefill, within ``LOGIT_REL_TOL`` of their largest magnitude,
    greedy tokens equal, the card's launches those of the path.
-24. serving compiled — Qwen3-0.6B at full width and depth (bf16, phase
-   8's weights, 8 slots of 2048) through the serving engine's compiled
+24. serving compiled — Qwen3-0.6B at full width cut to
+   ``COMPILED_LAYERS`` (8) layers (bf16, phase 8's seed, 8 slots of
+   2048) through the serving engine's compiled
    steps: ``warmup(cache=...)`` into an empty compile cache under a
    temporary ``build/serve_cache_*`` (deleted) at batch sizes 1, 2, 4
    and 8 and phase 8's buckets: the prefill (one AOTInductor package for
@@ -321,6 +325,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    sweeps/s over the sweep loop alone and device us a sweep (CUDA events
    around each replay) against the single-device run, the cut bytes
    copied a sweep.
+27. sharded training — (a) Qwen3-0.6B at phase 13's configuration
+   (bf16, 4 x 1024, ``use_kernel=True``) through ``make_host_mesh(1)``
+   (a one-rank NCCL group): 3 ``make_train_step`` steps on DTensors
+   placed by ``param_specs``/``opt_state_specs``/``batch_spec``, and 3
+   unsharded steps from the same weights and batches; losses within
+   ``SHARD_LOSS_TOL`` and gradient norms within ``SHARD_GNORM_REL`` of
+   each other, flash launched 2 x 28 x 3 times in the sharded steps,
+   every parameter's local shard on cuda:0, then a fourth sharded step
+   under the profiler whose flash launches must all be the tensor-core
+   kernel; host ms (the call's return) and device ms (CUDA events) a
+   step both ways; the process group destroyed.  (b) is phase 12, now
+   through the mesh.  (c) ``launch.dryrun.run_cell`` of ``qwen3-0.6b x
+   train_4k x pod16x16`` on a fake 256-rank process group on the host:
+   ``ok``, its argument bytes equal to the local shard bytes summed
+   from the specs (the cell runs in a child process started before
+   phase 24, on the host's free cores; its own seconds).
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -332,8 +352,10 @@ Details also go to
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2661,6 +2683,13 @@ def card_vs_cpu(arch: str = ARCH) -> dict:
 TRAIN_ARCH = "mamba2-130m"
 TRAIN = dict(batch=8, seq=2048, steps=20)
 QWEN_TRAIN = dict(batch=4, seq=1024, steps=3)
+# Phase 27: the sharded step on a (1, 1) mesh against the unsharded step,
+# the same weights and batches.  The local ops are the unsharded step's
+# but for the loss's log-sum-exp (a max and a sum, the form that works on
+# vocab-sharded logits, where the unsharded step calls logsumexp): a
+# float32 difference of ~1e-6 that bf16 weights carry on for 3 steps.
+SHARD_LOSS_TOL = 2e-3
+SHARD_GNORM_REL = 2e-2
 SSD_REPLACES = "src/repro/kernels/ssd_scan.py:43"
 # the SSD's device kernels, as the profiler names them; the first is
 # launched once a call (phase 15 counts calls by it)
@@ -2937,7 +2966,8 @@ def train_phase() -> dict:
         ck, mpath = str(Path(tmp) / "ckpt"), Path(tmp) / "metrics.jsonl"
         args = ["--arch", TRAIN_ARCH, "--use-kernel", "--batch", str(B),
                 "--seq", str(S), "--steps", str(steps), "--ckpt-dir", ck,
-                "--metrics", str(mpath), "--log-every", "5"]
+                "--metrics", str(mpath), "--log-every", "5",
+                "--model-parallel", "1"]
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         torch.cuda.synchronize()
@@ -2977,7 +3007,8 @@ def train_phase() -> dict:
     dts = [r["dt"] for r in rows]
     step_ms = float(np.median(dts[1:])) * 1e3
     out = dict(arch=TRAIN_ARCH, params=n_params, dtype=cfg.dtype, **TRAIN,
-               use_kernel=True, remat=True, rc=rc, wall_s=wall,
+               use_kernel=True, remat=True, model_parallel=1, rc=rc,
+               wall_s=wall,
                launches=counts, loss_first=rows[0]["loss"],
                loss_last=rows[-1]["loss"],
                losses=[r["loss"] for r in rows],
@@ -2986,7 +3017,8 @@ def train_phase() -> dict:
                mean_step_ms=float(np.mean(dts[1:])) * 1e3,
                tok_per_s=B * S / (step_ms / 1e3), peak_gb=peak_gb,
                rerun_rc=rc2)
-    log(f"train {TRAIN_ARCH}: {n_params} params {cfg.dtype}, batch {B} x "
+    log(f"train {TRAIN_ARCH} (--model-parallel 1, a (1, 1) mesh): "
+        f"{n_params} params {cfg.dtype}, batch {B} x "
         f"seq {S}, {steps} steps in {wall:.1f} s (final save and checks "
         f"included); step 1 {dts[0] * 1e3:.0f} ms, then median "
         f"{step_ms:.1f} ms ({out['tok_per_s']:,.0f} tokens/s); loss "
@@ -3076,6 +3108,247 @@ def qwen_train_phase() -> dict:
         f"{prof_s * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms, flash "
         f"{n_flash} launches {flash_us / 1e3:.2f} ms "
         f"({flash_us / n_flash:.2f} us each)")
+    return out
+
+
+def _timed_steps(step_fn, params, state, batches) -> tuple:
+    """Run ``step_fn`` over ``batches``: the final parameters and state,
+    and a row a step (loss, grad norm, host ms until the call returned,
+    wall ms until the card finished, device ms between CUDA events)."""
+    from repro_torch.dtensor import is_dtensor
+    rows = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        params, state, m = step_fn(params, state, batch)
+        e1.record()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        val = {k: float(v.to_local() if is_dtensor(v) else v)
+               for k, v in m.items()}
+        rows.append(dict(loss=val["loss"], grad_norm=val["grad_norm"],
+                         host_ms=host * 1e3, wall_ms=wall * 1e3,
+                         device_ms=e0.elapsed_time(e1)))
+    return params, state, rows
+
+
+def _spec_bytes(tree, specs, mesh) -> int:
+    """Local shard bytes of a tree of (meta) tensors laid out by specs."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.tree import named_leaves
+    sp = dict(named_leaves(specs))
+    return sum(math.prod(shd.local_shape(tuple(t.shape), sp[n], mesh))
+               * t.element_size() for n, t in named_leaves(tree))
+
+
+DRYRUN_CELL = ("qwen3-0.6b", "train_4k")
+# phase 27 (c) in a process of its own on the host, started before phase
+# 24 and read in phase 27: the cell runs on fake tensors (no card), its
+# ~40 s alongside phase 24's compile processes, which leave cores free
+DRYRUN_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch.dryrun import fake_world, run_cell
+from repro_torch.launch.mesh import make_production_mesh
+arch, shape = sys.argv[1], sys.argv[2]
+with fake_world(256):
+    rec = run_cell(get_config(arch), SHAPES[shape], make_production_mesh(),
+                   "pod16x16", verbose=False)
+print(json.dumps({"record": rec, "seconds": time.perf_counter() - t0}))
+"""
+_dryrun: dict = {}
+
+
+def _stop_dryrun() -> None:
+    proc = _dryrun.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def start_dryrun() -> None:
+    """Start phase 27's dry-run cell in a child process (once); a child
+    still running when the script exits is stopped."""
+    if "proc" not in _dryrun:
+        atexit.register(_stop_dryrun)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        _dryrun["proc"] = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CHILD, *DRYRUN_CELL],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+        _dryrun["t0"] = time.perf_counter()
+
+
+def finish_dryrun() -> dict:
+    """The dry-run child's record and seconds; raises if it failed."""
+    start_dryrun()
+    proc = _dryrun.pop("proc")
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode:
+        raise AssertionError(f"dry run: rc {proc.returncode}\n"
+                             f"{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    got["waited_s"] = time.perf_counter() - _dryrun.pop("t0")
+    return got
+
+
+def sharded_train_phase() -> dict:
+    """Phase 27 (a) and (c): Qwen3-0.6B's train step through a (1, 1)
+    mesh on the card against the unsharded step; the dry run of
+    ``qwen3-0.6b x train_4k x pod16x16`` on the host."""
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.launch.mesh import (PRODUCTION, destroy_host_group,
+                                         make_host_mesh)
+    from repro_torch.launch.steps import abstract_batch, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, opt_state_specs
+    from repro_torch.tree import leaves
+    cfg = get_config(ARCH)
+    B, S, steps = QWEN_TRAIN["batch"], QWEN_TRAIN["seq"], QWEN_TRAIN["steps"]
+    opt = AdamWConfig(total_steps=steps, warmup_steps=1)
+    data = make_pipeline(cfg.vocab, S, B, seed=0)
+    batches = [{k: torch.from_numpy(v).to(DEV)
+                for k, v in data.next_batch().items()} for _ in range(steps)]
+    params0 = lm.init_params(cfg, 0)
+    step_fn = make_train_step(cfg, opt, use_kernel=True)
+    reset_launches()
+    _, _, plain = _timed_steps(step_fn, params0, adamw_init(params0, opt),
+                               batches)
+    plain_counts = launch_counts()
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1)
+    try:
+        pol = shd.for_mesh(mesh)
+        pspec = shd.param_specs(cfg, mesh, pol)
+        ospec = opt_state_specs(cfg, mesh, pol)
+        bspec = shd.batch_spec(cfg, mesh, B, pol)
+        params = shd.place_tree(params0, pspec, mesh)
+        state = shd.place_tree(adamw_init(params0, opt), ospec, mesh)
+        placed = [{k: shd.place(v, bspec[k], mesh) for k, v in b.items()}
+                  for b in batches]
+        setup_s = time.perf_counter() - t0
+        reset_launches()
+        params, state, sharded = _timed_steps(step_fn, params, state,
+                                              placed)
+        counts = launch_counts()
+        want = {"flash_attention": 2 * cfg.n_layers * steps}
+        if counts != want or plain_counts != want:
+            raise AssertionError(f"sharded train: launches {counts} (the "
+                                 f"unsharded steps {plain_counts}), "
+                                 f"expected {want}")
+        where = {str(t.to_local().device) for t in leaves(params)}
+        if where != {"cuda:0"}:
+            raise AssertionError(f"sharded train: local shards on {where}")
+        for a, b in zip(plain, sharded):
+            if not (np.isfinite(b["loss"]) and np.isfinite(b["grad_norm"])
+                    and abs(a["loss"] - b["loss"]) <= SHARD_LOSS_TOL
+                    and abs(a["grad_norm"] - b["grad_norm"])
+                    <= SHARD_GNORM_REL * a["grad_norm"]):
+                raise AssertionError(f"sharded train: unsharded {plain}, "
+                                     f"sharded {sharded}")
+
+        def run():
+            nonlocal params, state
+            reset_launches()
+            t = time.perf_counter()
+            params, state, _ = step_fn(params, state, placed[0])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        def check(prof, _):
+            busy_us, kern = _device_times(prof)
+            _check_flash_route(kern, launch_counts().get(
+                "flash_attention", 0), f"sharded train {ARCH}")
+            return busy_us, kern
+
+        _, prof_s, (busy_us, kern) = _profiled(run, check,
+                                               f"sharded train {ARCH}")
+        del params, state, placed
+    finally:
+        destroy_host_group()
+    if dist.is_initialized():
+        raise AssertionError("sharded train: a process group outlived the "
+                             "phase")
+    del params0, batches
+    torch.cuda.empty_cache()
+
+    # (c) the dry run of one production cell, on the host (a child
+    # process); the argument bytes a rank the specs give, on an abstract
+    # mesh of the production shape
+    dry = finish_dryrun()
+    rec, dry_s = dry["record"], dry["seconds"]
+    shape = SHAPES[DRYRUN_CELL[1]]
+    pmesh = shd.AbstractMesh(*PRODUCTION[False])
+    pol = shd.for_mesh(pmesh, fsdp=cfg.param_count() > 5e10)
+    like = shd.abstract_params(cfg)
+    want_bytes = (
+        _spec_bytes(like, shd.param_specs(cfg, pmesh, pol), pmesh)
+        + _spec_bytes(adamw_init(like, AdamWConfig()),
+                      opt_state_specs(cfg, pmesh, pol), pmesh)
+        + _spec_bytes(abstract_batch(cfg, shape.global_batch,
+                                     shape.seq_len),
+                      shd.batch_spec(cfg, pmesh, shape.global_batch, pol),
+                      pmesh))
+    got_bytes = rec["memory"]["argument_size_in_bytes"]
+    if not rec["ok"] or got_bytes != want_bytes:
+        raise AssertionError(f"dry run: ok {rec['ok']}, argument bytes "
+                             f"{got_bytes}, the specs give {want_bytes}")
+
+    def med(rows, k):
+        return float(np.median([r[k] for r in rows[1:]]))
+    out = dict(
+        arch=ARCH, dtype=cfg.dtype, **QWEN_TRAIN, mesh={"data": 1,
+                                                        "model": 1},
+        setup_s=setup_s, unsharded=plain, sharded=sharded,
+        launches=counts, loss_gap=[abs(a["loss"] - b["loss"])
+                                   for a, b in zip(plain, sharded)],
+        host_ms={"unsharded": med(plain, "host_ms"),
+                 "sharded": med(sharded, "host_ms")},
+        device_ms={"unsharded": med(plain, "device_ms"),
+                   "sharded": med(sharded, "device_ms")},
+        wall_ms={"unsharded": med(plain, "wall_ms"),
+                 "sharded": med(sharded, "wall_ms")},
+        profiled_step=dict(wall_ms=prof_s * 1e3,
+                           device_busy_ms=busy_us / 1e3,
+                           flash_launches=kern["flash_attention"][0],
+                           flash_device_ms=kern["flash_attention"][1] / 1e3),
+        dryrun=dict(cell=f"{ARCH}|train_4k|pod16x16", seconds=dry_s,
+                    waited_s=dry["waited_s"], record=rec,
+                    spec_arg_bytes=want_bytes))
+    log(f"sharded train {ARCH}: 3 steps on a (1, 1) mesh vs unsharded: "
+        f"losses " + ", ".join(f"{a['loss']:.5f}/{b['loss']:.5f}"
+                               for a, b in zip(plain, sharded))
+        + f"; grad norms " + ", ".join(
+            f"{a['grad_norm']:.4f}/{b['grad_norm']:.4f}"
+            for a, b in zip(plain, sharded))
+        + f"; host ms a step {out['host_ms']['unsharded']:.1f} unsharded, "
+        f"{out['host_ms']['sharded']:.1f} sharded; device ms "
+        f"{out['device_ms']['unsharded']:.1f} / "
+        f"{out['device_ms']['sharded']:.1f}; wall ms "
+        f"{out['wall_ms']['unsharded']:.1f} / {out['wall_ms']['sharded']:.1f}"
+        f"; first sharded step {sharded[0]['wall_ms']:.0f} ms; launches "
+        f"{counts}; placement {setup_s:.1f} s")
+    log(f"dry run {ARCH} x train_4k x pod16x16 (256 fake ranks, a child "
+        f"process started before phase 24): {dry_s:.1f} s, argument bytes "
+        f"{got_bytes} (= the specs'), "
+        f"temp estimate {rec['memory']['temp_size_in_bytes']}, flops "
+        f"{rec['cost']['flops']:.4g}, collectives "
+        f"{rec['collectives']}")
     return out
 
 
@@ -4105,6 +4378,12 @@ def family_vs_cpu(arch: str) -> dict:
 # ---------------------------------------------------------------------------
 
 COMPILED_BATCH_SIZES = (1, 2, 4, 8)
+# phase 24 at full width and a cut depth (the script's time limit, with
+# phase 27 added): its cold warmup exports and compiles the
+# model's graphs, whose seconds scale with the layers (a 28-layer run on
+# a slow host: 72 s of export and 151 s of compile of a 219 s warmup,
+# the script 1322 s); phase 8 serves all 28
+COMPILED_LAYERS = 8
 COMPILED_STEPS = 16         # decode steps profiled alone
 # phase 25: Qwen3 at 2 float32 layers, 4 ragged prompts in a 512 bucket,
 # 8 decode steps; mamba2 at 2 float32 layers per slot, prompts of
@@ -4147,9 +4426,18 @@ def _agreement(got: dict, want: dict) -> dict:
                 tokens_before_first_difference=prefix, tokens=total)
 
 
+def _compiled_cfg():
+    """Phase 24's model: Qwen3-0.6B at full width, ``COMPILED_LAYERS``
+    deep, attention on the kernels (the cold and the warm process)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH), attn_impl="kernel",
+                               n_layers=COMPILED_LAYERS)
+
+
 def compiled_serving_phase(eager_tokens: dict | None) -> dict:
-    """Phase 24: Qwen3-0.6B at full width and depth (bf16, phase 8's
-    weights and requests) served through the engine's compiled steps:
+    """Phase 24: Qwen3-0.6B at full width cut to ``COMPILED_LAYERS`` layers
+    (bf16, phase 8's seed and requests) served through the engine's
+    compiled steps:
     ``warmup(cache=...)`` into an empty store under a temporary
     ``build/serve_cache_*`` (deleted) at batch sizes
     ``COMPILED_BATCH_SIZES`` and phase 8's buckets — every (batch size,
@@ -4157,13 +4445,14 @@ def compiled_serving_phase(eager_tokens: dict | None) -> dict:
     requests (every request ``max_new`` tokens; flash once a layer a
     prefill call and flash-decode once a layer a step, counted by the
     wrappers the packages call back); the greedy tokens' agreement with
-    phase 8's eager run (printed, not gated: the compiled program rounds
-    bf16 at other places); then the warm half in a fresh process on the
-    same store (:func:`warm_serving`): no executable ``"compiled"``, its
-    warmup seconds, one wave, and the decode step alone under the
-    profiler (every flash-decode launch a ``decode_partial_kernel``: 28
-    a step; kernels and device ms a step) and one compiled prefill (28
-    ``flash_wgmma_kernel``)."""
+    phase 8's eager run where the depths are equal (printed, not gated:
+    the compiled program rounds bf16 at other places); then the warm half
+    in a fresh process on the same store (:func:`warm_serving`): no
+    executable ``"compiled"``, its warmup seconds, one wave, and the
+    decode step alone under the
+    profiler (every flash-decode launch a ``decode_partial_kernel``: one
+    a layer a step; kernels and device ms a step) and one compiled
+    prefill (a ``flash_wgmma_kernel`` a layer)."""
     import shutil
     import tempfile
     from repro_torch.configs import get_config
@@ -4171,8 +4460,8 @@ def compiled_serving_phase(eager_tokens: dict | None) -> dict:
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.models import lm
     from repro_torch.serve import ServeConfig, ServingEngine, serve_requests
-    cfg = dataclasses.replace(get_config(ARCH), attn_impl="kernel")
-    params = lm.init_params(cfg, SERVE["seed"])        # phase 8's
+    cfg = _compiled_cfg()
+    params = lm.init_params(cfg, SERVE["seed"])
     scfg = ServeConfig(batch_slots=SERVE["slots"], max_seq=SERVE["max_seq"])
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="serve_cache_", dir=ROOT / "build"))
@@ -4226,7 +4515,8 @@ def compiled_serving_phase(eager_tokens: dict | None) -> dict:
                                  f"{n_dec} decode calls, expected {want}")
         n_tok = sum(len(v) for v in res.values())
         tokens = {r.rid: res[r.rid] for r in reqs}
-        agree = _agreement(tokens, eager_tokens) if eager_tokens else None
+        agree = _agreement(tokens, eager_tokens) if eager_tokens and \
+            cfg.n_layers == get_config(ARCH).n_layers else None
         log(f"compiled serve: {len(reqs)} requests -> {n_tok} tokens in "
             f"{wall:.3f} s ({n_tok / wall:.1f} tok/s); prefill {n_pre} "
             f"calls {stats.s['prefill']:.3f} s, decode {n_dec} steps "
@@ -4264,10 +4554,12 @@ def compiled_serving_phase(eager_tokens: dict | None) -> dict:
             f"the cold process's tokens; the decode step alone "
             f"{st['host_ms_per_step']:.3f} ms, device "
             f"{st['device_ms_per_step']:.3f} ms ({st['busy_share']:.1%}), "
-            f"{st['kernels_per_step']} kernels (28 decode_partial_kernel, "
+            f"{st['kernels_per_step']} kernels ({cfg.n_layers} "
+            f"decode_partial_kernel, "
             f"{st['decode_partial_per_launch_us']:.2f} us a launch); a "
             f"1024-token prefill {st['prefill_1024']['device_ms']:.3f} ms "
-            f"device, {st['prefill_1024']['kernels']} kernels (28 "
+            f"device, {st['prefill_1024']['kernels']} kernels "
+            f"({cfg.n_layers} "
             f"flash_wgmma_kernel, "
             f"{st['prefill_1024']['flash_per_launch_us']:.2f} us a "
             f"launch); process {warm_proc_s:.1f} s")
@@ -4296,11 +4588,10 @@ def warm_serving() -> dict:
     :func:`_compiled_step_profile` (a fresh process: the profiler there
     has seen no earlier session; in the long main process it missed 3
     kernel records of each one).  Returns what it measured."""
-    from repro_torch.configs import get_config
     from repro_torch.core.compile_cache import default_cache
     from repro_torch.models import lm
     from repro_torch.serve import ServeConfig, ServingEngine, serve_requests
-    cfg = dataclasses.replace(get_config(ARCH), attn_impl="kernel")
+    cfg = _compiled_cfg()
     params = lm.init_params(cfg, SERVE["seed"])
     eng = ServingEngine(
         ServeConfig(batch_slots=SERVE["slots"], max_seq=SERVE["max_seq"]),
@@ -4924,7 +5215,7 @@ def owner_mask_checks() -> list:
 
 def run_only(phases: set, phase) -> int:
     """``--only 8,24,25``: the build, then only the named phases among
-    17, 8, 24, 25 and 26 (26 with phase 3's owner-mask checks of
+    17, 8, 24, 25, 26, 12 and 27 (26 with phase 3's owner-mask checks of
     ``sweep_guards`` first; a development run: no kernels line, no result
     line);
     what they return goes to ``chiprun_out/chip_smoke_only.json``."""
@@ -4945,6 +5236,11 @@ def run_only(phases: set, phase) -> int:
         if "26" in phases:
             out["owner_mask"] = phase("26 owner mask", owner_mask_checks)
             out["partitioned"] = phase("26 partitioned", partitioned_phase)
+        if "12" in phases:
+            out["training"] = phase("12 train mamba2", train_phase)
+        if "27" in phases:
+            out["sharded_training"] = phase("27 sharded train",
+                                            sharded_train_phase)
     finally:
         shutdown_workers()
     out_dir = ROOT / "chiprun_out"
@@ -5111,6 +5407,7 @@ def main() -> int:
                                  arch)
                      for arch in (*RECURRENT_ARCHS, AUDIO_ARCH)}
     # 24-25: the serving engine's compiled steps through the compile cache
+    start_dryrun()                      # phase 27 (c), on the host
     compiled = phase("24 serving compiled", compiled_serving_phase,
                      serving["token_lists"])
     compiled_cpu = phase("25 compiled card vs cpu", compiled_vs_cpu)
@@ -5118,6 +5415,8 @@ def main() -> int:
     shutdown_workers()
     # 26: partitioned synthesis, partitions sharing the card
     partitioned = phase("26 partitioned", partitioned_phase)
+    # 27: sharded training through a mesh, and the dry run of a cell
+    sharded = phase("27 sharded train", sharded_train_phase)
     part_launches = {k: sum(r["launches"][k] for app in PARTITIONED
                             for t, r in partitioned[app]["runs"].items()
                             if t.startswith("mesh")) for k in REPLACES}
@@ -5155,6 +5454,7 @@ def main() -> int:
             device_ms=serve_brk["kernel_device_ms"].get(name),
             shape=head["shape"], by_shape=rows,
             train_launches=qwen["launches"].get(name, 0),
+            sharded_train_launches=sharded["launches"].get(name, 0),
             launches_by_model={arch: c.get(name, 0)
                                for arch, c in by_model.items()},
             launches_compiled=compiled["launches"].get(name, 0),
@@ -5192,7 +5492,8 @@ def main() -> int:
         recurrent_serving=recurrent, whisper=whisper,
         recurrent_audio_card_vs_cpu=recurrent_cpu,
         compiled_serving=compiled, compiled_card_vs_cpu=compiled_cpu,
-        partitioned=partitioned, kernel_resources=resources,
+        partitioned=partitioned, sharded_training=sharded,
+        kernel_resources=resources,
         phase_seconds=seconds), indent=1))
     print(smi)
     line = json.dumps({"kernels": kernels})

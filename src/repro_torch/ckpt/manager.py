@@ -22,6 +22,15 @@ guarantees:
 One ``.npy`` per leaf.  numpy has no bfloat16, so a bf16 tensor is
 written as its 2-byte pattern (``uint16``) and the manifest names its
 dtype; restore views the pattern as bf16 again, bit for bit.
+
+Sharded state (DTensor leaves, ``launch.train --model-parallel``) is
+saved whole, as the reference's ``device_get`` saves it: every rank
+gathers each leaf (a collective, so every rank calls :meth:`save`) and
+only a manager made with ``writer=True`` writes.  Restore places each
+leaf by the ``param_shardings``/``opt_shardings`` given (trees of
+:class:`repro_torch.distributed.sharding.NamedSharding`), each rank
+keeping its own shard of the whole leaf it reads; so a checkpoint from a
+mesh run restores unsharded, and the reverse.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..dtensor import is_dtensor
 from ..tree import map_named, named_leaves, tree_map
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -98,27 +108,42 @@ def save_pytree(tree: Any, directory: Path) -> dict:
 
 
 def load_pytree(like: Any, directory: Path, manifest: dict,
-                device=None) -> Any:
+                device=None, shardings: Any = None) -> Any:
     """Read a tree saved by :func:`save_pytree` with its ``manifest``,
     shaped like ``like`` (a tree of tensors, ``meta`` ones included),
     each leaf in ``like``'s dtype, on ``device`` (default: each ``like``
-    leaf's own device)."""
+    leaf's own device); with ``shardings`` (a tree of ``NamedSharding``
+    of ``like``'s structure) each leaf is placed by its sharding."""
+    from ..distributed.sharding import place
+    flat = dict(named_leaves(shardings)) if shardings is not None else {}
+
     def load(name: str, leaf: torch.Tensor) -> torch.Tensor:
         ent = manifest[name]
         t = _from_numpy(np.load(directory / ent["file"]), ent["dtype"])
-        return t.to(device if device is not None else leaf.device,
-                    leaf.dtype)
+        t = t.to(device if device is not None else leaf.device, leaf.dtype)
+        sh = flat.get(name)
+        return t if sh is None else place(t, sh.spec, sh.mesh)
     return map_named(load, like)
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A leaf's whole value on the host: a DTensor is gathered."""
+    if is_dtensor(x):
+        x = x.full_tensor()
+    return x.detach().to("cpu", copy=True)
 
 
 class CheckpointManager:
     """Keep-last-k atomic checkpoints of {params, opt_state, extra-state}."""
 
     def __init__(self, directory: str | Path, keep: int = 3,
-                 faults: Any = None):
+                 faults: Any = None, writer: bool = True):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        # under a mesh every rank calls save (the gather of a sharded leaf
+        # is a collective) and one rank writes
+        self.writer = writer
         # chaos harness (repro_torch.core.faults): injected transient write
         # failures and post-publish truncation; None in normal operation
         if faults is not None and not hasattr(faults, "io_error"):
@@ -135,12 +160,11 @@ class CheckpointManager:
 
         # synchronous snapshot: a copy the training loop cannot reach, so
         # it may update its tensors in place right after this returns
-        def _snap(x):
-            return x.detach().to("cpu", copy=True)
-
-        host_p = tree_map(_snap, params)
-        host_o = tree_map(_snap, opt_state)
+        host_p = tree_map(_whole, params)
+        host_o = tree_map(_whole, opt_state)
         extra = dict(extra or {})
+        if not self.writer:
+            return self.dir / f"step_{step:08d}"
 
         def write():
             tmp = self.dir / f"step_{step:08d}.tmp"
@@ -238,13 +262,17 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, step: int, params_like: Any, opt_like: Any,
-                device=None) -> tuple:
+                device=None, param_shardings: Any = None,
+                opt_shardings: Any = None) -> tuple:
         """Returns (params, opt_state, extra), each leaf in its ``like``'s
-        dtype, on ``device`` (default: the ``like`` leaf's device)."""
+        dtype, on ``device`` (default: the ``like`` leaf's device), placed
+        by ``param_shardings``/``opt_shardings`` where they are given."""
         d = self.dir / f"step_{step:08d}"
         man = json.loads((d / "DONE").read_text())
-        p = load_pytree(params_like, d / "params", man["params"], device)
-        o = load_pytree(opt_like, d / "opt_state", man["opt_state"], device)
+        p = load_pytree(params_like, d / "params", man["params"], device,
+                        param_shardings)
+        o = load_pytree(opt_like, d / "opt_state", man["opt_state"], device,
+                        opt_shardings)
         return p, o, man.get("extra", {})
 
     def verify(self, step: int) -> list:
@@ -271,17 +299,19 @@ class CheckpointManager:
         return bad
 
     def restore_latest(self, params_like: Any, opt_like: Any,
-                       device=None) -> Optional[tuple]:
+                       device=None, **shardings) -> Optional[tuple]:
         """Restore the newest step that passes integrity verification:
         ``(step, params, opt_state, extra)``, or None.
 
         A published-then-corrupted step (truncated file, digest mismatch,
         unreadable manifest) is skipped and the scan falls back to the
         previous good step — the crash-mid-save guarantee, extended to
-        post-publish corruption.
+        post-publish corruption.  ``shardings``: ``param_shardings`` and
+        ``opt_shardings``, as :meth:`restore` takes them.
         """
         for step in reversed(self.steps()):
             if self.verify(step):
                 continue
-            return (step, *self.restore(step, params_like, opt_like, device))
+            return (step, *self.restore(step, params_like, opt_like, device,
+                                        **shardings))
         return None

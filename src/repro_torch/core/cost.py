@@ -5,9 +5,8 @@ The floorplanner (:mod:`repro_torch.core.floorplan`) prices every
 balance-and-cut objective has real weights for each task instead of a hash
 of the task's name (:func:`task_cost` / :func:`phase_cost`).  The
 counterpart of the reference's ``core/cost.py``, whose ``phase_cost``
-reads XLA's ``cost_analysis`` of the lowered firing; its
-``probe_compiled`` (whole compiled steps, for the LM side's dry run) is not
-here.
+reads XLA's ``cost_analysis`` of the lowered firing.  :func:`probe_compiled`
+prices a whole sharded step, the LM side's dry run (``launch.dryrun``).
 
 A phase is priced by one firing on ``meta`` tensors: synthesis's counting
 pass (``synth._count_phase``) run under a ``TorchDispatchMode`` that sees
@@ -39,7 +38,8 @@ task definition dirties exactly its own cells.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Optional
+import weakref
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -233,3 +233,145 @@ def graph_cost_salt(plan) -> str:
         for ph in tp.phases:
             h.update(structural_digest(ph.fn).encode())
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# whole sharded steps (the dry run's price list)
+# ---------------------------------------------------------------------------
+
+# the funcol collectives DTensor issues, by the reference's HLO names
+_COLLECTIVES = {"all_reduce": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
+
+
+def _kernel_flops(func, args) -> float:
+    """FLOPs of the port's kernel operators (``repro_torch::*_fwd``), which
+    ``torch.utils.flop_counter`` does not know: a full (unmasked) product
+    count, as XLA's ``cost_analysis`` counts a masked dot."""
+    name = func.overloadpacket._qualified_op_name
+    if name == "repro_torch::flash_attention_fwd":
+        q, k = args[0], args[1]
+        B, Sq, nh, hd = q.shape
+        return 4.0 * B * Sq * k.shape[1] * nh * hd
+    if name == "repro_torch::decode_attention_fwd":
+        q, k = args[0], args[1]
+        return 4.0 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
+    if name == "repro_torch::ssd_scan_fwd":
+        xdt, Bm, chunk = args[0], args[2], args[5]
+        B, S, H, P = xdt.shape
+        N = Bm.shape[3]
+        q = min(chunk, S)
+        # intra-chunk C.B and its product with x, chunk states, the
+        # inter-chunk output
+        return 2.0 * B * S * H * (q * (N + P) + 2 * P * N)
+    return 0.0
+
+
+class _StepMode(_CostMode):
+    """:class:`_CostMode` over the local shards of a sharded step: an op
+    on DTensors is left to DTensor (``NotImplemented``), which desugars it
+    into local ops and collectives seen here.  Also records each
+    collective (kind, result bytes, group ranks) and the live bytes of
+    the tensors the step makes (their storages, peak kept)."""
+
+    def __init__(self):
+        super().__init__()
+        self.collectives: list = []
+        self.live = self.peak = 0
+        self._seen: set = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from ..dtensor import is_dtensor
+        if any(is_dtensor(a) for a in tree_leaves((args, kwargs))):
+            return NotImplemented
+        kwargs = kwargs or {}
+        kind = _COLLECTIVES.get(func.overloadpacket.__name__) \
+            if func.namespace == "_c10d_functional" else None
+        if kind is not None:
+            out = func(*args, **kwargs)
+            self.collectives.append(dict(
+                kind=kind, bytes=_tensor_bytes(out),
+                ranks=_group_ranks(args[-1])))
+            self._track(out)
+            return out
+        if func.namespace == "repro_torch":
+            out = func(*args, **kwargs)
+            self.flops += _kernel_flops(func, args)
+            self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        else:
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+        if not func.is_view:
+            self._track(out)
+        return out
+
+    def _track(self, out) -> None:
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._seen:
+                continue
+            self._seen.add(key)
+            n = st.nbytes()
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(t, self._free, key, n)
+
+    def _free(self, key, n) -> None:
+        self._seen.discard(key)
+        self.live -= n
+
+
+def _group_ranks(group_name: str) -> list:
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return dist.get_process_group_ranks(_resolve_process_group(group_name))
+
+
+def probe_compiled(fn: Callable, args: tuple = (), kwargs=None, *,
+                   memo_key: Optional[str] = None, cache: Any = None,
+                   pod_size: Optional[int] = None) -> dict:
+    """Run ``fn(*args)`` once, a sharded step on DTensors whose local
+    shards are fake (``FakeTensorMode``, a fake process group: nothing
+    is computed or sent), and return its cost a rank.
+
+    ``{"flops", "bytes", "coll", "arg_bytes", "temp_bytes",
+    "collectives"}``: ``flops`` by ``torch.utils.flop_counter``'s formulas
+    (and :func:`_kernel_flops` for the kernels) on the local shapes;
+    ``bytes`` each local op's inputs and outputs once; ``coll`` the total
+    of ``collectives`` (:func:`repro_torch.launch.dryrun.collective_bytes`
+    of the traced collectives); ``arg_bytes`` the local shard bytes of the
+    inputs; ``temp_bytes`` an estimate — the peak of the live bytes of
+    the local tensors the step made, as the fake tensors' storages came
+    and went, where XLA reports its buffer assignment.  With ``memo_key``
+    the result is memoized in ``cache`` (default: the process compile
+    cache; ``cache=False`` disables it), and a hit runs nothing.
+    """
+    from ..launch.dryrun import collective_bytes
+    cc = default_cache() if cache is None else (cache or None)
+    if memo_key is not None and cc is not None:
+        hit = cc.memo_get(memo_key)
+        if hit is not None:
+            return hit
+    arg_bytes = sum(_local_bytes(a) for a in tree_leaves((args, kwargs))
+                    if isinstance(a, torch.Tensor))
+    with _StepMode() as mode:
+        out = fn(*args, **(kwargs or {}))
+    del out
+    coll = collective_bytes(mode.collectives, pod_size=pod_size)
+    res = {"flops": float(mode.flops), "bytes": float(mode.bytes),
+           "coll": float(coll["total_bytes"]), "arg_bytes": int(arg_bytes),
+           "temp_bytes": int(mode.peak), "temp_bytes_is": "estimate",
+           "collectives": coll}
+    if memo_key is not None and cc is not None:
+        cc.memo_put(memo_key, res)
+    return res
+
+
+def _local_bytes(t: torch.Tensor) -> int:
+    from ..dtensor import is_dtensor
+    t = t.to_local() if is_dtensor(t) else t
+    return t.numel() * t.element_size()

@@ -7,12 +7,13 @@ The port's copies of two parts of the reference's ``ft/elastic.py``:
   persistently is flagged.  Pure Python.
 * :func:`resume_or_init` (``elastic.py:167-179``) — the train driver's
   restart protocol: restore the latest complete, digest-verified
-  checkpoint if one exists, else initialize fresh — so a crashed or
+  checkpoint if one exists (placed by the mesh's shardings under
+  ``--model-parallel``), else initialize fresh — so a crashed or
   preempted job is the same command again.
 
 :class:`~repro_torch.ft.preemption.PreemptionGuard` lives in
-``preemption.py``; the reference's ``ElasticMesh`` waits for the
-distributed slice (ROADMAP queue A, item 5).
+``preemption.py``; the reference's ``ElasticMesh`` (a re-mesh after node
+loss) is the next slice of the mesh modules (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -59,11 +60,16 @@ class StragglerDetector:
 
 
 def resume_or_init(mgr: CheckpointManager, init_fn: Callable[[], tuple],
-                   params_like: Any, opt_like: Any, device=None) -> tuple:
+                   params_like: Any, opt_like: Any, device=None,
+                   param_shardings: Any = None,
+                   opt_shardings: Any = None) -> tuple:
     """Restart protocol: ``(step, params, opt_state, extra)`` from the
     latest complete checkpoint (restored onto ``device``, default each
-    ``like`` leaf's device), else ``(0, *init_fn(), {})``."""
-    got = mgr.restore_latest(params_like, opt_like, device=device)
+    ``like`` leaf's device, and placed by the shardings where they are
+    given), else ``(0, *init_fn(), {})``."""
+    got = mgr.restore_latest(params_like, opt_like, device=device,
+                             param_shardings=param_shardings,
+                             opt_shardings=opt_shardings)
     if got is not None:
         return got
     params, opt_state = init_fn()

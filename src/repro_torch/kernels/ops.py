@@ -41,6 +41,15 @@ operator.  The registration is Python's (``torch.library.custom_op``):
 the wrappers are Python over ``ctypes``, and a package run in a process
 that imported this module finds them in the dispatcher as a C++
 registration would be found.
+
+Under a mesh (DTensor inputs, the sharded train step), each entry point
+runs its kernel on the local shards (:func:`repro_torch.dtensor.local_call`,
+the counterpart of a ``local_map``): batch split on a mesh dim, or heads
+split (attention's query and KV heads together, so every shard keeps the
+whole group ratio; the SSD scan's heads, its groups split with them or
+replicated when there is one), or replicated.  Any other placement raises
+and names it; a backward (flash's, the SSD recompute) runs on the same
+local shards.
 """
 
 from __future__ import annotations
@@ -50,6 +59,8 @@ from typing import Optional
 
 import torch
 
+from ..dtensor import (is_dtensor, local_call, same_rows, settle,
+                       shard_offset)
 from .decode_attention import decode_attention_fwd
 from .flash_attention import _masks, flash_attention_fwd
 from .ssd_scan import ssd_scan_fwd, ssd_sequence
@@ -168,6 +179,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: [B, Sq, nh, hd]; k/v: [B, Sk, nkv, hd].  Returns [B, Sq, nh, hd].
     """
+    if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
+        q = _q_like_kv(q, k, 2, 2)
+        kv_rule, pick = _kv_heads(q, k, 2, 2)
+        return local_call(
+            "flash_attention",
+            lambda qq, kk, vv: flash_attention(qq, pick(kk), pick(vv),
+                                               causal=causal, window=window),
+            (q, k, v), (_rule(0, 2), kv_rule, kv_rule), (_rule(0, 2),))
     if _needs_grad(q, k, v):
         return _Flash.apply(q, k, v, causal, window)
     return flash_attention_op(q, k, v, causal, window)[0]
@@ -184,6 +203,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: [B, nh, hd]; k/v: [B, S_max, nkv, hd]; kv_len: [B] int32 valid
     lengths on q's device.  Returns [B, nh, hd].
     """
+    if any(is_dtensor(t) for t in (q, k, v, kv_len)):
+        q = _q_like_kv(q, k, 1, 2)
+        q, kv_len = same_rows(q, kv_len)
+        kv_rule, pick = _kv_heads(q, k, 1, 2)
+        return local_call(
+            "decode_attention",
+            lambda qq, kk, vv, ln: decode_attention(qq, pick(kk), pick(vv),
+                                                    ln),
+            (q, k, v, kv_len), (_rule(0, 1), kv_rule, kv_rule,
+                                _rule(0, None)), (_rule(0, 1),))
     _forward_only("decode_attention", q, k, v)
     return decode_attention_op(q, k, v, kv_len)
 
@@ -228,6 +257,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     init_state: [B, H, P, N] or None (zeros).  Returns ``(y [B, S, H, P]
     in x's dtype, final_state [B, H, P, N] float32)``.
     """
+    if any(is_dtensor(t) for t in (x, dt, A, Bm, Cm, D, init_state)):
+        return _local_ssd(x, dt, A, Bm, Cm, D, chunk, init_state)
     B, S, H, P = x.shape
     N = Bm.shape[3]
     s0 = init_state if init_state is not None else \
@@ -235,3 +266,76 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if _needs_grad(x, dt, A, Bm, Cm, D, s0):
         return _SSD.apply(x, dt, A, Bm, Cm, D, s0, chunk)
     return ssd_sequence(_ssd_scan, x, dt, A, Bm, Cm, D, chunk, s0)
+
+
+# ---------------------------------------------------------------------------
+# the kernels on local shards (DTensor inputs)
+# ---------------------------------------------------------------------------
+
+def _rule(batch: Optional[int], heads: Optional[int]) -> dict:
+    """An argument's placement under a batch split (``Shard(batch)``) and
+    under a heads split (``Shard(heads)``); None: replicated."""
+    from torch.distributed.tensor import Shard
+    return {"batch": None if batch is None else Shard(batch),
+            "heads": None if heads is None else Shard(heads)}
+
+
+def _q_like_kv(q, kv, q_dim: int, kv_dim: int):
+    """``q`` split on its heads wherever K/V split theirs over a mesh dim
+    that ``q`` is replicated on (a decode step's query after a gathered
+    projection, cross-attention's query): a local slice, nothing is
+    sent."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not (is_dtensor(q) and is_dtensor(kv)):
+        return q
+    q = settle(q)
+    pl = [Shard(q_dim) if isinstance(p, Replicate) and isinstance(w, Shard)
+          and w.dim == kv_dim else p
+          for p, w in zip(q.placements, kv.placements)]
+    return q if pl == list(q.placements) else \
+        q.redistribute(q.device_mesh, pl)
+
+
+def _kv_heads(q, kv, q_dim: int, kv_dim: int) -> tuple:
+    """K/V's placement rule and its local slicer for a call on ``q``'s
+    shards.  Where ``q`` splits its heads on a mesh dim over which ``kv``
+    is replicated (GQA with fewer KV heads than the split has ranks, as
+    Qwen3-0.6B's 8 on a 16-way model axis), each rank takes from its
+    whole K/V the heads of its own query heads' groups, a local slice:
+    nothing is sent, and the backward's gradient of K/V is partial."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not (is_dtensor(q) and is_dtensor(kv)) or not any(
+            isinstance(p, Shard) and p.dim == q_dim
+            and isinstance(w, Replicate)
+            for p, w in zip(q.placements, kv.placements)):
+        return _rule(0, kv_dim), lambda t: t
+    g = q.shape[q_dim] // kv.shape[kv_dim]
+    n = q.shape[q_dim] // math.prod(
+        q.device_mesh.size(d) for d, p in enumerate(q.placements)
+        if isinstance(p, Shard) and p.dim == q_dim)
+    h0 = shard_offset(q, q_dim)
+    lo, hi = h0 // g, (h0 + n - 1) // g + 1
+    if n % g and hi - lo != 1:
+        raise NotImplementedError(
+            f"{n} query heads a shard straddle KV groups of {g}: no whole "
+            f"group a shard (placements {tuple(q.placements)})")
+    k0 = shard_offset(kv, kv_dim)
+    return _rule(0, None), lambda t: t.narrow(kv_dim, lo - k0, hi - lo)
+
+
+def _local_ssd(x, dt, A, Bm, Cm, D, chunk, init_state) -> tuple:
+    """:func:`ssd_scan` on local shards: batch split, or heads split (the
+    groups split with them, or replicated when there is one group)."""
+    grp = None if Bm.shape[2] == 1 else 2
+    args = [x, dt, A, Bm, Cm, D]
+    rules = [_rule(0, 2), _rule(0, 2), _rule(None, 0), _rule(0, grp),
+             _rule(0, grp), _rule(None, 0)]
+    if init_state is not None:
+        args.append(init_state)
+        rules.append(_rule(0, 1))
+
+    def run(*a):
+        return ssd_scan(*a[:6], chunk=chunk,
+                        init_state=a[6] if len(a) > 6 else None)
+    return local_call("ssd_scan", run, args, rules,
+                      (_rule(0, 2), _rule(0, 1)))

@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..dtensor import (is_dtensor, replicate, settle, shard_offset,
+                       vocab_pick, whole_heads)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -118,9 +120,9 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
          positions: torch.Tensor, rope: bool = True) -> tuple:
     B, S, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, nh, hd)
-    k = (x @ p["wk"]).reshape(B, S, nkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
+    q = whole_heads(x @ p["wq"], nh).reshape(B, S, nh, hd)
+    k = whole_heads(x @ p["wk"], nkv).reshape(B, S, nkv, hd)
+    v = whole_heads(x @ p["wv"], nkv).reshape(B, S, nkv, hd)
     if cfg.qk_norm:                      # qk-norm before RoPE
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
@@ -254,7 +256,7 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         k, v = kv
     out = _attend(cfg, q, k, v, causal=causal, use_kernel=use_kernel)
     B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    return settle(out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"])
 
 
 def write_kv(cache: torch.Tensor, new: torch.Tensor,
@@ -273,6 +275,8 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor,
     length writes the same position for every row, clamped to the last
     one as ``dynamic_update_slice`` clamps it.  No host sync either way.
     """
+    if is_dtensor(cache):
+        return _write_kv_shards(cache, new, cache_len, layer)
     B, S = new.shape[0], cache.shape[1 if layer is None else 2]
     new = new[:, 0].to(cache.dtype)
     rows = torch.arange(B, device=cache.device)
@@ -283,6 +287,44 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor,
         keep = (cache_len >= S).reshape(-1, *([1] * (new.dim() - 1)))
         new = torch.where(keep, cache[idx], new)
     cache.index_put_(idx, new)
+
+
+def _write_kv_shards(cache, new, cache_len, layer) -> None:
+    """:func:`write_kv` into a sharded cache (a DTensor): each rank writes
+    its own shard in place.  ``new`` is laid out as the cache's batch and
+    head dims are, a ``[B]`` length as its batch; a rank whose shard of
+    the sequence does not hold a row's position writes nothing there."""
+    from torch.distributed.tensor import Replicate, Shard
+    off = 0 if layer is None else 1        # cache dims: [L,] B, S, n, ...
+    mesh, pl = cache.device_mesh, cache.placements
+
+    def moved(p):           # a cache placement as `new`'s [B, 1, n, ...]
+        if not isinstance(p, Shard) or p.dim in (off + 1, off - 1):
+            return Replicate()
+        return Shard(p.dim - off)
+    new_l = new.redistribute(mesh, [moved(p) for p in pl]).to_local() \
+        if is_dtensor(new) else new
+    if cache_len.dim() == 1:
+        cl = cache_len.redistribute(
+            mesh, [Shard(0) if isinstance(p, Shard) and p.dim == off
+                   else Replicate() for p in pl]) \
+            if is_dtensor(cache_len) else cache_len
+    else:
+        cl = replicate(cache_len)
+    cl = cl.to_local() if is_dtensor(cl) else cl
+    local = cache.to_local()
+    S, s0 = cache.shape[off + 1], shard_offset(cache, off + 1)
+    pos = cl.clamp(max=S - 1).long().expand(new_l.shape[0]) - s0
+    mine = (pos >= 0) & (pos < local.shape[off + 1])
+    if cl.dim() == 1:
+        mine = mine & (cl < S)
+    pos = pos.clamp(0, local.shape[off + 1] - 1)
+    rows = torch.arange(new_l.shape[0], device=local.device)
+    idx = (rows, pos) if layer is None else \
+        (torch.full_like(rows, layer), rows, pos)
+    val = new_l[:, 0].to(local.dtype)
+    keep = ~mine.reshape(-1, *([1] * (val.dim() - 1)))
+    local.index_put_(idx, torch.where(keep, local[idx], val))
 
 
 def quantize_kv(t: torch.Tensor) -> tuple:
@@ -343,7 +385,7 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                    dequantize_kv(at(cache_v), at(v_scale), q.dtype),
                    causal=False, q_offset=cache_len, kv_len=cache_len + 1,
                    window=cfg.sliding_window)
-        return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+        return settle(out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"])
     write_kv(cache_k, k, cache_len, layer)
     write_kv(cache_v, v, cache_len, layer)
     cache_k, cache_v = at(cache_k), at(cache_v)
@@ -355,7 +397,7 @@ def attention_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = sdpa(q, cache_k, cache_v, causal=False, q_offset=cache_len,
                    kv_len=cache_len + 1, window=cfg.sliding_window)
-    return out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    return settle(out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["wo"])
 
 
 def init_cross_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -377,7 +419,7 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    return settle((F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"])
 
 
 def init_mlp2(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
@@ -391,8 +433,8 @@ def init_mlp2(gen: torch.Generator, d: int, ff: int, dtype, device) -> dict:
 def mlp2(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``gelu(x W1 + b1) W2 + b2`` with GELU in its tanh form: the
     reference's ``jax.nn.gelu`` defaults to ``approximate=True``."""
-    return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] \
-        + p["b2"]
+    return settle(F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+                  @ p["w2"]) + p["b2"]
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +498,9 @@ def moe_slots(tope: torch.Tensor, n_experts: int) -> torch.Tensor:
     expert before it, in (token, k) order (an exclusive prefix sum over
     the second-to-last axis pair).  tope: [..., T, K] -> [..., T, K]."""
     *lead, T, K = tope.shape
+    # a prefix sum over tokens split across ranks (a DTensor) needs every
+    # token: the expert choices are gathered first
+    tope = replicate(tope)
     oh = F.one_hot(tope.reshape(*lead, T * K), n_experts)
     pos = oh.cumsum(dim=-2) - oh
     return pos.gather(-1, tope.reshape(*lead, T * K, 1)) \
@@ -517,7 +562,7 @@ def moe_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
     gathered = eo[tope, slot.clamp(max=C - 1)]               # [T, K, d]
     w = torch.where(keep, topw, 0.0)
     y = (gathered.float() * w[..., None]).sum(dim=1)
-    return y.reshape(B, S, d).to(x.dtype), aux
+    return settle(y.reshape(B, S, d).to(x.dtype)), aux
 
 
 def moe_dense_masks(cfg: ModelConfig, probs: torch.Tensor, B: int, S: int,
@@ -694,7 +739,7 @@ def mamba2_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor,
                            p["D"], chunk=min(s.chunk, S),
                            use_kernel=use_kernel)
     y = rms_norm(p["norm"], y.reshape(B, S, di) * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"], state.float(), conv_state
+    return settle(y @ p["out_proj"]), state.float(), conv_state
 
 
 def mamba2_layer(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -733,7 +778,8 @@ def mamba2_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     y = y + xh * p["D"][None, :, None]
     y = y.reshape(B, 1, di).to(x.dtype)
     y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"], new_state.to(ssm_state.dtype), new_conv
+    return settle(y @ p["out_proj"]), new_state.to(ssm_state.dtype), \
+        new_conv
 
 
 # ---------------------------------------------------------------------------
@@ -742,10 +788,21 @@ def mamba2_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  z_loss: float = 0.0) -> torch.Tensor:
-    """Token-mean cross entropy with optional z-loss, fp32."""
+    """Token-mean cross entropy with optional z-loss, fp32.
+
+    Logits sharded on the vocab (a DTensor, the sharded step's
+    ``lm_head``) take the log-sum-exp as a max and a sum over the shards,
+    each a partial reduced by a small all-reduce, and the label's logit
+    from the shard that holds it (:func:`repro_torch.dtensor.vocab_pick`):
+    the logits themselves are never gathered."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(lf):
+        m = lf.detach().amax(dim=-1, keepdim=True)
+        lse = (m + torch.log(torch.exp(lf - m).sum(dim=-1,
+                                                   keepdim=True)))[..., 0]
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+    ll = vocab_pick(lf, labels.long())
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * lse.square().mean()

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.synth import resolve_device
+from ..dtensor import is_dtensor, rows_like, vocab_embedding, vocab_logits
 from . import layers as L
 from .config import ModelConfig
 
@@ -159,7 +160,7 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Token embeddings ``[B, S, d]``; for the vlm family with
     ``extra["patches"]`` ``[B, P, d_patch]``, ``patches @ patch_proj``
     over the first ``min(n_patches, S, P)`` positions."""
-    h = params["embed"][tokens.long()]
+    h = vocab_embedding(tokens.long(), params["embed"])
     if cfg.vlm is not None and extra and "patches" in extra:
         pe = (extra["patches"] @ params["patch_proj"]).to(h.dtype)
         n = min(cfg.vlm.n_patches, h.shape[1], pe.shape[1])
@@ -281,6 +282,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     aux_total = h.new_zeros((), dtype=torch.float32)
     for i in range(cfg.n_layers):
+        h = rows_like(h, tokens)
         if remat:
             h, aux = checkpoint(
                 lambda hh, i=i: block(hh, layer_params(params, i), i), h,
@@ -289,8 +291,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             h, aux = block(h, layer_params(params, i), i)
         if aux is not None:
             aux_total = aux_total + aux
-    h = L.rms_norm(params["final_norm"], h, eps)
-    return h @ _head(params, cfg), aux_total
+    h = L.rms_norm(params["final_norm"], rows_like(h, tokens), eps)
+    return vocab_logits(h, _head(params, cfg)), aux_total
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -340,7 +342,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     eps = cfg.norm_eps
     h = _embed(params, cfg, tokens, extra)
     positions = torch.arange(S, device=dev).expand(B, S)
-    cache = init_decode_cache(cfg, B, max_seq, dev)
+    # sharded (DTensors): each layer's cache leaves are stacked at the
+    # end, so no whole-size plain cache is made nor written in place
+    sharded = is_dtensor(tokens)
+    cache = {} if sharded else init_decode_cache(cfg, B, max_seq, dev)
+    parts: dict = {}
+
+    def put(name: str, i: int, val) -> None:
+        if sharded:
+            parts.setdefault(name, {})[i] = val
+        else:
+            cache[name][i] = val
 
     def pad(x):     # [B, S, ...] -> [B, max_seq, ...], as the reference's
         # pad_kv: a whole layer written, so a symbolic S (torch.export)
@@ -350,11 +362,14 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         enc_out = _encode_audio(params, cfg, _frames(cfg, extra), use_kernel)
     shared = params.get("shared_attn")
     for i in range(cfg.n_layers):
+        h = rows_like(h, tokens)
         lp = layer_params(params, i)
         if cfg.family in ("ssm", "hybrid"):
-            y, cache["ssm"][i], cache["conv"][i] = L.mamba2_prefill(
+            y, st, conv = L.mamba2_prefill(
                 lp["mamba"], cfg, L.rms_norm(lp["norm"], h, eps),
                 use_kernel)
+            put("ssm", i, st)
+            put("conv", i, conv)
             h = h + y
             if not _shared_at(cfg, i):
                 continue
@@ -367,17 +382,18 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         o = L._attend(cfg, q, k, v, causal=True, use_kernel=use_kernel,
                       noscore=False)
         h = h + o.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["attn"]["wo"]
-        if "k_scale" in cache:
+        if cfg.kv_quant:
             (k, ks), (v, vs) = L.quantize_kv(k), L.quantize_kv(v)
-            cache["k_scale"][c] = pad(ks)
-            cache["v_scale"][c] = pad(vs)
-        cache["k"][c] = pad(k)
-        cache["v"][c] = pad(v)
+            put("k_scale", c, pad(ks))
+            put("v_scale", c, pad(vs))
+        put("k", c, pad(k))
+        put("v", c, pad(v))
         if cfg.family == "audio":
             kv = _cross_kv(lp, cfg, enc_out)
             h = h + _cross(lp, cfg, h, kv, positions, use_kernel)
             h = h + L.mlp2(lp["mlp"], L.layer_norm(lp["mlp_norm"], h, eps))
-            cache["xk"][i], cache["xv"][i] = kv
+            put("xk", i, kv[0])
+            put("xv", i, kv[1])
         else:
             h = h + _ffn(lp, cfg, h)[0]
     if true_len is None:
@@ -388,6 +404,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         idx = (length.long() - 1).clamp(0, S - 1)
         h = h[torch.arange(B, device=dev), idx][:, None]
     h = L.rms_norm(params["final_norm"], h, eps)
+    if sharded:
+        want = init_decode_cache(cfg, 1, 1, "meta")      # the leaves' dtypes
+        cache = {k: torch.stack([d[j] for j in sorted(d)]).to(want[k].dtype)
+                 for k, d in parts.items()}
     cache["len"] = length
     return h[:, 0] @ _head(params, cfg), cache
 
@@ -452,11 +472,12 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     """
     B = token.shape[0]
     eps = cfg.norm_eps
-    h = params["embed"][token.long()][:, None, :]         # [B, 1, d]
+    h = vocab_embedding(token.long(), params["embed"])[:, None, :]
     clen = cache["len"]
     shared = params.get("shared_attn")
     zero = torch.zeros((B, 1), dtype=torch.int32, device=h.device)
     for i in range(cfg.n_layers):
+        h = rows_like(h, token)
         lp = layer_params(params, i)
         if cfg.family in ("ssm", "hybrid"):
             y, st, conv = L.mamba2_decode(

@@ -1,20 +1,30 @@
-"""AdamW with global-norm clipping, a cosine schedule and a configurable
-state dtype.
+"""AdamW with global-norm clipping, a cosine schedule, a configurable
+state dtype and ZeRO-1 state sharding.
 
-The port's copy of the reference's ``optim/adamw.py:31-92``: the same
+The port's copy of the reference's ``optim/adamw.py``: the same
 defaults, float32 update math whatever the parameters' and the state's
 dtypes, and the same functional form (:func:`adamw_update` returns new
-parameters and state; it updates nothing in place).  The reference's
-ZeRO-1 ``opt_state_specs`` waits for the distributed slice (ROADMAP queue A, item 5).
+parameters and state; it updates nothing in place).
+
+ZeRO-1: the moments get an *additional* data-axis sharding on their
+largest unsharded dim (:func:`opt_state_specs`), so m/v live partitioned
+across the data-parallel group while the parameters keep their compute
+layout; in the sharded step DTensor takes the gradient's slice for the
+moments and all-gathers the updated parameter back to its own layout
+(``launch.steps.make_train_step``), the ZeRO-1 communication schedule.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
+from ..distributed.sharding import (ShardingPolicy, Spec, _divides,
+                                    abstract_params, for_mesh, param_specs)
+from ..models.config import ModelConfig
 from ..tree import leaves, tree_map
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -89,3 +99,30 @@ def _pick(tree: dict, i: int) -> dict:
     if isinstance(tree, dict):
         return {k: _pick(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def opt_state_specs(cfg: ModelConfig, mesh,
+                    pol: Optional[ShardingPolicy] = None,
+                    zero1: bool = True) -> dict:
+    """Specs of the AdamW state; ZeRO-1 adds dp sharding to the moments
+    (the largest unsharded dim of at least 1024 that the dp axes
+    divide); ``step`` is replicated."""
+    pol = pol or for_mesh(mesh)
+    like = abstract_params(cfg)
+    pspecs = param_specs(cfg, mesh, pol, like=like)
+
+    def zero_one(spec: Spec, leaf) -> Spec:
+        if leaf.ndim == 0:
+            return spec
+        ent = list(spec) + [None] * (leaf.ndim - len(spec))
+        dp = pol.dp_spec
+        order = sorted(range(leaf.ndim), key=lambda i: -leaf.shape[i])
+        for i in order:
+            if ent[i] is None and _divides(leaf.shape[i], mesh, dp) and \
+                    leaf.shape[i] >= 1024:
+                ent[i] = dp
+                break
+        return Spec(*ent)
+
+    mspec = tree_map(zero_one, pspecs, like) if zero1 else pspecs
+    return {"m": mspec, "v": mspec, "step": Spec()}

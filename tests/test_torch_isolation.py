@@ -266,3 +266,32 @@ def test_serving_entry_points_default_to_cuda(monkeypatch):
     # parameters on one device, adapter asked for another: refused
     with pytest.raises(ValueError, match="lie on cpu"):
         lm.serving_adapter(params, cfg, max_seq=16, device="meta")
+
+
+MESH = """
+import json, sys, tempfile
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import fake_world, run_cell
+from repro_torch.launch.train import train
+from repro_torch.models.config import InputShape
+with tempfile.TemporaryDirectory() as d:
+    rc = train(["--device", "cpu", "--arch", "mamba2-130m", "--reduced",
+                "--use-kernel", "--steps", "1", "--batch", "2", "--seq",
+                "32", "--ckpt-dir", d, "--model-parallel", "1"])
+with fake_world(4):
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    rec = run_cell(get_config("qwen3-0.6b").with_reduced(),
+                   InputShape("t", 32, 4, "decode"), mesh, "t2x2",
+                   verbose=False)
+mods = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"rc": rc, "ok": rec["ok"], "mods": mods}))
+"""
+
+
+def test_mesh_side_on_cpu_imports_neither_jax_nor_reference():
+    """``launch.train --model-parallel 1`` through a (1, 1) gloo mesh and a
+    dry-run cell on a fake 4-rank group never import jax, jaxlib or
+    repro."""
+    assert _run(MESH) == {"rc": 0, "ok": True, "mods": []}
