@@ -284,9 +284,16 @@ class _StepMode(_CostMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from ..dtensor import is_dtensor
+        kwargs = kwargs or {}
+        if torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None:
+            # DTensor's sharding propagation runs each new op once at its
+            # global shapes under a fake mode to learn the output's
+            # metadata: not this rank's work (the step itself runs outside
+            # any fake mode, on fake local shards)
+            return func(*args, **kwargs)
         if any(is_dtensor(a) for a in tree_leaves((args, kwargs))):
             return NotImplemented
-        kwargs = kwargs or {}
         kind = _COLLECTIVES.get(func.overloadpacket.__name__) \
             if func.namespace == "_c10d_functional" else None
         if kind is not None:
@@ -356,6 +363,12 @@ def probe_compiled(fn: Callable, args: tuple = (), kwargs=None, *,
         hit = cc.memo_get(memo_key)
         if hit is not None:
             return hit
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None:
+        raise RuntimeError(
+            "probe_compiled: call it outside a FakeTensorMode (its inputs "
+            "may be fake tensors): inside one, the ops DTensor runs at "
+            "global shapes to propagate its layouts look like the step's")
     arg_bytes = sum(_local_bytes(a) for a in tree_leaves((args, kwargs))
                     if isinstance(a, torch.Tensor))
     with _StepMode() as mode:

@@ -16,7 +16,10 @@ a DTensor:
   attention's ``wo``, an MLP's down projection, Mamba2's ``out_proj``),
   as Megatron reduces it; left partial, DTensor carries the pending sum
   through the norm into the next product, whose every model rank then
-  computes the whole width;
+  computes the whole width.  Its backward reduces the gradient's pending
+  partial the same way (the column-parallel products downstream leave
+  one): left partial, the row-parallel product's backward gathers its
+  weight and every model rank computes the whole width again;
 * :func:`vocab_embedding`, :func:`vocab_pick` — a lookup into a
   vocab-split table or logits: each rank takes the rows it holds and the
   partial sums are reduced (DTensor's own rule, a masked partial, cannot
@@ -55,12 +58,32 @@ def sharded_context(tree: Any):
 
 
 def settle(x: torch.Tensor) -> torch.Tensor:
-    """``x`` with every partial placement reduced to ``Replicate``."""
+    """``x`` with every partial placement reduced to ``Replicate``, and
+    its gradient's too."""
     if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return _Settle.apply(x)
+
+
+def _reduced(x: torch.Tensor) -> torch.Tensor:
+    if not any(p.is_partial() for p in x.placements):
         return x
     from torch.distributed.tensor import Replicate
     return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
                                           else p for p in x.placements])
+
+
+class _Settle(torch.autograd.Function):
+    # DTensor's own backward of a partial-to-replicate redistribution
+    # passes a partial gradient on as it is
+
+    @staticmethod
+    def forward(ctx, x):
+        return _reduced(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduced(grad)
 
 
 def replicate(x: torch.Tensor) -> torch.Tensor:

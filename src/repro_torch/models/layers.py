@@ -790,18 +790,17 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  z_loss: float = 0.0) -> torch.Tensor:
     """Token-mean cross entropy with optional z-loss, fp32.
 
-    Logits sharded on the vocab (a DTensor, the sharded step's
-    ``lm_head``) take the log-sum-exp as a max and a sum over the shards,
-    each a partial reduced by a small all-reduce, and the label's logit
-    from the shard that holds it (:func:`repro_torch.dtensor.vocab_pick`):
-    the logits themselves are never gathered."""
+    The log-sum-exp is a max and a sum, the form that also runs on logits
+    sharded on the vocab (a DTensor, the sharded step's ``lm_head``): each
+    is a partial reduced by a small all-reduce (:func:`settle`; left to
+    DTensor, the sum came back split on the sequence and the backward
+    gathered the logits to match), and the label's logit comes from the
+    shard that holds it (:func:`repro_torch.dtensor.vocab_pick`), so the
+    logits themselves are never gathered."""
     lf = logits.float()
-    if is_dtensor(lf):
-        m = lf.detach().amax(dim=-1, keepdim=True)
-        lse = (m + torch.log(torch.exp(lf - m).sum(dim=-1,
-                                                   keepdim=True)))[..., 0]
-    else:
-        lse = torch.logsumexp(lf, dim=-1)
+    m = settle(lf.detach().amax(dim=-1, keepdim=True))
+    lse = (m + torch.log(settle(torch.exp(lf - m).sum(dim=-1,
+                                                      keepdim=True))))[..., 0]
     ll = vocab_pick(lf, labels.long())
     loss = (lse - ll).mean()
     if z_loss:

@@ -39,12 +39,24 @@ cfg = get_config("qwen3-0.6b").with_reduced()
 mesh = jax.make_mesh((4, 2), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
 out = {}
-for name, (S, B, kind) in %r.items():
-    rec = run_cell(cfg, InputShape(name, S, B, kind), mesh, "test4x2",
-                   verbose=False)
-    out[name] = rec
+for layers in (cfg.n_layers, 1):
+    for name, (S, B, kind) in %r.items():
+        rec = run_cell(cfg.with_reduced(n_layers=layers),
+                       InputShape(name, S, B, kind), mesh, "test4x2",
+                       verbose=False)
+        out[name if layers == cfg.n_layers else name + "/1"] = rec
 print("REF " + json.dumps(out))
 """
+# The reference scans its layers, and XLA's cost analysis counts a loop's
+# body once: its FLOPs and collective bytes are those of a one-layer model
+# plus what lies outside the scan.  Cost is compared on a one-layer model,
+# where both count the whole step, within a factor: the same products
+# (XLA adds its own elementwise and cache-update work; the port counts
+# the kernels' full products), and two partitioners that may pick other
+# collectives (the reference gathers the decode logits it returns, which
+# the port leaves split on the vocab).
+FLOPS_FACTOR = 2.0
+COLL_FACTOR = 4.0
 
 
 def _mesh():
@@ -55,6 +67,15 @@ def _mesh():
 @pytest.fixture(scope="module")
 def port_cells():
     cfg = get_config("qwen3-0.6b").with_reduced()
+    with fake_world(8):
+        mesh = _mesh()
+        return {name: run_cell(cfg, shape, mesh, "test4x2", verbose=False)
+                for name, shape in CELLS.items()}
+
+
+@pytest.fixture(scope="module")
+def port_cells_one_layer():
+    cfg = get_config("qwen3-0.6b").with_reduced(n_layers=1)
     with fake_world(8):
         mesh = _mesh()
         return {name: run_cell(cfg, shape, mesh, "test4x2", verbose=False)
@@ -92,6 +113,21 @@ def test_argument_bytes_match_reference(port_cells, ref_cells, cell):
     assert ref_cells[cell]["ok"]
     assert port_cells[cell]["memory"]["argument_size_in_bytes"] == \
         ref_cells[cell]["memory"]["argument_size_in_bytes"]
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+def test_cost_matches_reference_one_layer(port_cells_one_layer, ref_cells,
+                                          cell):
+    """FLOPs and collective bytes a rank against the reference's for the
+    same one-layer cell (see ``FLOPS_FACTOR``)."""
+    port, ref = port_cells_one_layer[cell], ref_cells[cell + "/1"]
+    assert ref["ok"]
+    r = port["cost"]["flops"] / ref["cost"]["flops"]
+    assert 1 / FLOPS_FACTOR < r < FLOPS_FACTOR, (port["cost"], ref["cost"])
+    r = port["collectives"]["total_bytes"] / \
+        ref["collectives"]["total_bytes"]
+    assert 1 / COLL_FACTOR < r < COLL_FACTOR, (port["collectives"],
+                                               ref["collectives"])
 
 
 def test_train_cell_flops_are_a_rank_share():
@@ -162,20 +198,59 @@ def test_probe_compiled_memo_hit_runs_nothing(tmp_path):
     cc = CompileCache(root=tmp_path)
     with fake_world(8):
         mesh = _mesh()
-        with FakeTensorMode():
+        with FakeTensorMode(allow_non_fake_inputs=True):
             spec = input_specs(cfg, CELLS["tiny_dec"], mesh, use_kernel=True)
-            first = probe_compiled(spec["fn"], spec["args"],
-                                   memo_key="dec", cache=cc)
-            calls = []
+        first = probe_compiled(spec["fn"], spec["args"], memo_key="dec",
+                               cache=cc)
+        calls = []
 
-            def never(*a):
-                calls.append(a)
-            again = probe_compiled(never, spec["args"], memo_key="dec",
-                                   cache=cc)
+        def never(*a):
+            calls.append(a)
+        again = probe_compiled(never, spec["args"], memo_key="dec", cache=cc)
     assert calls == [] and again == first and first["flops"] > 0
     assert set(first) >= {"flops", "bytes", "coll", "arg_bytes",
                           "temp_bytes"}
     assert first["coll"] == first["collectives"]["total_bytes"] > 0
+
+
+def test_probe_compiled_refuses_a_fake_mode():
+    """Inside a FakeTensorMode the ops DTensor runs at global shapes to
+    propagate its layouts cannot be told from the step's own."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.cost import probe_compiled
+    with FakeTensorMode():
+        with pytest.raises(RuntimeError, match="outside a FakeTensorMode"):
+            probe_compiled(lambda: None, cache=False)
+
+
+def test_production_train_cell_fits_the_card():
+    """``qwen3-0.6b x train_4k x pod16x16``: a rank's inputs and its
+    temporaries fit the card's memory, and its FLOPs are those of its
+    shard: the tokens of its data shard through a sixteenth of each
+    product (the forward, the remat forward and a backward of two; the
+    head has no remat) and its one query head's attention (the flash
+    kernel's two full products, twice, and the backward's five)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.core.cost import HW
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = get_config("qwen3-0.6b")
+    shape = SHAPES["train_4k"]
+    with fake_world(256):
+        rec = run_cell(cfg, shape, make_production_mesh(), "pod16x16",
+                       verbose=False)
+    mem = rec["memory"]
+    assert rec["ok"]
+    assert mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"] < \
+        HW["hbm_capacity"], mem
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.hd
+    tokens = shape.global_batch * shape.seq_len // 16
+    layer = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + 3 * d * f
+    products = 2 * tokens * (4 * cfg.n_layers * layer + 3 * d * cfg.vocab)
+    attention = 2 * tokens * shape.seq_len * hd * cfg.n_heads * \
+        cfg.n_layers * (2 + 2 + 5)
+    want = (products + attention) / 16
+    assert 0.8 * want < rec["cost"]["flops"] < 1.25 * want, \
+        (rec["cost"], want)
 
 
 def test_dryrun_cli_production_mesh(tmp_path):
