@@ -7,8 +7,8 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --only 8,24,25`` builds the kernels and runs
-only those of phases 17, 8, 24 and 25: a development run, with no
-kernels or result line.)
+only those of phases 7 (its checks), 17, 8, 24, 25, 26, 12, 27 and 28
+named: a development run, with no kernels or result line.)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -116,7 +116,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whisper's 8 ragged rows of 2048.  Limits, relative to the plain
    output's largest magnitude: ``ATTN_REL_TOL``; flash's ``lse`` within
    ``LSE_ABS_TOL``; exact zeros where ``kv_len == 0``; the largest error
-   of each op, head width and dtype is printed.  CUDA-event times
+   of each op, head width and dtype is printed.  Flash-decode's ``lse``
+   output (``LSE_CASES``: Qwen3's 8 x 2048 cache, zamba2's 32/32 x 64 one
+   row and four, rows of length 0; float32 and bf16): ``(out, lse)``
+   against the plain version's (``LSE_ABS_TOL``, -inf where no key is
+   valid), ``out`` bitwise the call's without ``lse``; each cache cut into
+   2 and 4 sequence pieces, the kernel on each piece with its local
+   lengths, the pieces merged in float32 as a sequence-split mesh merges
+   them: within ``ATTN_REL_TOL`` of the whole cache's kernel output.  CUDA-event times
    (``FLASH_TIMES``: Qwen3's B=1 S=1024 and 2048, B=8 S=256, B=4 S=1024,
    Phi-3's B=1 S=1024 and 2048, whisper's encoder and its decode step's
    cross-attention, zamba2's shared block at S=1024; ``DECODE_TIMES``:
@@ -341,6 +348,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    from the specs, its argument and temporary bytes (an estimate) within
    the card's memory (the cell runs in a child process started before
    phase 24, on the host's free cores; its own seconds).
+28. mesh modules, one rank of an NCCL group (``make_host_mesh(1)``) — (a)
+   one train step's bf16 gradients of Qwen3-0.6B at full width (phase
+   13's batch, ``use_kernel=True``) through ``ef_compressed_mean`` over
+   the ``data`` dim: each leaf's mean bitwise its local ``dequant(q)``,
+   its ``(q, scale)`` bitwise ``quantize_int8``'s on the CPU, its
+   round-trip error within the rounding bound (``scale / 2`` an element)
+   and recorded, and under ``COMPRESS_ERR`` on a 64 x 64 normal matrix;
+   (b) all 28 decoder layers (d 1024, 16/8 x 128, bf16, flash) as one
+   stage of ``pipeline_apply`` on a one-rank ``stage`` mesh, ``PIPE``'s 4
+   microbatches of 1 x 1024 hidden states: outputs bitwise the stage
+   applied microbatch by microbatch, ``pipeline_loss_fn``'s gradients (an
+   MSE tail against seeded labels) bitwise autograd's through that loop,
+   flash launched 28 x 4 times in each forward, a profiled forward's
+   every launch ``flash_wgmma_kernel``; ms of the pipeline and of the
+   direct loop.
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -1930,6 +1952,91 @@ def check_attention() -> tuple[list, dict]:
     return rows, worst
 
 
+# flash-decode's lse output and the merge of sequence pieces: (B, S_max,
+# nh, nkv, hd, kv_len) — Qwen3-0.6B's packed serving cache (a dead slot,
+# a full row, lengths inside every quarter), zamba2-1.2b's per-slot row
+# and a packed cache of its heads (rows of length 0 and of one quarter)
+LSE_CASES = [
+    (8, 2048, 16, 8, 128, [0, 1, 37, 513, 1024, 1537, 2047, 2048]),
+    (1, 2048, 32, 32, 64, [1537]),
+    (4, 2048, 32, 32, 64, [0, 5, 512, 1100]),
+]
+LSE_PIECES = (2, 4)          # sequence pieces a cache is cut into
+
+
+def _lse_err(lse: torch.Tensor, want: torch.Tensor) -> float:
+    """max |lse - want| over the rows with a valid key; the rows without
+    one must be -inf in both."""
+    dead = want == -math.inf
+    if not bool((lse[dead] == -math.inf).all()):
+        return math.inf
+    return float((lse[~dead] - want[~dead]).abs().max()) if bool(
+        (~dead).any()) else 0.0
+
+
+def check_decode_lse() -> list:
+    """Phase 7, flash-decode's log-sum-exp: the kernel's ``(out, lse)``
+    against the plain version's (``ATTN_REL_TOL``, ``LSE_ABS_TOL``; -inf
+    and exact zeros where ``kv_len == 0``), its ``out`` bitwise equal to
+    the call without ``lse`` (the null-pointer path); then each cache cut
+    into ``LSE_PIECES`` sequence pieces, the kernel on each piece with its
+    local lengths, the pieces merged in float32 as the sequence-split
+    mesh merges them (``kernels/ops.merge_partials``): the whole cache's
+    kernel output within ``ATTN_REL_TOL``."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_fwd, decode_attention_plain)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        tol = ATTN_REL_TOL[dt]
+        for B, S, nh, nkv, hd, lens in LSE_CASES:
+            q = _rand(gen, (B, nh, hd), dt)
+            k = _rand(gen, (B, S, nkv, hd), dt)
+            v = _rand(gen, (B, S, nkv, hd), dt)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=DEV)
+            whole = decode_attention_fwd(q, k, v, kv_len)
+            out, lse = decode_attention_fwd(q, k, v, kv_len, return_lse=True)
+            p_out, p_lse = decode_attention_plain(q, k, v, kv_len,
+                                                  return_lse=True)
+            torch.cuda.synchronize()
+            _, rel = _errs(out, p_out)
+            lse_err = _lse_err(lse, p_lse)
+            same = bool(torch.equal(out, whole))
+            zeros = bool((out[kv_len == 0] == 0).all())
+            merged = {}
+            for n in LSE_PIECES:
+                w = S // n
+                parts = [decode_attention_fwd(
+                    q, k[:, i * w:(i + 1) * w], v[:, i * w:(i + 1) * w],
+                    (kv_len - i * w).clamp(0, w).to(torch.int32),
+                    return_lse=True) for i in range(n)]
+                m = torch.stack([p[1] for p in parts]).amax(0)
+                ws = [torch.where(p[1] == -math.inf, 0.0,
+                                  torch.exp(p[1] - m)) for p in parts]
+                den = sum(ws)
+                num = sum(x[..., None] * p[0].float()
+                          for x, p in zip(ws, parts))
+                got = num / torch.where(den > 0, den, 1.0)[..., None]
+                torch.cuda.synchronize()
+                merged[n] = _errs(got, whole)[1]
+            rows.append(dict(dtype=str(dt), B=B, S_max=S, nh=nh, nkv=nkv,
+                             hd=hd, kv_len=lens, rel_err=rel,
+                             lse_abs_err=lse_err, out_unchanged=same,
+                             exact_zeros=zeros, merged_rel_err=merged))
+            log(f"attn decode lse {str(dt):14s} B={B} S_max={S} "
+                f"{nh}/{nkv}x{hd}: out rel {rel:.2e}, lse {lse_err:.2e} "
+                f"(limit {LSE_ABS_TOL:g}), out without lse bitwise equal "
+                f"{same}; merged pieces vs whole " + ", ".join(
+                    f"{n}: {e:.2e}" for n, e in merged.items())
+                + f" (limit {tol:g})")
+            if not (rel <= tol and lse_err <= LSE_ABS_TOL and same and zeros
+                    and all(e <= tol for e in merged.values())):
+                raise AssertionError(f"decode_attention lse: {rows[-1]}")
+            del q, k, v, out, lse, p_out, p_lse, whole
+    torch.cuda.empty_cache()
+    return rows
+
+
 # timed shapes: (B, Sq, Sk, nh, nkv, hd, causal) of flash — Qwen3-0.6B
 # (one prompt in the middle and the top prefill bucket, a batch of eight
 # short prompts, the training shape of phase 13), Phi-3-vision (hd 96,
@@ -3357,6 +3464,211 @@ def sharded_train_phase() -> dict:
         f"{rec['cost']['flops']:.4g}, collectives "
         f"{rec['collectives']}")
     return out
+
+
+PIPE = dict(microbatches=4, seq=1024)   # phase 28 (b): M x [1, S, d]
+COMPRESS_ERR = 0.01         # the reference's round-trip bound (64 x 64)
+
+
+def compress_check(grads: dict, mesh) -> dict:
+    """Phase 28 (a): ``ef_compressed_mean`` of ``grads`` over the one-rank
+    ``data`` group equals each leaf's local ``dequant(q)`` bitwise; each
+    leaf's ``(q, scale)`` equals the CPU run of ``quantize_int8`` on the
+    same gradient bitwise; each leaf's ``compression_error`` within what
+    rounding to the nearest of 255 levels allows (every element off by at
+    most ``scale / 2``: ``scale / 2 * sqrt(n) / |g|``), and under
+    ``COMPRESS_ERR`` on the reference's case, a seeded 64 x 64 normal
+    matrix.  A real gradient's error is recorded, not held to
+    ``COMPRESS_ERR``: its heavy tails put ``scale`` (its largest
+    magnitude over 127) far above a typical element."""
+    from repro_torch.distributed import compress as C
+    from repro_torch.tree import named_leaves
+    t0 = time.perf_counter()
+    mean, _ = C.ef_compressed_mean(grads, C.init_error_state(grads), mesh,
+                                   "data")
+    torch.cuda.synchronize()
+    mean_s = time.perf_counter() - t0
+    means = dict(named_leaves(mean))
+    bad, errors = [], {}
+    for name, g in named_leaves(grads):
+        q, scale = C.quantize_int8(g)
+        q_cpu, scale_cpu = C.quantize_int8(g.cpu())
+        err = errors[name] = C.compression_error(g)
+        bound = float(scale) / 2 * math.sqrt(g.numel()) / max(
+            float(torch.linalg.norm(g.float())), 1e-30)
+        why = [w for w, ok in (
+            ("mean", torch.equal(means[name], C.dequantize_int8(q, scale))),
+            ("q", torch.equal(q.cpu(), q_cpu)),
+            ("scale", float(scale) == float(scale_cpu)),
+            ("error", err <= bound)) if not ok]
+        if why:
+            bad.append((name, why, err, bound))
+    gen = torch.Generator(device=DEV).manual_seed(64)
+    normal = C.compression_error(torch.randn((64, 64), generator=gen,
+                                             device=DEV))
+    worst = max(errors.items(), key=lambda t: t[1])
+    over = sorted(n for n, e in errors.items() if e >= COMPRESS_ERR)
+    out = dict(leaves=len(means), mean_s=mean_s, errors=errors,
+               worst_error=worst, over_limit=over, normal_64x64=normal,
+               failed=bad)
+    log(f"compress: ef_compressed_mean of {len(means)} bf16 gradient "
+        f"leaves over a one-rank data group in {mean_s * 1e3:.1f} ms; the "
+        f"local dequant(q), the CPU's (q, scale) and the rounding bound "
+        f"{'held for every leaf' if not bad else 'FAILED: ' + str(bad)}; "
+        f"round-trip error: worst {worst[1]:.4f} ({worst[0]}), "
+        f"{len(over)} of {len(errors)} leaves at or over {COMPRESS_ERR}, "
+        f"64 x 64 normal {normal:.5f} (limit {COMPRESS_ERR})")
+    if bad or not normal < COMPRESS_ERR:
+        raise AssertionError(f"compress: {bad}, 64 x 64 normal {normal}")
+    return out
+
+
+def pipeline_check(cfg, layers: dict, mesh, device) -> dict:
+    """Phase 28 (b): every decoder layer as one stage of ``pipeline_apply``
+    over the one-rank ``stage`` mesh, ``PIPE`` microbatches of hidden
+    states: outputs bitwise those of the stage applied microbatch by
+    microbatch; ``pipeline_loss_fn``'s gradients (an MSE tail against
+    seeded labels) bitwise autograd's through that direct loop; the
+    launch counts of each forward, and the ms of both (the second of two
+    calls)."""
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  pipeline_loss_fn,
+                                                  stack_stage_params)
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, tree_map
+    M, S = PIPE["microbatches"], PIPE["seq"]
+    positions = torch.arange(S, device=device).expand(1, S)
+
+    def stage_fn(p, x):
+        stage = {"layers": tree_map(lambda t: t[0], p)}
+        for i in range(cfg.n_layers):
+            x = lm._attn_block(lm.layer_params(stage, i), cfg, x, positions,
+                               True)[0]
+        return x
+
+    def tail(o, y):
+        return torch.mean((o.float() - y.float()) ** 2)
+
+    gen = torch.Generator(device=device).manual_seed(28)
+    xs, ys = (torch.randn((M, 1, S, cfg.d_model), generator=gen,
+                          device=device).to(lm.torch_dtype(cfg))
+              for _ in range(2))
+
+    def direct(stacked):
+        local = tree_map(lambda t: t[0:1], stacked)
+        return torch.stack([stage_fn(local, xs[m]) for m in range(M)])
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        return out, (time.perf_counter() - t) * 1e3
+
+    stacked = stack_stage_params([layers])
+    with torch.no_grad():
+        counts, ms = {}, {}
+        for turn in range(2):         # the second call's times are kept
+            for name, fn in (
+                    ("pipeline", lambda: pipeline_apply(mesh, stage_fn,
+                                                        stacked, xs)),
+                    ("direct", lambda: direct(stacked))):
+                reset_launches()
+                out, ms[name] = timed(fn)
+                counts[name] = launch_counts()
+                if turn == 0:
+                    counts[name + "_outputs"] = out
+    outputs_equal = bool(torch.equal(counts.pop("pipeline_outputs"),
+                                     counts.pop("direct_outputs")))
+    live = tree_map(lambda t: t.detach().requires_grad_(), stacked)
+    reset_launches()
+    loss = pipeline_loss_fn(mesh, stage_fn, tail)(live, xs, ys)
+    counts["loss_forward"] = launch_counts()
+    g_pipe = torch.autograd.grad(loss, leaves(live))
+    live2 = tree_map(lambda t: t.detach().requires_grad_(), stacked)
+    loss2 = tail(direct(live2), ys)
+    g_direct = torch.autograd.grad(loss2, leaves(live2))
+    return dict(outputs_equal=outputs_equal, loss=float(loss.detach()),
+                loss_direct=float(loss2.detach()),
+                grads_equal=all(torch.equal(a, b)
+                                for a, b in zip(g_pipe, g_direct)),
+                n_grads=len(g_pipe), launches=counts, ms=ms,
+                profiled_flash=_profiled_pipeline(
+                    lambda: pipeline_apply(mesh, stage_fn, stacked, xs)))
+
+
+def _profiled_pipeline(forward) -> list:
+    """One pipeline forward under the profiler: every flash launch it
+    counted must show as the tensor-core kernel."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+
+    def run():
+        reset_launches()
+        with torch.no_grad():
+            forward()
+
+    def check(prof, _):
+        _, kern = _device_times(prof)
+        _check_flash_route(kern, launch_counts().get("flash_attention", 0),
+                           "pipeline")
+        return kern["flash_attention"]
+    return list(_profiled(run, check, "pipeline")[2])
+
+
+def mesh_modules_phase() -> dict:
+    """Phase 28: the mesh modules on one rank of an NCCL group.  (a) one
+    train step's bf16 gradients of Qwen3-0.6B at full width
+    (``QWEN_TRAIN``'s batch, ``use_kernel=True``) through
+    ``ef_compressed_mean`` over the ``data`` dim of ``make_host_mesh(1)``;
+    (b) its decoder layers as one stage of ``pipeline_apply`` on a
+    one-rank ``stage`` mesh.  Gates: :func:`compress_check`'s; outputs and
+    gradients bitwise, flash launched ``n_layers x M`` times in each
+    forward (pipeline, direct loop, the loss's), every launch the
+    tensor-core kernel."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.mesh import destroy_host_group, make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(ARCH)
+    params = lm.init_params(cfg, 0)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in make_pipeline(
+        cfg.vocab, QWEN_TRAIN["seq"], QWEN_TRAIN["batch"],
+        seed=0).next_batch().items()}
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = lm.loss_fn(live, cfg, batch, remat=True, use_kernel=True)
+    got = iter(torch.autograd.grad(loss, leaves(live)))
+    grads = tree_map(lambda _: next(got), params)
+    del live, loss, got
+    mesh = make_host_mesh(1)
+    try:
+        comp = compress_check(grads, mesh)
+        del grads
+        torch.cuda.empty_cache()
+        stage_mesh = init_device_mesh("cuda", (1,),
+                                      mesh_dim_names=("stage",))
+        pipe = pipeline_check(cfg, params["layers"], stage_mesh,
+                              torch.device(DEV))
+    finally:
+        destroy_host_group()
+    del params
+    torch.cuda.empty_cache()
+    want = {"flash_attention": cfg.n_layers * PIPE["microbatches"]}
+    counts = pipe["launches"]
+    log(f"pipeline {ARCH}: {cfg.n_layers} layers as one stage, "
+        f"{PIPE['microbatches']} microbatches of 1 x {PIPE['seq']}: outputs "
+        f"bitwise the direct loop's {pipe['outputs_equal']}, loss "
+        f"{pipe['loss']:.6f} / {pipe['loss_direct']:.6f}, {pipe['n_grads']} "
+        f"gradients bitwise {pipe['grads_equal']}; launches {counts}; ms "
+        f"pipeline {pipe['ms']['pipeline']:.1f}, direct "
+        f"{pipe['ms']['direct']:.1f}")
+    if not (pipe["outputs_equal"] and pipe["grads_equal"]
+            and all(counts[k] == want for k in
+                    ("pipeline", "direct", "loss_forward"))):
+        raise AssertionError(f"pipeline: {pipe}, expected launches {want}")
+    return dict(arch=ARCH, compress=comp, pipeline=pipe, **PIPE)
 
 
 def train_vs_cpu() -> dict:
@@ -5198,13 +5510,17 @@ def owner_mask_checks() -> list:
 
 def run_only(phases: set, phase) -> int:
     """``--only 8,24,25``: the build, then only the named phases among
-    17, 8, 24, 25, 26, 12 and 27 (26 with phase 3's owner-mask checks of
-    ``sweep_guards`` first; a development run: no kernels line, no result
-    line);
+    7 (its checks), 17, 8, 24, 25, 26, 12, 27 and 28 (26 with phase 3's
+    owner-mask checks of ``sweep_guards`` first; a development run: no
+    kernels line, no result line);
     what they return goes to ``chiprun_out/chip_smoke_only.json``."""
     from repro_torch.core.compile_cache import shutdown_workers
     out = {}
     try:
+        if "7" in phases:
+            out["attention_checks"] = phase("7 attention checks",
+                                            check_attention)[0]
+            out["decode_lse"] = phase("7 decode lse", check_decode_lse)
         if "17" in phases:
             out["codegen"] = phase("17 codegen", codegen_phase)
         if "8" in phases:
@@ -5223,6 +5539,9 @@ def run_only(phases: set, phase) -> int:
         if "27" in phases:
             out["sharded_training"] = phase("27 sharded train",
                                             sharded_train_phase)
+        if "28" in phases:
+            out["mesh_modules"] = phase("28 mesh modules",
+                                        mesh_modules_phase)
     finally:
         shutdown_workers()
     out_dir = ROOT / "chiprun_out"
@@ -5350,6 +5669,7 @@ def main() -> int:
 
     # 7-10: the LM serving path
     attn_checks, attn_errs = phase("7 attention checks", check_attention)
+    decode_lse = phase("7 decode lse", check_decode_lse)
     attn_timing = phase("7 attention times", time_attention)
     serving, eng, reqs, stats, params = phase("8 serving", serving_phase)
     serve_brk = phase("10 serving breakdown", serving_breakdown, eng, reqs,
@@ -5398,6 +5718,8 @@ def main() -> int:
     partitioned = phase("26 partitioned", partitioned_phase)
     # 27: sharded training through a mesh, and the dry run of a cell
     sharded = phase("27 sharded train", sharded_train_phase)
+    # 28: the mesh modules (compressed mean, pipeline) on one rank
+    mesh_modules = phase("28 mesh modules", mesh_modules_phase)
     part_launches = {k: sum(r["launches"][k] for app in PARTITIONED
                             for t, r in partitioned[app]["runs"].items()
                             if t.startswith("mesh")) for k in REPLACES}
@@ -5436,6 +5758,8 @@ def main() -> int:
             shape=head["shape"], by_shape=rows,
             train_launches=qwen["launches"].get(name, 0),
             sharded_train_launches=sharded["launches"].get(name, 0),
+            pipeline_launches=mesh_modules["pipeline"]["launches"][
+                "pipeline"].get(name, 0),
             launches_by_model={arch: c.get(name, 0)
                                for arch, c in by_model.items()},
             launches_compiled=compiled["launches"].get(name, 0),
@@ -5474,6 +5798,7 @@ def main() -> int:
         recurrent_audio_card_vs_cpu=recurrent_cpu,
         compiled_serving=compiled, compiled_card_vs_cpu=compiled_cpu,
         partitioned=partitioned, sharded_training=sharded,
+        decode_lse=decode_lse, mesh_modules=mesh_modules,
         kernel_resources=resources,
         phase_seconds=seconds), indent=1))
     print(smi)

@@ -255,7 +255,8 @@ def _kernel_flops(func, args) -> float:
         q, k = args[0], args[1]
         B, Sq, nh, hd = q.shape
         return 4.0 * B * Sq * k.shape[1] * nh * hd
-    if name == "repro_torch::decode_attention_fwd":
+    if name in ("repro_torch::decode_attention_fwd",
+                "repro_torch::decode_attention_lse_fwd"):
         q, k = args[0], args[1]
         return 4.0 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
     if name == "repro_torch::ssd_scan_fwd":

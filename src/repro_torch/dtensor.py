@@ -28,7 +28,8 @@ a DTensor:
   (the reference's ``out_shardings``);
 * :func:`local_call` — a kernel-backed op run on the local shards of its
   DTensor inputs, for the placements its kernel can take
-  (:mod:`repro_torch.kernels.ops`).
+  (:mod:`repro_torch.kernels.ops`: batch or heads splits, and
+  flash-decode's sequence split).
 """
 
 from __future__ import annotations
@@ -255,11 +256,13 @@ def local_call(op: str, fn: Callable, args: Sequence, rules: Sequence,
 
     ``rules[i]`` names the placement argument ``i`` takes under each split
     of a mesh dim: ``{"batch": Shard(d) or None, "heads": Shard(d) or
-    None}`` (None: replicated under that split).  Each mesh dim must be
+    None}`` (None: replicated under that split), and a third kind where
+    the op takes one (flash-decode's ``"seq"``, the cache's sequence:
+    ``fn`` merges over those dims itself).  Each mesh dim must be
     ``Replicate`` on every argument, or split every argument as its rule
-    says for ``batch``, or for ``heads``; ``out_rules`` lay the outputs
-    out the same way.  A partial placement (a sum DTensor has not done
-    yet) is reduced first (:func:`settle`).  Every split dim must divide
+    says for one kind; ``out_rules`` lay the outputs out the same way.
+    A partial placement (a sum DTensor has not done yet) is reduced first
+    (:func:`settle`).  Every split dim must divide
     evenly, so that each shard holds whole rows and whole head groups.
     Any other placement raises and names it: nothing is gathered, and the
     kernel does not give way to its plain version.  An argument that is
@@ -279,7 +282,7 @@ def local_call(op: str, fn: Callable, args: Sequence, rules: Sequence,
     splits = []
     for d in range(mesh.ndim):
         got = [placement(a, d) for a in args]
-        fits = [k for k in ("batch", "heads")
+        fits = [k for k in rules[0]
                 if all((r[k] or Replicate()) == p
                        for r, p in zip(rules, got))]
         if all(isinstance(p, Replicate) for p in got):
@@ -290,8 +293,9 @@ def local_call(op: str, fn: Callable, args: Sequence, rules: Sequence,
             raise NotImplementedError(
                 f"{op}: placements {got} on mesh dim {names[d]!r} are not "
                 f"a split its kernel runs on (every input Replicate, or "
-                f"split by batch {[r['batch'] for r in rules]}, or by "
-                f"heads {[r['heads'] for r in rules]})")
+                f"split " + ", or ".join(
+                    f"by {k} {[r[k] for r in rules]}" for k in rules[0])
+                + ")")
     for a in args:
         for p in {p for p in getattr(a, "placements", ())
                   if isinstance(p, Shard)}:

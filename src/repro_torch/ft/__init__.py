@@ -1,14 +1,15 @@
 """Fault tolerance of the port: the preemption guard, straggler detection,
-the training restart protocol, and crash recovery of task graphs
-(snapshots, the snapshot store, chunked and supervised runs)."""
+the elastic re-mesh, the training restart protocol, and crash recovery
+of task graphs (snapshots, the snapshot store, chunked and supervised
+runs)."""
 
-from .elastic import StragglerDetector, resume_or_init
+from .elastic import ElasticMesh, StragglerDetector, resume_or_init
 from .preemption import PreemptionGuard
 from .recovery import (GraphSnapshot, RestartPolicy, SnapshotStore,
                        capture_channel, capture_port, restore_channel,
                        restore_port, run_recoverable, run_supervised)
 
-__all__ = ["PreemptionGuard", "StragglerDetector", "resume_or_init",
-           "GraphSnapshot", "RestartPolicy", "SnapshotStore",
+__all__ = ["ElasticMesh", "PreemptionGuard", "StragglerDetector",
+           "resume_or_init", "GraphSnapshot", "RestartPolicy", "SnapshotStore",
            "capture_channel", "capture_port", "restore_channel",
            "restore_port", "run_recoverable", "run_supervised"]

@@ -57,6 +57,11 @@
 //   output is rounded to the input type once, at the end.
 // * kv_len == 0 (a dead serving slot) gives exact zeros, as
 //   decode_attention.py:79-82 does.
+// * On request (a non-null lse) the merge also writes each row's
+//   log-sum-exp m + log(l) from the statistics it already holds, -inf for
+//   a row with no valid key: a cache whose sequence is split over ranks
+//   runs the kernel on each rank's rows, and the ranks' (out, lse) pairs
+//   are merged by two all-reduces (kernels/ops.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,6 +152,7 @@ struct DecodeArgs {
   float* part_m;       // [B, nkv, n_split, group]; the merge's weights
   float* part_l;
   float* part_acc;     // [B, nkv, n_split, group, hd]
+  float* lse;          // [B, nh] log-sum-exp of each row's scores, or null
   long long q_sb, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -378,6 +384,9 @@ decode_merge_kernel(DecodeArgs a) {
       l = fmaf(a.part_l[i], expf(a.part_m[i] - m), l);
     }
     l = warp_sum(l);            // >= 1: the split holding the max has p = 1
+    if (a.lse != nullptr && lane == 0)   // used == 0: no key, -inf
+      a.lse[((long long)b * a.nkv + kvh) * group + g] =
+          used > 0 ? m + logf(l) : -INFINITY;
     for (int s = lane; s < used; s += 32) {
       const long long i = (base + s) * group + g;
       a.part_m[i] = expf(a.part_m[i] - m) / l;
@@ -457,10 +466,14 @@ extern "C" {
 // synchronising; returns cudaGetLastError() (0 on success), -1 for a
 // (dtype, hd, group) this file was not built for, -2 for a split size
 // other than 64 or a split count other than ceil(s_max / 64).  dtype: 0 =
-// float32, 1 = bfloat16.  part_* are scratch of n_split splits.
+// float32, 1 = bfloat16.  part_* are scratch of n_split splits.  lse, when
+// not null, receives each row's log-sum-exp [B, nh] in float32 (-inf for a
+// row with no valid key): what merges partial results over a cache whose
+// sequence is split across ranks.
 int decode_attention(const void* q, const void* k, const void* v,
                      const int* kv_len, void* out, float* part_m,
-                     float* part_l, float* part_acc, long long q_sb,
+                     float* part_l, float* part_acc, float* lse,
+                     long long q_sb,
                      long long q_sh, long long k_sb, long long k_ss,
                      long long k_sh, long long v_sb, long long v_ss,
                      long long v_sh, int batch, int s_max, int nkv,
@@ -468,7 +481,7 @@ int decode_attention(const void* q, const void* k, const void* v,
                      float scale, void* stream) {
   if (group < 1 || group > kMaxGroup) return -1;
   if (split != kSplit || n_split != (s_max + kSplit - 1) / kSplit) return -2;
-  DecodeArgs a{q, k, v, kv_len, out, part_m, part_l, part_acc,
+  DecodeArgs a{q, k, v, kv_len, out, part_m, part_l, part_acc, lse,
                q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                s_max, nkv, group, n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -5,7 +5,9 @@ its own prefix of a KV cache: ``q[B, nh, hd]`` against ``k/v[B, S_max,
 nkv, hd]`` (the model's cache layout, read through its strides, never
 transposed) over the first ``kv_len[b]`` positions, GQA through
 ``h // (nh // nkv)``.  A row with ``kv_len == 0`` (a dead serving slot)
-gives exact zeros.  It is the function of the reference's
+gives exact zeros.  On request it also gives each row's log-sum-exp,
+which merges the results of a cache split along its sequence (a
+sequence-split mesh, :mod:`.ops`).  It is the function of the reference's
 ``decode_attention_fwd`` (``src/repro/kernels/decode_attention.py:85``,
 Pallas body ``_decode_kernel`` at ``:35``), whose layout is head-major.
 
@@ -38,7 +40,7 @@ MAX_GROUP = 8
 SPLIT = 64              # cache rows a block (csrc kSplit)
 HEAD_DIMS = (64, 96, 128)
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"decode_attention": [_VP] * 8 + [_LL] * 8 + [_INT] * 8
+_SIGNATURES = {"decode_attention": [_VP] * 9 + [_LL] * 8 + [_INT] * 8
                + [ctypes.c_float, _VP],
                "decode_attention_smem_bytes": [_INT] * 3}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -122,8 +124,8 @@ def _check_shapes(q, k, v, kv_len) -> None:
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor,
-                           kv_len: torch.Tensor) -> torch.Tensor:
+                           v: torch.Tensor, kv_len: torch.Tensor, *,
+                           return_lse: bool = False):
     """Plain version of :func:`decode_attention_fwd` (CPU and meta
     tensors, and the card-side yardstick the kernel is held against)."""
     B, nh, hd = q.shape
@@ -140,29 +142,40 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgs,bskh->bkgh", p, v.float()) / \
         torch.where(l == 0.0, 1.0, l)
-    return o.reshape(B, nh, hd).to(q.dtype)
+    out = o.reshape(B, nh, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0.0, m + torch.log(l), -math.inf)
+    return out, lse.reshape(B, nh)
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_len: torch.Tensor) -> torch.Tensor:
+                         kv_len: torch.Tensor, *, return_lse: bool = False):
     """q: [B, nh, hd]; k/v: [B, S_max, nkv, hd]; kv_len: [B] int32 on
-    q's device.  Returns [B, nh, hd] in q's dtype."""
+    q's device.  Returns [B, nh, hd] in q's dtype; with ``return_lse``
+    the pair ``(out, lse)``, ``lse`` [B, nh] float32 each row's
+    log-sum-exp of its scaled scores (-inf for a row with no valid key),
+    what merges results over pieces of one cache."""
     if not uses_kernel("decode_attention", q, k, v, kv_len):
         _check_shapes(q, k, v, kv_len)
-        return decode_attention_plain(q, k, v, kv_len)
+        return decode_attention_plain(q, k, v, kv_len, return_lse=return_lse)
     a = launch_args(q, k, v, kv_len)
     B, S, nkv, group, hd = a.dims
     out = q.new_empty(q.shape)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B == 0 or S == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-math.inf)) if return_lse else out
     kv_len = kv_len.contiguous()
     part = torch.empty(a.part_numel, dtype=torch.float32, device=q.device)
     lib = _build.bind("decode_attention", _SIGNATURES)
     rc = lib.decode_attention(
         a.q.data_ptr(), a.k.data_ptr(), a.v.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), part.data_ptr(), part[a.n_stat:].data_ptr(),
-        part[2 * a.n_stat:].data_ptr(), *a.strides, B, S, nkv, group, hd,
-        a.dtype, SPLIT, a.n_split, a.scale, _build.stream(q))
+        part[2 * a.n_stat:].data_ptr(),
+        None if lse is None else lse.data_ptr(), *a.strides, B, S, nkv,
+        group, hd, a.dtype, SPLIT, a.n_split, a.scale, _build.stream(q))
     _build.check(lib, "decode_attention", "decode_attention", rc)
     count_launch("decode_attention")
-    return out
+    return (out, lse) if return_lse else out

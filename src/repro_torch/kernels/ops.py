@@ -47,9 +47,11 @@ runs its kernel on the local shards (:func:`repro_torch.dtensor.local_call`,
 the counterpart of a ``local_map``): batch split on a mesh dim, or heads
 split (attention's query and KV heads together, so every shard keeps the
 whole group ratio; the SSD scan's heads, its groups split with them or
-replicated when there is one), or replicated.  Any other placement raises
-and names it; a backward (flash's, the SSD recompute) runs on the same
-local shards.
+replicated when there is one), or replicated; flash-decode also runs on
+a cache split along its sequence (long-context decode at B = 1), each
+rank's ``(out, lse)`` merged by three all-reduces
+(:func:`merge_partials`).  Any other placement raises and names it; a
+backward (flash's, the SSD recompute) runs on the same local shards.
 """
 
 from __future__ import annotations
@@ -99,6 +101,19 @@ def decode_attention_op(q: Tensor, k: Tensor, v: Tensor,
 @decode_attention_op.register_fake
 def _(q, k, v, kv_len):
     return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_lse_fwd",
+                         mutates_args=())
+def decode_attention_lse_op(q: Tensor, k: Tensor, v: Tensor,
+                            kv_len: Tensor) -> tuple[Tensor, Tensor]:
+    return decode_attention_fwd(q, k, v, kv_len, return_lse=True)
+
+
+@decode_attention_lse_op.register_fake
+def _(q, k, v, kv_len):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:2],
+                                             dtype=torch.float32)
 
 
 @torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
@@ -204,17 +219,68 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lengths on q's device.  Returns [B, nh, hd].
     """
     if any(is_dtensor(t) for t in (q, k, v, kv_len)):
-        q = _q_like_kv(q, k, 1, 2)
-        q, kv_len = same_rows(q, kv_len)
-        kv_rule, pick = _kv_heads(q, k, 1, 2)
-        return local_call(
-            "decode_attention",
-            lambda qq, kk, vv, ln: decode_attention(qq, pick(kk), pick(vv),
-                                                    ln),
-            (q, k, v, kv_len), (_rule(0, 1), kv_rule, kv_rule,
-                                _rule(0, None)), (_rule(0, 1),))
+        return _local_decode(q, k, v, kv_len)
     _forward_only("decode_attention", q, k, v)
     return decode_attention_op(q, k, v, kv_len)
+
+
+def _local_decode(q, k, v, kv_len):
+    """:func:`decode_attention` on local shards: batch split, heads
+    split, or the cache's sequence split (K/V ``Shard(1)``, the query
+    and lengths replicated), mixed across mesh dims.  Over a sequence
+    split each rank runs the kernel on its rows with its local lengths
+    and its ``(out, lse)`` are merged over the split dims
+    (:func:`merge_partials`); a query split on its heads over such a dim
+    (``ShardingPolicy(two_d=True)``) is gathered first, ``[B, nh, hd]``."""
+    from torch.distributed.tensor import Replicate, Shard
+    seq = [d for d, p in enumerate(k.placements) if p == Shard(1)] \
+        if is_dtensor(k) else []
+    if seq and is_dtensor(q) and any(q.placements[d] == Shard(1)
+                                     for d in seq):
+        q = q.redistribute(q.device_mesh, [Replicate() if d in seq else p
+                                           for d, p in
+                                           enumerate(q.placements)])
+    q = _q_like_kv(q, k, 1, 2)
+    q, kv_len = same_rows(q, kv_len)
+    kv_rule, pick = _kv_heads(q, k, 1, 2)
+    kv_rule = {**kv_rule, "seq": Shard(1)}
+    s0 = shard_offset(k, 1) if seq else 0
+
+    def run(qq, kk, vv, ln):
+        kk, vv = pick(kk), pick(vv)
+        if not seq:
+            return decode_attention(qq, kk, vv, ln)
+        _forward_only("decode_attention", qq, kk, vv)
+        ln = (ln - s0).clamp(0, kk.shape[1]).to(torch.int32)
+        out, lse = decode_attention_lse_op(qq, kk, vv, ln)
+        return merge_partials(out, lse, [(k.device_mesh, d) for d in seq])
+    return local_call(
+        "decode_attention", run, (q, k, v, kv_len),
+        ({**_rule(0, 1), "seq": None}, kv_rule, kv_rule,
+         {**_rule(0, None), "seq": None}), ({**_rule(0, 1), "seq": None},))
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor,
+                   groups: list) -> torch.Tensor:
+    """Attention results over disjoint pieces of one cache, one piece a
+    rank, merged into the result over the whole cache: ``out`` [B, nh,
+    hd] and ``lse`` [B, nh] (float32, -inf where a piece holds no valid
+    key) as the kernel gives them, ``groups`` the ``(mesh, dim)`` groups
+    the pieces are split over.  An all-reduce MAX of ``lse`` (M), then
+    all-reduce SUMs of ``w = exp(lse - M)`` and of ``w * out`` in float32
+    over each group; ``out = sum(w out) / sum(w)``, zeros for a row with
+    no valid key anywhere, as the kernel gives them."""
+    import torch.distributed._functional_collectives as funcol
+    m = lse
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    w = torch.where(lse == -math.inf, 0.0, torch.exp(lse - m))
+    acc = w[..., None] * out.float()
+    for g in groups:
+        w = funcol.all_reduce(w, "sum", g)
+        acc = funcol.all_reduce(acc, "sum", g)
+    den = torch.where(w > 0, w, 1.0)[..., None]
+    return (acc / den).to(out.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -278,26 +278,53 @@ def test_dryrun_cli_records_skips(tmp_path):
     assert rec["ok"] and "sub-quadratic" in rec["skipped"]
 
 
-@pytest.mark.parametrize("arch,ok", [("mamba2-130m", True),
-                                     ("zamba2-1.2b", False)])
-def test_long_context_cell(arch, ok):
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_long_context_cell(arch, monkeypatch):
     """B = 1 long-context decode: the cache's sequence is split over the
-    data axis.  Mamba2 keeps no K/V and runs; zamba2's shared attention
-    block would need flash-decode over a sequence split, which its
-    kernel does not run on: refused, naming the placements (ROADMAP
-    queue C)."""
+    data axis.  Mamba2 keeps no K/V; zamba2's shared attention block runs
+    flash-decode on each rank's rows of the cache and merges the ranks'
+    ``(out, lse)``: three all-reduces an attention application, of
+    ``[B, nh]``, ``[B, nh]`` and ``[B, nh, hd]`` float32 (nh the model
+    shard's heads), counted against the same cell with the merge's
+    collectives taken out; no all-gather as large as a cache shard."""
+    from repro_torch.kernels import ops
     cfg = get_config(arch).with_reduced()
     shape = InputShape("tiny_long", 256, 1, "decode")
-    with fake_world(8):
-        mesh = _mesh()
-        if ok:
-            assert run_cell(cfg, shape, mesh, "test4x2", verbose=False)["ok"]
-        else:
-            with pytest.raises(NotImplementedError,
-                               match="decode_attention: placements"):
-                run_cell(cfg, shape, mesh, "test4x2", verbose=False)
+    merges = []
+    real = ops.merge_partials
 
+    def counted(out, lse, groups):
+        merges.append((tuple(out.shape), len(groups)))
+        return real(out, lse, groups)
 
+    def local_only(out, lse, groups):
+        return out
+    recs = []
+    for merge in (counted, local_only):
+        monkeypatch.setattr(ops, "merge_partials", merge)
+        with fake_world(8):
+            recs.append(run_cell(cfg, shape, _mesh(), "test4x2",
+                                 verbose=False))
+    rec, bare = recs
+    assert rec["ok"] and bare["ok"]
+    apps = len(merges)
+    coll, without = rec["collectives"], bare["collectives"]
+    if cfg.family == "ssm":
+        assert apps == 0 and coll == without
+        return
+    # each application: the data axis (4 ranks) splits the sequence, the
+    # model axis (2) the heads
+    assert apps > 0 and all(
+        m == ((1, cfg.n_heads // 2, cfg.hd), 1) for m in merges)
+    B, nh, hd = 1, cfg.n_heads // 2, cfg.hd
+    assert coll.get("n_all-reduce", 0) - without.get("n_all-reduce", 0) \
+        == 3 * apps
+    # all-reduce bytes count twice (a ring: reduce-scatter + all-gather)
+    assert coll["all-reduce"] - without.get("all-reduce", 0) == \
+        2 * apps * 4 * (B * nh + B * nh + B * nh * hd)
+    assert coll.get("all-gather", 0) == without.get("all-gather", 0)
+    shard = shape.seq_len // 4 * (cfg.n_kv_heads // 2) * cfg.hd * 2
+    assert coll.get("all-gather", 0) < shard, (coll, shard)
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-small",
                                   "phi-3-vision-4.2b", "zamba2-1.2b"])
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
