@@ -120,10 +120,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    output (``LSE_CASES``: Qwen3's 8 x 2048 cache, zamba2's 32/32 x 64 one
    row and four, rows of length 0; float32 and bf16): ``(out, lse)``
    against the plain version's (``LSE_ABS_TOL``, -inf where no key is
-   valid), ``out`` bitwise the call's without ``lse``; each cache cut into
-   2 and 4 sequence pieces, the kernel on each piece with its local
-   lengths, the pieces merged in float32 as a sequence-split mesh merges
-   them: within ``ATTN_REL_TOL`` of the whole cache's kernel output.  CUDA-event times
+   valid), ``out`` (float32, unrounded) rounded bitwise the call's
+   without ``lse``; each cache cut into 2, 4 and 16 sequence pieces, the
+   kernel on each piece with its local lengths, the pieces merged in
+   float32 as a sequence-split mesh merges them and rounded once: within
+   ``ATTN_REL_TOL`` of the whole cache's kernel output, and bf16 within
+   one rounding step of it everywhere.  CUDA-event times
    (``FLASH_TIMES``: Qwen3's B=1 S=1024 and 2048, B=8 S=256, B=4 S=1024,
    Phi-3's B=1 S=1024 and 2048, whisper's encoder and its decode step's
    cross-attention, zamba2's shared block at S=1024; ``DECODE_TIMES``:
@@ -361,8 +363,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    applied microbatch by microbatch, ``pipeline_loss_fn``'s gradients (an
    MSE tail against seeded labels) bitwise autograd's through that loop,
    flash launched 28 x 4 times in each forward, a profiled forward's
-   every launch ``flash_wgmma_kernel``; ms of the pipeline and of the
-   direct loop.
+   every launch ``flash_wgmma_kernel``.  Times: the mean's, and a
+   forward's of the pipeline and of the direct loop, each the median of
+   ``MESH_TURNS`` calls after an untimed one.
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -379,6 +382,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1961,7 +1965,8 @@ LSE_CASES = [
     (1, 2048, 32, 32, 64, [1537]),
     (4, 2048, 32, 32, 64, [0, 5, 512, 1100]),
 ]
-LSE_PIECES = (2, 4)          # sequence pieces a cache is cut into
+LSE_PIECES = (2, 4, 16)      # sequence pieces a cache is cut into (16:
+                             # the production long-context cell's data axis)
 
 
 def _lse_err(lse: torch.Tensor, want: torch.Tensor) -> float:
@@ -1974,15 +1979,26 @@ def _lse_err(lse: torch.Tensor, want: torch.Tensor) -> float:
         (~dead).any()) else 0.0
 
 
+def _steps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| of two bfloat16 tensors in bfloat16
+    rounding steps at the larger of the two magnitudes (2**-7 of it)."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag))
+                                             - 7)).max())
+
+
 def check_decode_lse() -> list:
     """Phase 7, flash-decode's log-sum-exp: the kernel's ``(out, lse)``
-    against the plain version's (``ATTN_REL_TOL``, ``LSE_ABS_TOL``; -inf
-    and exact zeros where ``kv_len == 0``), its ``out`` bitwise equal to
-    the call without ``lse`` (the null-pointer path); then each cache cut
-    into ``LSE_PIECES`` sequence pieces, the kernel on each piece with its
-    local lengths, the pieces merged in float32 as the sequence-split
-    mesh merges them (``kernels/ops.merge_partials``): the whole cache's
-    kernel output within ``ATTN_REL_TOL``."""
+    (``out`` float32 and unrounded) against the plain version's
+    (``ATTN_REL_TOL``, ``LSE_ABS_TOL``; -inf and exact zeros where
+    ``kv_len == 0``), its ``out`` rounded to the input type bitwise equal
+    to the call without ``lse`` (the null-pointer path); then each cache
+    cut into ``LSE_PIECES`` sequence pieces, the kernel on each piece with
+    its local lengths, the float32 pieces merged as the sequence-split
+    mesh merges them (``kernels/ops.merge_partials``) and rounded once:
+    the whole cache's kernel output within ``ATTN_REL_TOL``, and in
+    bfloat16 within one rounding step everywhere."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_fwd, decode_attention_plain)
     gen = torch.Generator(device=DEV).manual_seed(7)
@@ -2001,9 +2017,9 @@ def check_decode_lse() -> list:
             torch.cuda.synchronize()
             _, rel = _errs(out, p_out)
             lse_err = _lse_err(lse, p_lse)
-            same = bool(torch.equal(out, whole))
+            same = bool(torch.equal(out.to(dt), whole))
             zeros = bool((out[kv_len == 0] == 0).all())
-            merged = {}
+            merged, steps = {}, {}
             for n in LSE_PIECES:
                 w = S // n
                 parts = [decode_attention_fwd(
@@ -2014,23 +2030,29 @@ def check_decode_lse() -> list:
                 ws = [torch.where(p[1] == -math.inf, 0.0,
                                   torch.exp(p[1] - m)) for p in parts]
                 den = sum(ws)
-                num = sum(x[..., None] * p[0].float()
-                          for x, p in zip(ws, parts))
-                got = num / torch.where(den > 0, den, 1.0)[..., None]
+                num = sum(x[..., None] * p[0] for x, p in zip(ws, parts))
+                got = (num / torch.where(den > 0, den, 1.0)[..., None]).to(dt)
                 torch.cuda.synchronize()
                 merged[n] = _errs(got, whole)[1]
+                if dt == torch.bfloat16:
+                    steps[n] = _steps(got, whole)
             rows.append(dict(dtype=str(dt), B=B, S_max=S, nh=nh, nkv=nkv,
                              hd=hd, kv_len=lens, rel_err=rel,
                              lse_abs_err=lse_err, out_unchanged=same,
-                             exact_zeros=zeros, merged_rel_err=merged))
+                             exact_zeros=zeros, merged_rel_err=merged,
+                             merged_steps=steps))
             log(f"attn decode lse {str(dt):14s} B={B} S_max={S} "
                 f"{nh}/{nkv}x{hd}: out rel {rel:.2e}, lse {lse_err:.2e} "
                 f"(limit {LSE_ABS_TOL:g}), out without lse bitwise equal "
                 f"{same}; merged pieces vs whole " + ", ".join(
-                    f"{n}: {e:.2e}" for n, e in merged.items())
-                + f" (limit {tol:g})")
+                    f"{n}: {e:.2e}" + (f" ({steps[n]:g} bf16 steps)"
+                                       if n in steps else "")
+                    for n, e in merged.items())
+                + f" (limit {tol:g}" + ("; 1 step)" if steps else ")"))
+            one_step = all(x <= 1.0 for x in steps.values())
             if not (rel <= tol and lse_err <= LSE_ABS_TOL and same and zeros
-                    and all(e <= tol for e in merged.values())):
+                    and all(e <= tol for e in merged.values())
+                    and one_step):
                 raise AssertionError(f"decode_attention lse: {rows[-1]}")
             del q, k, v, out, lse, p_out, p_lse, whole
     torch.cuda.empty_cache()
@@ -2367,21 +2389,55 @@ def _profiled(run, check, where: str):
     raises AssertionError unless the profile shows every launch the run
     made.  The profiler on the card now and then loses kernel records
     (one serving wave showed 779 of its 868 flash-decode launches, in the
-    runs of two trees), so a profile that fails the check is taken again
-    on a new run, up to ``PROFILE_TRIES`` in all, and the last failure
-    fails.  Returns ``(prof, out, check's result)``."""
-    from torch.profiler import ProfilerActivity, profile
+    runs of two trees; on some machines one launch of a kernel short in
+    each profile of a process), so a profile that fails the check is
+    taken again on a new run, up to ``PROFILE_TRIES`` in all, and the
+    last failure fails.  A profile taken again is the second step of a
+    profiler schedule whose first step, a warm-up with the profiler on
+    and its records dropped, runs the same work once more.  Returns
+    ``(prof, out, check's result)``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for attempt in range(1, PROFILE_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm = attempt > 1
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                     if warm else None) as prof:
+            if warm:
+                run()
+                torch.cuda.synchronize()
+                prof.step()
             out = run()
             torch.cuda.synchronize()
+            if warm:
+                prof.step()
         try:
             return prof, out, check(prof, out)
         except AssertionError as e:
+            raw = _raw_kernel_records(prof)
             if attempt == PROFILE_TRIES:
-                raise
-            log(f"{where}: {e}; profiling a new run ({attempt} of "
-                f"{PROFILE_TRIES} lost records)")
+                raise AssertionError(f"{e} (the profile's raw device "
+                                     f"records: {raw})") from e
+            log(f"{where}: {e} (the profile's raw device records: {raw}); "
+                f"profiling a new run ({attempt} of {PROFILE_TRIES} lost "
+                f"records)")
+
+
+def _raw_kernel_records(prof) -> dict:
+    """The device records of a profile's raw events (not
+    ``key_averages``' table): how many there are, and how many name each
+    attention kernel; what a failed route check prints beside its own
+    count."""
+    from torch.autograd import DeviceType
+    names = [n for ns in ATTN_KERNELS.values() for n in ns]
+    out = dict.fromkeys(["device_records", *names], 0)
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        out["device_records"] += 1
+        for n in names:
+            if n in ev.name:
+                out[n] += 1
+    return out
 
 
 def _check_flash_route(kern: dict, launches: int, where: str) -> None:
@@ -3467,6 +3523,7 @@ def sharded_train_phase() -> dict:
 
 
 PIPE = dict(microbatches=4, seq=1024)   # phase 28 (b): M x [1, S, d]
+MESH_TURNS = 5              # phase 28: timed calls after an untimed one
 COMPRESS_ERR = 0.01         # the reference's round-trip bound (64 x 64)
 
 
@@ -3480,15 +3537,22 @@ def compress_check(grads: dict, mesh) -> dict:
     ``COMPRESS_ERR`` on the reference's case, a seeded 64 x 64 normal
     matrix.  A real gradient's error is recorded, not held to
     ``COMPRESS_ERR``: its heavy tails put ``scale`` (its largest
-    magnitude over 127) far above a typical element."""
+    magnitude over 127) far above a typical element.  The mean's time is
+    the median of ``MESH_TURNS`` calls after the checked one, which sets
+    up the group's communicator."""
     from repro_torch.distributed import compress as C
     from repro_torch.tree import named_leaves
-    t0 = time.perf_counter()
-    mean, _ = C.ef_compressed_mean(grads, C.init_error_state(grads), mesh,
-                                   "data")
-    torch.cuda.synchronize()
-    mean_s = time.perf_counter() - t0
+    err0 = C.init_error_state(grads)
+    mean, _ = C.ef_compressed_mean(grads, err0, mesh, "data")
     means = dict(named_leaves(mean))
+    samples = []
+    for _ in range(MESH_TURNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        C.ef_compressed_mean(grads, err0, mesh, "data")
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    mean_s = statistics.median(samples)
     bad, errors = [], {}
     for name, g in named_leaves(grads):
         q, scale = C.quantize_int8(g)
@@ -3508,11 +3572,13 @@ def compress_check(grads: dict, mesh) -> dict:
                                              device=DEV))
     worst = max(errors.items(), key=lambda t: t[1])
     over = sorted(n for n, e in errors.items() if e >= COMPRESS_ERR)
-    out = dict(leaves=len(means), mean_s=mean_s, errors=errors,
+    out = dict(leaves=len(means), mean_s=mean_s, mean_s_samples=samples,
+               errors=errors,
                worst_error=worst, over_limit=over, normal_64x64=normal,
                failed=bad)
     log(f"compress: ef_compressed_mean of {len(means)} bf16 gradient "
-        f"leaves over a one-rank data group in {mean_s * 1e3:.1f} ms; the "
+        f"leaves over a one-rank data group in {mean_s * 1e3:.1f} ms (median "
+        f"of {len(samples)} after the first); the "
         f"local dequant(q), the CPU's (q, scale) and the rounding bound "
         f"{'held for every leaf' if not bad else 'FAILED: ' + str(bad)}; "
         f"round-trip error: worst {worst[1]:.4f} ({worst[0]}), "
@@ -3529,8 +3595,8 @@ def pipeline_check(cfg, layers: dict, mesh, device) -> dict:
     states: outputs bitwise those of the stage applied microbatch by
     microbatch; ``pipeline_loss_fn``'s gradients (an MSE tail against
     seeded labels) bitwise autograd's through that direct loop; the
-    launch counts of each forward, and the ms of both (the second of two
-    calls)."""
+    launch counts of each forward, and the ms of both: the median of
+    ``MESH_TURNS`` turns after an untimed one, the two taking turns."""
     from repro_torch.distributed.pipeline import (pipeline_apply,
                                                   pipeline_loss_fn,
                                                   stack_stage_params)
@@ -3568,19 +3634,23 @@ def pipeline_check(cfg, layers: dict, mesh, device) -> dict:
 
     stacked = stack_stage_params([layers])
     with torch.no_grad():
-        counts, ms = {}, {}
-        for turn in range(2):         # the second call's times are kept
+        counts, samples, outs = {}, {"pipeline": [], "direct": []}, {}
+        for turn in range(1 + MESH_TURNS):      # turn 0 untimed
             for name, fn in (
                     ("pipeline", lambda: pipeline_apply(mesh, stage_fn,
                                                         stacked, xs)),
                     ("direct", lambda: direct(stacked))):
                 reset_launches()
-                out, ms[name] = timed(fn)
+                out, t = timed(fn)
                 counts[name] = launch_counts()
                 if turn == 0:
-                    counts[name + "_outputs"] = out
-    outputs_equal = bool(torch.equal(counts.pop("pipeline_outputs"),
-                                     counts.pop("direct_outputs")))
+                    outs[name] = out
+                else:
+                    samples[name].append(t)
+                del out
+    ms = {k: statistics.median(v) for k, v in samples.items()}
+    outputs_equal = bool(torch.equal(outs["pipeline"], outs["direct"]))
+    del outs
     live = tree_map(lambda t: t.detach().requires_grad_(), stacked)
     reset_launches()
     loss = pipeline_loss_fn(mesh, stage_fn, tail)(live, xs, ys)
@@ -3594,6 +3664,7 @@ def pipeline_check(cfg, layers: dict, mesh, device) -> dict:
                 grads_equal=all(torch.equal(a, b)
                                 for a, b in zip(g_pipe, g_direct)),
                 n_grads=len(g_pipe), launches=counts, ms=ms,
+                ms_samples=samples,
                 profiled_flash=_profiled_pipeline(
                     lambda: pipeline_apply(mesh, stage_fn, stacked, xs)))
 
@@ -3662,8 +3733,8 @@ def mesh_modules_phase() -> dict:
         f"bitwise the direct loop's {pipe['outputs_equal']}, loss "
         f"{pipe['loss']:.6f} / {pipe['loss_direct']:.6f}, {pipe['n_grads']} "
         f"gradients bitwise {pipe['grads_equal']}; launches {counts}; ms "
-        f"pipeline {pipe['ms']['pipeline']:.1f}, direct "
-        f"{pipe['ms']['direct']:.1f}")
+        f"(median of {MESH_TURNS}) pipeline {pipe['ms']['pipeline']:.1f}, "
+        f"direct {pipe['ms']['direct']:.1f}")
     if not (pipe["outputs_equal"] and pipe["grads_equal"]
             and all(counts[k] == want for k in
                     ("pipeline", "direct", "loss_forward"))):

@@ -518,10 +518,18 @@ class Executable:
         return self._run(*xs)
 
 
+# torch.export's tracing, saving and loading, one at a time across threads:
+# none is documented as thread-safe, and a save registers a process-wide
+# pickle reducer for fake tensors while it runs (a second save at the same
+# time refuses to replace it)
+_export_lock = threading.Lock()
+
+
 def _load(kind: str, payload: bytes) -> Callable:
     from ..kernels import ops  # noqa: F401  (registers the operators)
     if kind == "export":
-        return torch.export.load(io.BytesIO(payload)).module()
+        with _export_lock:
+            return torch.export.load(io.BytesIO(payload)).module()
     import torch._inductor as inductor
     with tempfile.TemporaryDirectory(prefix="repro-torch-aoti-") as d:
         path = os.path.join(d, "stage.pt2")
@@ -710,9 +718,6 @@ def shutdown_workers() -> None:
 atexit.register(shutdown_workers)
 
 
-_export_lock = threading.Lock()
-
-
 def compile_artifacts(specs: list, *, device: Any, lowering: str,
                       max_workers: Optional[int] = None) -> list:
     """Lower and compile each ``(fn, args, kwargs)`` (or ``(fn, args,
@@ -720,7 +725,7 @@ def compile_artifacts(specs: list, *, device: Any, lowering: str,
     :class:`Executable` on ``device``.
 
     The exports run one after another, one at a time across threads too
-    (tracing in ``torch.export`` is not documented as thread-safe).
+    (``_export_lock``), and so do their saves.
     Each AOTInductor package compiles as soon as its exported program is
     saved (while the next one exports), in the first free one of the
     worker processes, of which at least ``max_workers`` run (``None``:
@@ -740,7 +745,8 @@ def compile_artifacts(specs: list, *, device: Any, lowering: str,
         for spec in specs:
             ep, sig, _, export_s = export(*spec)
             buf = io.BytesIO()
-            torch.export.save(ep, buf)
+            with _export_lock:
+                torch.export.save(ep, buf)
             out.append(Executable("export", buf.getvalue(), *sig, dev,
                                   {"export_s": export_s, "compile_s": 0.0}))
         return out
@@ -753,7 +759,8 @@ def compile_artifacts(specs: list, *, device: Any, lowering: str,
             ep, sig, examples, export_s = export(*spec)
             ep_path = os.path.join(d, f"ep{j}.pt2")
             pkg_path = os.path.join(d, f"pkg{j}.pt2")
-            torch.export.save(ep, ep_path)
+            with _export_lock:
+                torch.export.save(ep, ep_path)
             jobs.append((sig, export_s, pkg_path, pool.submit(
                 _compile_on_a_free_worker, ep_path, pkg_path, examples,
                 str(dev))))

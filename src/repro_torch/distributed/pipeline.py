@@ -225,7 +225,7 @@ def _apply(pipe: Callable, mesh, axis: str, stacked_params: Any,
 
 def compile_pipeline(mesh, stage_fn: Callable, stacked_params: Any,
                      microbatches: torch.Tensor, *, axis: str = "stage",
-                     cache=None, device: Any = None) -> tuple:
+                     cache=None) -> tuple:
     """The GPipe schedule around a stage body compiled through the compile
     cache (:mod:`repro_torch.core.compile_cache`).
 
@@ -237,13 +237,14 @@ def compile_pipeline(mesh, stage_fn: Callable, stacked_params: Any,
     pipeline loads from the store; an edited stage body compiles afresh.
     Returns ``(run, source)``: ``run(stacked_params, microbatches)`` as
     :func:`pipeline_apply` runs it, ``source`` ``"memory"``, ``"disk"``
-    or ``"compiled"``.  ``device`` defaults to the microbatches'.
+    or ``"compiled"``.  The body is compiled for the microbatches'
+    device.
     """
     from ..core.compile_cache import (default_cache, instance_key,
                                       structural_digest)
     S, M = mesh.size(mesh.mesh_dim_names.index(axis)), microbatches.shape[0]
     local = _stage_slice(stacked_params, mesh, axis)
-    dev = device if device is not None else microbatches.device
+    dev = microbatches.device
     args = (local, microbatches[0])
     extra = ("spmd_pipeline", structural_digest(spmd_pipeline), axis, int(S),
              int(M), tuple(zip(mesh.mesh_dim_names, mesh.shape)),

@@ -59,9 +59,10 @@
 //   decode_attention.py:79-82 does.
 // * On request (a non-null lse) the merge also writes each row's
 //   log-sum-exp m + log(l) from the statistics it already holds, -inf for
-//   a row with no valid key: a cache whose sequence is split over ranks
-//   runs the kernel on each rank's rows, and the ranks' (out, lse) pairs
-//   are merged by two all-reduces (kernels/ops.py).
+//   a row with no valid key, and writes out in float32, unrounded: a
+//   cache whose sequence is split over ranks runs the kernel on each
+//   rank's rows, and the ranks' (out, lse) pairs are merged in float32
+//   and rounded once (kernels/ops.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,7 +149,7 @@ struct DecodeArgs {
   const void* k;   // [B, S_max, nkv, hd]
   const void* v;
   const int* kv_len;   // [B]
-  void* out;           // [B, nh, hd], contiguous
+  void* out;           // [B, nh, hd], contiguous; float32 when lse is set
   float* part_m;       // [B, nkv, n_split, group]; the merge's weights
   float* part_l;
   float* part_acc;     // [B, nkv, n_split, group, hd]
@@ -370,8 +371,7 @@ decode_merge_kernel(DecodeArgs a) {
   const int len = valid_len(a.kv_len, b, a.s_max);
   const int group = a.group;
   const int used = (len + kSplit - 1) / kSplit;
-  T* out = static_cast<T*>(a.out) +
-           ((long long)b * a.nkv * group + kvh * group) * HD;
+  const long long row0 = ((long long)b * a.nkv * group + kvh * group) * HD;
   const long long base = ((long long)b * a.nkv + kvh) * a.n_split;
   for (int g = warp; g < group; g += kMergeThreads / 32) {
     float m = -INFINITY;
@@ -420,11 +420,16 @@ decode_merge_kernel(DecodeArgs a) {
       acc.z += v.z;
       acc.w += v.w;
     }
-    T* po = out + g * HD + d;      // used == 0: exact zeros
-    from_f(acc.x, po);
-    from_f(acc.y, po + 1);
-    from_f(acc.z, po + 2);
-    from_f(acc.w, po + 3);
+    const long long at = row0 + g * HD + d;   // used == 0: exact zeros
+    if (a.lse != nullptr) {
+      *reinterpret_cast<float4*>(static_cast<float*>(a.out) + at) = acc;
+    } else {
+      T* po = static_cast<T*>(a.out) + at;
+      from_f(acc.x, po);
+      from_f(acc.y, po + 1);
+      from_f(acc.z, po + 2);
+      from_f(acc.w, po + 3);
+    }
   }
 }
 
@@ -468,8 +473,9 @@ extern "C" {
 // other than 64 or a split count other than ceil(s_max / 64).  dtype: 0 =
 // float32, 1 = bfloat16.  part_* are scratch of n_split splits.  lse, when
 // not null, receives each row's log-sum-exp [B, nh] in float32 (-inf for a
-// row with no valid key): what merges partial results over a cache whose
-// sequence is split across ranks.
+// row with no valid key), and out is then float32 whatever the dtype: what
+// merges partial results over a cache whose sequence is split across
+// ranks, rounding once after the merge.
 int decode_attention(const void* q, const void* k, const void* v,
                      const int* kv_len, void* out, float* part_m,
                      float* part_l, float* part_acc, float* lse,

@@ -6,8 +6,9 @@ nkv, hd]`` (the model's cache layout, read through its strides, never
 transposed) over the first ``kv_len[b]`` positions, GQA through
 ``h // (nh // nkv)``.  A row with ``kv_len == 0`` (a dead serving slot)
 gives exact zeros.  On request it also gives each row's log-sum-exp,
-which merges the results of a cache split along its sequence (a
-sequence-split mesh, :mod:`.ops`).  It is the function of the reference's
+and the output in float32 before its rounding: what merges the results
+of a cache split along its sequence (a sequence-split mesh, :mod:`.ops`)
+with one rounding, as the kernel's own splits are merged.  It is the function of the reference's
 ``decode_attention_fwd`` (``src/repro/kernels/decode_attention.py:85``,
 Pallas body ``_decode_kernel`` at ``:35``), whose layout is head-major.
 
@@ -142,26 +143,27 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgs,bskh->bkgh", p, v.float()) / \
         torch.where(l == 0.0, 1.0, l)
-    out = o.reshape(B, nh, hd).to(q.dtype)
     if not return_lse:
-        return out
+        return o.reshape(B, nh, hd).to(q.dtype)
     lse = torch.where(l > 0.0, m + torch.log(l), -math.inf)
-    return out, lse.reshape(B, nh)
+    return o.reshape(B, nh, hd), lse.reshape(B, nh)
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: torch.Tensor, *, return_lse: bool = False):
     """q: [B, nh, hd]; k/v: [B, S_max, nkv, hd]; kv_len: [B] int32 on
     q's device.  Returns [B, nh, hd] in q's dtype; with ``return_lse``
-    the pair ``(out, lse)``, ``lse`` [B, nh] float32 each row's
-    log-sum-exp of its scaled scores (-inf for a row with no valid key),
-    what merges results over pieces of one cache."""
+    the pair ``(out, lse)``, both float32 and unrounded: ``out`` [B, nh,
+    hd], ``lse`` [B, nh] each row's log-sum-exp of its scaled scores
+    (-inf for a row with no valid key), what merges results over pieces
+    of one cache."""
     if not uses_kernel("decode_attention", q, k, v, kv_len):
         _check_shapes(q, k, v, kv_len)
         return decode_attention_plain(q, k, v, kv_len, return_lse=return_lse)
     a = launch_args(q, k, v, kv_len)
     B, S, nkv, group, hd = a.dims
-    out = q.new_empty(q.shape)
+    out = q.new_empty(q.shape, dtype=torch.float32 if return_lse
+                      else q.dtype)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device) \
         if return_lse else None
     if B == 0 or S == 0:

@@ -112,8 +112,8 @@ def decode_attention_lse_op(q: Tensor, k: Tensor, v: Tensor,
 
 @decode_attention_lse_op.register_fake
 def _(q, k, v, kv_len):
-    return q.new_empty(q.shape), q.new_empty(q.shape[:2],
-                                             dtype=torch.float32)
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
 
 
 @torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
@@ -253,34 +253,36 @@ def _local_decode(q, k, v, kv_len):
         _forward_only("decode_attention", qq, kk, vv)
         ln = (ln - s0).clamp(0, kk.shape[1]).to(torch.int32)
         out, lse = decode_attention_lse_op(qq, kk, vv, ln)
-        return merge_partials(out, lse, [(k.device_mesh, d) for d in seq])
+        return merge_partials(out, lse, [(k.device_mesh, d) for d in seq],
+                              qq.dtype)
     return local_call(
         "decode_attention", run, (q, k, v, kv_len),
         ({**_rule(0, 1), "seq": None}, kv_rule, kv_rule,
          {**_rule(0, None), "seq": None}), ({**_rule(0, 1), "seq": None},))
 
 
-def merge_partials(out: torch.Tensor, lse: torch.Tensor,
-                   groups: list) -> torch.Tensor:
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, groups: list,
+                   dtype: torch.dtype) -> torch.Tensor:
     """Attention results over disjoint pieces of one cache, one piece a
     rank, merged into the result over the whole cache: ``out`` [B, nh,
-    hd] and ``lse`` [B, nh] (float32, -inf where a piece holds no valid
-    key) as the kernel gives them, ``groups`` the ``(mesh, dim)`` groups
-    the pieces are split over.  An all-reduce MAX of ``lse`` (M), then
-    all-reduce SUMs of ``w = exp(lse - M)`` and of ``w * out`` in float32
-    over each group; ``out = sum(w out) / sum(w)``, zeros for a row with
-    no valid key anywhere, as the kernel gives them."""
+    hd] and ``lse`` [B, nh] (float32 and unrounded, -inf where a piece
+    holds no valid key) as the kernel gives them with its ``lse``,
+    ``groups`` the ``(mesh, dim)`` groups the pieces are split over.  An
+    all-reduce MAX of ``lse`` (M), then all-reduce SUMs of ``w = exp(lse
+    - M)`` and of ``w * out`` in float32 over each group; ``out = sum(w
+    out) / sum(w)`` rounded once to ``dtype``, zeros for a row with no
+    valid key anywhere, as the kernel gives them."""
     import torch.distributed._functional_collectives as funcol
     m = lse
     for g in groups:
         m = funcol.all_reduce(m, "max", g)
     w = torch.where(lse == -math.inf, 0.0, torch.exp(lse - m))
-    acc = w[..., None] * out.float()
+    acc = w[..., None] * out
     for g in groups:
         w = funcol.all_reduce(w, "sum", g)
         acc = funcol.all_reduce(acc, "sum", g)
     den = torch.where(w > 0, w, 1.0)[..., None]
-    return (acc / den).to(out.dtype)
+    return (acc / den).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -293,12 +293,12 @@ def test_long_context_cell(arch, monkeypatch):
     merges = []
     real = ops.merge_partials
 
-    def counted(out, lse, groups):
+    def counted(out, lse, groups, dtype):
         merges.append((tuple(out.shape), len(groups)))
-        return real(out, lse, groups)
+        return real(out, lse, groups, dtype)
 
-    def local_only(out, lse, groups):
-        return out
+    def local_only(out, lse, groups, dtype):
+        return out.to(dtype)
     recs = []
     for merge in (counted, local_only):
         monkeypatch.setattr(ops, "merge_partials", merge)

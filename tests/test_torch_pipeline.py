@@ -205,12 +205,10 @@ res = dict(out=out.numpy(), out_sharded=out_sharded.numpy(),
 # the stage body through the compile cache (a store a rank): compiled,
 # then loaded by a second cache on the same root, then an edited body
 cache = CompileCache(root=f"{{root}}/rank{{rank}}")
-run, src1 = compile_pipeline(mesh, stage_fn, stacked, xs, cache=cache,
-                             device="cpu")
+run, src1 = compile_pipeline(mesh, stage_fn, stacked, xs, cache=cache)
 res["compiled_out"] = run(stacked, xs).numpy()
 _, src2 = compile_pipeline(mesh, stage_fn, stacked, xs,
-                           cache=CompileCache(root=f"{{root}}/rank{{rank}}"),
-                           device="cpu")
+                           cache=CompileCache(root=f"{{root}}/rank{{rank}}"))
 
 
 def stage_fn(p, x):                       # the body edited
@@ -219,7 +217,7 @@ def stage_fn(p, x):                       # the body edited
 
 run3, src3 = compile_pipeline(
     mesh, stage_fn, stacked, xs,
-    cache=CompileCache(root=f"{{root}}/rank{{rank}}"), device="cpu")
+    cache=CompileCache(root=f"{{root}}/rank{{rank}}"))
 res["sources"] = [src1, src2, src3]
 res["edited_out"] = run3(stacked, xs).numpy()
 res["edited_eager"] = pipeline_apply(mesh, stage_fn, stacked, xs,

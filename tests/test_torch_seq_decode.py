@@ -87,8 +87,10 @@ def test_c_entry_takes_the_lse_pointer():
 @pytest.mark.parametrize("group", [1, 2, 8])
 def test_plain_lse_matches_float64(group):
     """``decode_attention_plain(..., return_lse=True)``: the output is the
-    plain output, and ``lse`` is the float64 log-sum-exp of each row's
-    scaled scores over its valid keys, -inf where there is none."""
+    plain output before its rounding (float32; rounded to bfloat16 it is
+    the bfloat16 plain output bit for bit), and ``lse`` is the float64
+    log-sum-exp of each row's scaled scores over its valid keys, -inf
+    where there is none."""
     rng = np.random.default_rng(group)
     B, S, nkv, hd = 5, 70, 2, 64
     nh = nkv * group
@@ -101,6 +103,10 @@ def test_plain_lse_matches_float64(group):
     assert torch.equal(out, decode_attention_plain(*args))
     got = decode_attention_fwd(*args, return_lse=True)
     assert torch.equal(got[0], out) and torch.equal(got[1], lse)
+    half = [a.bfloat16() for a in args[:3]] + [args[3]]
+    out16, _ = decode_attention_plain(*half, return_lse=True)
+    assert out16.dtype == torch.float32
+    assert torch.equal(out16.bfloat16(), decode_attention_plain(*half))
     s = np.einsum("bkgh,bskh->bkgs", q.reshape(B, nkv, group, hd)
                   .astype(np.float64), k.astype(np.float64)) / math.sqrt(hd)
     for b in range(B):
@@ -117,18 +123,20 @@ def test_plain_lse_matches_float64(group):
             atol=LSE_TOL * max(1, abs(want).max()))
 
 
-def test_pieces_merge_to_the_whole_cache():
-    """Cut one cache along its sequence into 2 and 4 pieces, run the plain
-    version on each with its local lengths and merge the pieces as
-    ``merge_partials`` does over ranks (here by hand, one process): the
-    whole cache's output."""
+def _merged_pieces(dtype):
+    """One cache cut along its sequence into 2, 4 and 16 pieces, the plain
+    version run on each with its local lengths and the pieces merged as
+    ``merge_partials`` merges them over ranks (here by hand, one
+    process), rounded once to ``dtype``: ``(n, merged, whole)`` a cut,
+    ``whole`` the whole cache's output."""
     rng = np.random.default_rng(3)
     B, S, nh, nkv, hd = 3, 64, 4, 2, 64
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dtype)
                for s in ((B, nh, hd), (B, S, nkv, hd), (B, S, nkv, hd)))
     lens = torch.tensor([0, 37, 64], dtype=torch.int32)
     whole = decode_attention_plain(q, k, v, lens)
-    for n in (2, 4):
+    for n in (2, 4, 16):
         w = S // n
         parts = [decode_attention_plain(
             q, k[:, i * w:(i + 1) * w], v[:, i * w:(i + 1) * w],
@@ -139,8 +147,29 @@ def test_pieces_merge_to_the_whole_cache():
               for p in parts]
         den = sum(ws)
         num = sum(x[..., None] * p[0] for x, p in zip(ws, parts))
-        got = num / torch.where(den > 0, den, 1.0)[..., None]
+        yield n, (num / torch.where(den > 0, den, 1.0)[..., None]).to(
+            dtype), whole
+
+
+def test_pieces_merge_to_the_whole_cache():
+    """Float32 pieces merged: the whole cache's output within 1e-6, exact
+    zeros for the row with no valid key."""
+    for n, got, whole in _merged_pieces(torch.float32):
         torch.testing.assert_close(got, whole, rtol=0, atol=1e-6)
+        assert torch.all(got[0] == 0)
+
+
+def test_bf16_pieces_merge_with_one_rounding():
+    """Bfloat16 inputs: the pieces come out float32 and unrounded, so the
+    merge is rounded once, as the whole cache's output is.  The two differ
+    by at most one bfloat16 step (2**-7 of the magnitude), where float32
+    sums taken in another order fall on either side of a rounding point;
+    a merge of pieces rounded to bfloat16 first would not hold to it."""
+    for n, got, whole in _merged_pieces(torch.bfloat16):
+        mag = torch.maximum(got.float().abs(), whole.float().abs())
+        step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126)))
+                          - 7)
+        assert bool(((got.float() - whole.float()).abs() <= step).all()), n
         assert torch.all(got[0] == 0)
 
 
@@ -243,9 +272,9 @@ merges = []
 real = ops.merge_partials
 
 
-def counted(out, lse, groups):
+def counted(out, lse, groups, dtype):
     merges.append(len(groups))
-    return real(out, lse, groups)
+    return real(out, lse, groups, dtype)
 ops.merge_partials = counted
 res = {{}}
 for name, (arch, layers, two_d) in cases.items():
@@ -372,12 +401,13 @@ def test_production_long_context_cell_merges():
     cfg = get_config("zamba2-1.2b")
     merges, real = [], ops.merge_partials
 
-    def counted(out, lse, groups):
+    def counted(out, lse, groups, dtype):
         merges.append(tuple(out.shape))
-        return real(out, lse, groups)
+        return real(out, lse, groups, dtype)
     recs = []
     try:
-        for merge in (counted, lambda out, lse, groups: out):
+        for merge in (counted, lambda out, lse, groups, dtype:
+                      out.to(dtype)):
             ops.merge_partials = merge
             with fake_world(256):
                 recs.append(run_cell(cfg, SHAPES["long_500k"],
