@@ -7,8 +7,8 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --only 8,24,25`` builds the kernels and runs
-only those of phases 7 (its checks), 17, 8, 24, 25, 26, 12, 27 and 28
-named: a development run, with no kernels or result line.)
+only those of phases 7 (its checks), 17, 8, 24, 25, 26, 12, 27, 28, 29
+and 30 named: a development run, with no kernels or result line.)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -196,7 +196,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    alone.
 16. recovery — each of phase 4's five graphs at phase 4's size through
    ``repro_torch.ft.run_supervised`` on the card (``RECOVERY``: gemm every
-   8 sweeps, gaussian 256, page_rank 4, gemm async 8, page_rank async
+   8 sweeps, gaussian 256, page_rank 4, gemm async 16, page_rank async
    2048), crashed once between two chunks: outputs bit-identical to an
    uninterrupted ``CompiledEngine`` run, the chunks' sweeps equal to its
    sweeps and to the abstract schedule's, the sweep graph captured once
@@ -215,7 +215,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    code), each store under a temporary ``build/codegen_*``, deleted.
    First the ``CODEGEN_WORKERS`` compile processes start, one compile
    each (their one-time start-up, timed apart); they stay up for phases
-   24-25.
+   24-25.  Their start-up runs in a thread started before phase 11, on
+   the host's cores beside phases 11-16 (the script's time limit); it
+   loads its packages only once phase 17 opens its gate, so no CUDA
+   module load lands inside phase 16's graph captures.
    Gaussian's chain at phase 4's width (``torch_stages``, 6 instances of
    3 definitions): monolithic 6 compiles; hierarchical cold on an empty
    root 3; warm from a fresh ``python`` process on that root 0, every
@@ -223,9 +226,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    stencil's weights with ``prev`` 1 compiled, 2 reused; the program
    within ``GAUSSIAN_TOL`` of the eager stages on the card and of
    ``_stencil_ref`` on the host (in the fresh process too).  The codegen
-   benchmark's cache graph (``CODEGEN_GRAPH``: 515 instances of 15
-   definitions): cold 15 compiles, warm 15 disk hits, incremental 1
-   compiled and 14 reused, each definition's output against eager.  cnn
+   benchmark's cache graph (``CODEGEN_GRAPH``: 515 instances of 8
+   definitions, 15 in the benchmark): cold 8 compiles, warm 8 disk hits,
+   incremental 1 compiled and 7 reused, each definition's output against
+   eager.  cnn
    (17 instances, 2 definitions) and gcn (9, 3; a 64 MiB adjacency)
    through ``compile_app``, within ``APP_TOL`` of their ``ref``, and a
    rerun with re-created closures compiling nothing.  Gaussian's
@@ -280,7 +284,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    after prefill, within ``LOGIT_REL_TOL`` of their largest magnitude,
    greedy tokens equal, the card's launches those of the path.
 24. serving compiled — Qwen3-0.6B at full width cut to
-   ``COMPILED_LAYERS`` (8) layers (bf16, phase 8's seed, 8 slots of
+   ``COMPILED_LAYERS`` (4) layers (bf16, phase 8's seed, 8 slots of
    2048) through the serving engine's compiled
    steps: ``warmup(cache=...)`` into an empty compile cache under a
    temporary ``build/serve_cache_*`` (deleted) at batch sizes 1, 2, 4
@@ -291,16 +295,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernels run inside the packages as operators (``repro_torch::
    flash_attention_fwd`` ...), each launch counted by its wrapper, which
    the package calls back.  Phase 8's 16 requests through the compiled
-   steps: every request ``max_new`` tokens, flash 28 launches a prefill
-   call, flash-decode 28 a decode step; tok/s and ms a step.  Then the warm
-   half, ``chip_smoke.py --warm-serve`` in a fresh process on the same
-   store, warming up as ``launch.serve`` does (``default_cache()``): no
-   executable compiled, its warmup seconds, one wave of the requests
-   (its tokens against the cold process's, printed), the decode step
-   alone on that wave under the profiler (28 ``decode_partial_kernel``
-   a step, kernels and device ms a step) and one compiled prefill (28
-   ``flash_wgmma_kernel``): the main process's profiler, after phases
-   10-15's sessions, missed 3 kernel records a session.
+   steps: every request ``max_new`` tokens, flash once a layer a prefill
+   call, flash-decode once a layer a decode step; tok/s and ms a step.
+   Then the warm half, ``chip_smoke.py --warm-serve`` in a fresh process
+   on the same store, warming up as ``launch.serve`` does
+   (``default_cache()``): no executable compiled, its warmup seconds,
+   one wave of the requests (its tokens against the cold process's,
+   printed), the decode step alone on that wave under the profiler (a
+   ``decode_partial_kernel`` a layer a step, kernels and device ms a
+   step) and one compiled prefill (a ``flash_wgmma_kernel`` a layer):
+   the main process's profiler, after phases 10-15's sessions, missed 3
+   kernel records a session.
 25. compiled card vs CPU — Qwen3-0.6B at full width cut to 2 layers,
    float32, kv_quant off and on: the compiled prefill, slot write and
    decode step against the same graphs run eagerly on the card and on
@@ -366,6 +371,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every launch ``flash_wgmma_kernel``.  Times: the mean's, and a
    forward's of the pipeline and of the direct loop, each the median of
    ``MESH_TURNS`` calls after an untimed one.
+29. the families trained at full width (``FAMILY_TRAIN``; bf16, random
+   weights from seed 0, batches of ``make_pipeline(vocab, S, B, seed=0)``,
+   AdamW, remat, ``use_kernel``): granite-moe-1b-a400m (4 x 1024, 24
+   layers) through ``make_train_step``, its first step's gradients taken
+   twice from the same state first, bitwise equal; zamba2-1.2b (2 x 2048,
+   38 layers) through ``launch.train --use-kernel`` into a checkpoint
+   directory with a metrics file, then the same command again, which must
+   restore step 3 and run no step; whisper-small (8 x 448, 12 + 12
+   layers) with a batch's ``frames`` [8, 1500, 768] and phi-3-vision-4.2b
+   (2 x 2048, cut to 16 layers) with ``patches`` [2, 576, 1024], both
+   drawn from ``default_rng(0)``, through ``make_train_step``; 3 steps
+   each.  Gates: finite losses, grad norms and parameters, the parameter
+   count from the leaves (``FAMILY_TRAIN_PARAMS``), the launches exactly
+   ``_train_launches`` (flash 2 x 24, 2 x 6 (+ SSD 2 x 38), 12 + 2 x 2 x
+   12, 2 x 16 a step), then one more step under the profiler with host
+   and device activity: every flash launch ``flash_wgmma_kernel``, SSD
+   launches equal to the counter.  Printed: ms a step (median after step
+   1), tokens/s, peak GB, the profiled step's device-busy ms, the kernels'
+   device ms and the device ms of the torch-ops backwards of flash and of
+   the SSD scan (``BACKWARD_RANGES``), each as a share of the step.
+30. the families' float32 step against the CPU (``FAMILY_TRAIN_CPU``, full
+   width: granite, whisper (2 + 2, 1500 frames) and phi-3 (576 patches)
+   at 2 layers, zamba2 at 6 over 2 x 512): the same weights
+   (``init_params(cfg, 1)`` on the CPU) and batch; the loss, every
+   gradient leaf and one AdamW step within ``TRAIN_CPU_TOL``, the card's
+   launches those of one step.  The CPU halves run in a child process
+   started before phase 18 (``family_cpu_child``).  The MoE's expert
+   choices are compared first (``_route_diffs``; the card's recompute
+   under remat must choose as its forward), and the CPU's gradients are
+   taken under the card's choices (``_PinnedRouter``).
 
 Each phase's seconds are printed.
 The last four lines of standard output are the ``nvidia-smi`` line, the
@@ -2383,7 +2418,8 @@ def _device_times(prof) -> tuple[float, dict]:
     return total, per
 
 
-def _profiled(run, check, where: str):
+def _profiled(run, check, where: str, activities=None,
+              warm_first: bool = False):
     """``run()`` under ``torch.profiler`` (device activity), then
     ``check(prof, out)`` on the profile and what ``run`` returned, which
     raises AssertionError unless the profile shows every launch the run
@@ -2394,12 +2430,13 @@ def _profiled(run, check, where: str):
     taken again on a new run, up to ``PROFILE_TRIES`` in all, and the
     last failure fails.  A profile taken again is the second step of a
     profiler schedule whose first step, a warm-up with the profiler on
-    and its records dropped, runs the same work once more.  Returns
-    ``(prof, out, check's result)``."""
+    and its records dropped, runs the same work once more (the first
+    profile too with ``warm_first``).  ``activities`` default to the
+    device's alone.  Returns ``(prof, out, check's result)``."""
     from torch.profiler import ProfilerActivity, profile, schedule
     for attempt in range(1, PROFILE_TRIES + 1):
-        warm = attempt > 1
-        with profile(activities=[ProfilerActivity.CUDA],
+        warm = attempt > 1 or warm_first
+        with profile(activities=activities or [ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
                      if warm else None) as prof:
             if warm:
@@ -3916,7 +3953,7 @@ RECOVERY = [
      {"chunk": 3}),
     ("page_rank", "page_rank", "build_step", FULL["page_rank"], 4,
      {"chunk": 2}),
-    ("gemm_async", "gemm", "build_step_async", FULL_ASYNC["gemm"], 8,
+    ("gemm_async", "gemm", "build_step_async", FULL_ASYNC["gemm"], 16,
      {"chunk": 2}),
     ("page_rank_async", "page_rank", "build_step_async",
      FULL_ASYNC["page_rank"], 2048, {"chunk": 3}),
@@ -4131,8 +4168,10 @@ def recovery_phase() -> dict:
 # gaussian's stage chain at phase 4's width (6 instances of 3 definitions)
 CODEGEN_GAUSSIAN = dict(h=2048, w=2048, iters=4)
 # the codegen benchmark's cache graph (benchmarks/codegen_time.py
-# cache_bench): 515 instances of 15 definitions on a 96 x 96 input
-CODEGEN_GRAPH = dict(n_instances=515, n_defs=15, dim=96)
+# cache_bench: 515 instances of 15 definitions on a 96 x 96 input), cut
+# to 8 definitions since the families' training was added (the script's
+# time limit; 15 compiled cold in 37.7-64.4 s)
+CODEGEN_GRAPH = dict(n_instances=515, n_defs=8, dim=96)
 # compile processes of a hierarchical compile: a process's first compile
 # took 134-136 s with 8 starting at once on the H100 host's 8 cores and
 # 92-103 s with 4 (PERF.md §6), so 4 keep the phase near 5 minutes
@@ -4308,9 +4347,9 @@ def _codegen_defs(n_defs: int, edit: int = -1) -> list:
 
 def _codegen_cache_graph(tmp: Path) -> dict:
     """The codegen benchmark's cold / warm / incremental cycle on the card:
-    15 compiles, then 15 disk hits after the memory level is dropped and
-    the closures re-created, then one edited definition compiled with the
-    other 14 reused from the warm report."""
+    a compile a definition, then a disk hit each after the memory level is
+    dropped and the closures re-created, then one edited definition
+    compiled with the others reused from the warm report."""
     from repro_torch.core.compile_cache import CompileCache
     from repro_torch.core.hier_compile import StageInstance, compile_stages
     n, k, dim = (CODEGEN_GRAPH[f] for f in ("n_instances", "n_defs", "dim"))
@@ -4438,38 +4477,97 @@ def _codegen_invoke(tmp: Path) -> dict:
     return out
 
 
-def _codegen_workers(tmp: Path) -> dict:
+def _codegen_workers(x: torch.Tensor):
     """Start the ``CODEGEN_WORKERS`` package-compile processes with one
-    compile each (distinct definitions, no store): their one-time start-up
-    (imports, the toolchain's probes) is measured here, apart from the
-    modes' compiles, which then run in warm processes."""
+    compile each (distinct definitions of ``x``'s shape, no store): their
+    one-time start-up (imports, the toolchain's probes) is measured here,
+    apart from the modes' compiles, which then run in warm processes.
+    Returns the compile's report."""
     from repro_torch.core.hier_compile import StageInstance, compile_stages
-    x = torch.ones((8, 8), device="cuda")
 
     def make(c):
         def stage(t):
             return t * c
         return stage
 
-    rep = compile_stages([StageInstance(fn=make(float(i)), args=(x,))
-                          for i in range(CODEGEN_WORKERS)], cache=False,
-                         max_workers=CODEGEN_WORKERS, device="cuda")
+    return compile_stages([StageInstance(fn=make(float(i)), args=(x,))
+                           for i in range(CODEGEN_WORKERS)], cache=False,
+                          max_workers=CODEGEN_WORKERS, device="cuda")
+
+
+_codegen_start: dict = {}
+
+
+def start_codegen_workers() -> None:
+    """Run :func:`_codegen_workers` in a thread, once, so the compile
+    processes' one-time start-up runs on the host's cores while the card
+    works through phases 11-16.  The thread loads no package before phase
+    17 opens its gate (a load is a CUDA module load, which must not land
+    inside phase 16's CUDA-graph captures): ``compile_cache.Executable``
+    waits for it in that thread, and the wait is kept apart."""
+    import threading
+    from repro_torch.core import compile_cache as cc
+    if "thread" in _codegen_start:
+        return
+    go, waits, plain = threading.Event(), [], cc.Executable
+
+    class Gated(plain):
+        def __init__(self, *a, **kw):
+            if threading.current_thread() is _codegen_start["thread"]:
+                t0 = time.perf_counter()
+                go.wait()
+                waits.append(time.perf_counter() - t0)
+            super().__init__(*a, **kw)
+
+    x = torch.ones((8, 8), device="cuda")
+
+    def run():
+        try:
+            _codegen_start["rep"] = _codegen_workers(x)
+        except Exception as e:              # noqa: BLE001 - phase 17 raises
+            _codegen_start["error"] = e
+
+    cc.Executable = Gated
+    _codegen_start.update(
+        go=go, waits=waits, thread=threading.Thread(target=run, daemon=True),
+        restore=lambda: setattr(cc, "Executable", plain))
+    _codegen_start["thread"].start()
+
+
+def _codegen_started(_tmp: Path) -> dict:
+    """Phase 17's first part: the compile processes' start-up, as
+    :func:`start_codegen_workers` ran it (started now if it was not): its
+    report, whose seconds leave out the wait at the gate, and this
+    phase's wait for it (``waited_s``)."""
+    start_codegen_workers()
+    t0 = time.perf_counter()
+    _codegen_start["go"].set()
+    _codegen_start["thread"].join()
+    _codegen_start["restore"]()
+    if "error" in _codegen_start:
+        raise _codegen_start["error"]
+    rep = _codegen_start["rep"]
+    gate_s = sum(_codegen_start["waits"])
+    rep.wall_s -= gate_s
     return dict(_expect("worker start-up", rep, n_compiled=CODEGEN_WORKERS),
-                per_def=_per_def(rep))
+                per_def=_per_def(rep), gate_s=gate_s,
+                waited_s=time.perf_counter() - t0)
 
 
 def codegen_phase() -> dict:
     """Phase 17: hierarchical code generation on the card (AOTInductor
     packages through the compile cache, roots under a temporary
     ``build/codegen_*``, deleted).  Its compile processes stay up for
-    phases 24-25, which stop them: their start-up is paid once."""
+    phases 24-25, which stop them: their start-up is paid once, in a
+    thread started before phase 11 (``workers``: ``phase_s`` is the wait
+    for it here, ``wall_s`` its own seconds less the wait at its gate)."""
     import shutil
     import tempfile
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="codegen_", dir=ROOT / "build"))
     out = {}
     try:
-        for name, fn in (("workers", _codegen_workers),
+        for name, fn in (("workers", _codegen_started),
                          ("gaussian", _codegen_gaussian),
                          ("cache_graph", _codegen_cache_graph),
                          ("apps", _codegen_apps),
@@ -4772,8 +4870,9 @@ COMPILED_BATCH_SIZES = (1, 2, 4, 8)
 # phase 27 added): its cold warmup exports and compiles the
 # model's graphs, whose seconds scale with the layers (a 28-layer run on
 # a slow host: 72 s of export and 151 s of compile of a 219 s warmup,
-# the script 1322 s); phase 8 serves all 28
-COMPILED_LAYERS = 8
+# the script 1322 s; 8 layers, 82.0 s of warmup, until the families'
+# training was added); phase 8 serves all 28
+COMPILED_LAYERS = 4
 COMPILED_STEPS = 16         # decode steps profiled alone
 # phase 25: Qwen3 at 2 float32 layers, 4 ragged prompts in a 512 bucket,
 # 8 decode steps; mamba2 at 2 float32 layers per slot, prompts of
@@ -5579,11 +5678,675 @@ def owner_mask_checks() -> list:
     return [c]
 
 
+# ---------------------------------------------------------------------------
+# phases 29-30: the moe, hybrid, audio and vlm families trained at full
+# width, and each family's float32 step against the CPU
+# ---------------------------------------------------------------------------
+
+# phase 29, (batch, seq, steps) at published widths, bf16, AdamW, remat,
+# use_kernel; phi-3-vision cut 32 -> 16 layers as phase 19 serves it, its
+# first 576 positions patches; whisper's decoder at its published context
+# of 448 over 1500 frames; zamba2 through launch.train
+FAMILY_TRAIN = {
+    "granite-moe-1b-a400m": dict(batch=4, seq=1024, steps=3),
+    "zamba2-1.2b": dict(batch=2, seq=2048, steps=3),
+    "whisper-small": dict(batch=8, seq=448, steps=3),
+    "phi-3-vision-4.2b": dict(batch=2, seq=2048, steps=3, layers=16),
+}
+# parameters from the leaves at those depths (the full-depth counts are
+# pinned in tests/test_torch_moe_vlm.py and test_torch_recurrent_audio.py)
+FAMILY_TRAIN_PARAMS = {"granite-moe-1b-a400m": 1_334_628_352,
+                       "zamba2-1.2b": 1_170_473_856,
+                       "whisper-small": 279_184_128,
+                       "phi-3-vision-4.2b": 2_012_187_648}
+# phase 30, (layers, batch, seq) at full width and float32: zamba2 at 6
+# layers, so the shared block is applied once (after layer 5), over two
+# chunks of 256; whisper with as many encoder layers over its 1500
+# frames; phi-3's 576 patches and 448 text positions.  The CPU halves run
+# in one child process started before phase 18, on two of the host's
+# cores, so it is done before phase 29, whose steps' host side it would
+# share the cores with, the MoE's first: the CPU's
+# own expert choices are compared with the card's, and its gradients are
+# taken under the card's choices (_PinnedRouter), which the child waits
+# for.
+FAMILY_TRAIN_CPU = {
+    "granite-moe-1b-a400m": dict(layers=2, batch=2, seq=512),
+    "zamba2-1.2b": dict(layers=6, batch=2, seq=512),
+    "whisper-small": dict(layers=2, batch=2, seq=448),
+    "phi-3-vision-4.2b": dict(layers=2, batch=2, seq=1024),
+}
+FAMILY_CPU_THREADS = 2      # the child's torch threads (8 host cores)
+FAMILY_CPU_WAIT_S = 900     # the longest phase 30 waits for a CPU half
+FAMILY_CHILD_WAIT_S = 3600  # the longest the child waits for the card's
+                            # expert choices (phase 30 comes last)
+# profiler ranges around the two torch-ops backwards in phase 29's
+# profiled step (chip_smoke's own wrappers, _BackwardRanges)
+BACKWARD_RANGES = {"flash": "chip_smoke.flash_backward",
+                   "ssd": "chip_smoke.ssd_backward"}
+
+
+def _family_train_cfg(arch: str):
+    """``arch`` as phase 29 trains it: full width, FAMILY_TRAIN's depth
+    where it names one."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=FAMILY_TRAIN[arch].get(
+        "layers", cfg.n_layers))
+
+
+def _family_cpu_cfg(arch: str):
+    """``arch`` as phase 30 compares it: full width, float32, cut to
+    FAMILY_TRAIN_CPU's layers (whisper's encoder too)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    n = FAMILY_TRAIN_CPU[arch]["layers"]
+    kw = dict(n_layers=n, dtype="float32")
+    if cfg.encdec is not None:
+        kw["encdec"] = dataclasses.replace(cfg.encdec, n_encoder_layers=n)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _train_launches(cfg, steps: int) -> dict:
+    """The kernels' launches in ``steps`` train steps (remat on), from
+    the forward's structure.  Remat runs each decoder layer's forward
+    twice, once in the forward and once as the backward's recompute, and
+    both backwards are torch ops (no launch):
+
+    * moe, vlm, dense: flash once a layer, so 2 x layers a step;
+    * hybrid: the SSD scan once a Mamba2 layer (2 x layers) and flash
+      once a shared-block application, after each layer ``i`` with ``i %
+      attn_period == attn_period - 1`` (zamba2-1.2b: 6 of 38, 2 x 6);
+    * audio: flash once an encoder layer, which runs once outside remat,
+      and twice a decoder layer (self- and cross-attention), each under
+      remat: encoder layers + 2 x 2 x layers (whisper-small: 12 + 48).
+    """
+    L = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        p = cfg.hybrid.attn_period if cfg.hybrid is not None else 0
+        shared = sum(1 for i in range(L) if p and i % p == p - 1)
+        out = {"ssd_scan": 2 * L * steps}
+        if shared:
+            out["flash_attention"] = 2 * shared * steps
+        return out
+    if cfg.family == "audio":
+        return {"flash_attention":
+                (cfg.encdec.n_encoder_layers + 2 * 2 * L) * steps}
+    return {"flash_attention": 2 * L * steps}
+
+
+def _extra_inputs(cfg, B: int, rng, dev, dtype) -> dict:
+    """The vlm's ``patches`` or the audio family's ``frames`` of a batch
+    of ``B``, standard normal from the numpy generator ``rng``, in
+    ``dtype`` on ``dev``; nothing for the other families."""
+    if cfg.vlm is not None:
+        shape, key = (B, cfg.vlm.n_patches, cfg.vlm.d_patch), "patches"
+    elif cfg.encdec is not None:
+        shape, key = (B, cfg.encdec.n_audio_ctx, cfg.d_model), "frames"
+    else:
+        return {}
+    return {key: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype)}
+
+
+def _family_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """A batch of ``make_pipeline(cfg.vocab, S, B, seed)``'s first draw on
+    ``dev``, with the vlm's ``patches`` or the audio family's ``frames``
+    drawn from ``numpy.random.default_rng(seed)`` in the model's dtype."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.lm import torch_dtype
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             make_pipeline(cfg.vocab, S, B, seed=seed).next_batch().items()}
+    return {**batch, **_extra_inputs(cfg, B, np.random.default_rng(seed),
+                                     dev, torch_dtype(cfg))}
+
+
+def _loss_grads(cfg, params: dict, batch: dict) -> tuple:
+    """The training loss (remat, use_kernel) and its gradient tree."""
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves, tree_map
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss = lm.loss_fn(live, cfg, batch, remat=True, use_kernel=True)
+    grads = iter(torch.autograd.grad(loss, leaves(live)))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+class _PinnedRouter:
+    """Gives the MoE router (``layers.moe_router``) of a run the expert
+    choices ``topes[layer]`` of another: a layer is told by its router
+    weight's storage, numbered in the order the forward first calls it,
+    so both calls a layer makes under remat (the forward and the
+    backward's recompute) get that layer's choices.  The probabilities,
+    the top-k weights (the pinned experts' probabilities renormalised)
+    and the load-balancing term are this run's own, from those choices.
+    ``own`` collects this run's own choices a call."""
+
+    def __init__(self, topes: list):
+        from repro_torch.models import layers
+        self.layers, self.router = layers, layers.moe_router
+        self.topes, self.seen, self.own = topes, {}, []
+
+        def router(p, cfg, x):
+            probs, _, own, _ = self.router(p, cfg, x)
+            i = self.seen.setdefault(p["router"].data_ptr(), len(self.seen))
+            tope = self.topes[i].to(own.device)
+            topw = probs.gather(-1, tope)
+            topw = topw / topw.sum(dim=-1, keepdim=True)
+            E = cfg.moe.n_experts
+            ce = torch.nn.functional.one_hot(tope, E).float().sum(1).mean(0)
+            aux = E * (probs.mean(dim=0) * ce).sum() * \
+                cfg.moe.load_balance_coef
+            self.own.append(own.cpu())
+            return probs, topw, tope, aux
+        layers.moe_router = router
+
+    def restore(self) -> None:
+        self.layers.moe_router = self.router
+
+
+def _cpu_half(arch: str, step: bool = True, pinned: list | None = None
+              ) -> dict:
+    """Phase 30's CPU half of ``arch``: the loss, every gradient leaf and
+    one AdamW step from ``lm.init_params(cfg, 1)`` on the CPU (plain
+    versions), or, with ``step=False``, only the expert choices of a
+    forward."""
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import named_leaves, tree_map
+    cfg = _family_cpu_cfg(arch)
+    c = FAMILY_TRAIN_CPU[arch]
+    params = lm.init_params(cfg, 1, device="cpu")
+    batch = _family_batch(cfg, c["batch"], c["seq"], 1, "cpu")
+    if not step:
+        routes = _RouteLog()
+        try:
+            with torch.no_grad():
+                lm.loss_fn(params, cfg, batch, use_kernel=True)
+        finally:
+            routes.restore()
+        return dict(routes=routes.take())
+    pin = _PinnedRouter(pinned) if pinned is not None else None
+    try:
+        loss, grads = _loss_grads(cfg, params, batch)
+    finally:
+        if pin is not None:
+            pin.restore()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-5)
+    new_p, _, _ = adamw_update(grads, adamw_init(params, opt), params, opt)
+    return dict(loss=float(loss), grads=dict(named_leaves(grads)),
+                step=dict(named_leaves(tree_map(lambda a, b: a - b, new_p,
+                                                params))),
+                own_routes=None if pin is None else pin.own)
+
+
+def _save_atomic(obj, path: Path) -> None:
+    tmp = path.with_suffix(".part")
+    torch.save(obj, tmp)
+    tmp.rename(path)
+
+
+def _wait_file(path: Path, proc=None, timeout: float = FAMILY_CPU_WAIT_S):
+    """Wait for ``path`` to appear (written whole by ``_save_atomic``);
+    raise if ``proc`` exits first or the wait times out."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        if proc is not None and proc.poll() is not None and \
+                not path.exists():
+            err = proc.stderr.read() if proc.stderr else ""
+            raise AssertionError(f"train CPU child exited {proc.returncode} "
+                                 f"before writing {path.name}:\n"
+                                 f"{err[-3000:]}")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{path.name}: not written in {timeout} s")
+        time.sleep(0.2)
+
+
+def family_cpu_child(out_dir: str) -> None:
+    """The child process of phase 30 (``FAMILY_CPU_CHILD``): the MoE's own
+    expert choices, then the CPU halves of the families that need nothing
+    from the card, then the MoE's under the card's choices (written by
+    phase 30 as ``<arch>.card_routes.pt``); each result written to
+    ``<arch>.cpu.pt`` in ``out_dir``."""
+    torch.set_num_threads(FAMILY_CPU_THREADS)
+    out = Path(out_dir)
+    moe = [a for a in FAMILY_TRAIN_CPU
+           if _family_cpu_cfg(a).moe is not None]
+    for arch in moe:
+        _save_atomic(_cpu_half(arch, step=False),
+                     out / f"{arch}.cpu_routes.pt")
+    for arch in FAMILY_TRAIN_CPU:
+        if arch not in moe:
+            _save_atomic(_cpu_half(arch), out / f"{arch}.cpu.pt")
+    for arch in moe:
+        path = out / f"{arch}.card_routes.pt"
+        _wait_file(path, timeout=FAMILY_CHILD_WAIT_S)
+        _save_atomic(_cpu_half(arch, pinned=torch.load(path)),
+                     out / f"{arch}.cpu.pt")
+
+
+FAMILY_CPU_CHILD = """
+import sys
+import chip_smoke
+chip_smoke.family_cpu_child(sys.argv[1])
+"""
+_family_cpu: dict = {}
+
+
+def _stop_family_cpu() -> None:
+    import shutil
+    proc = _family_cpu.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+    if "dir" in _family_cpu:
+        shutil.rmtree(_family_cpu["dir"], ignore_errors=True)
+
+
+def start_family_cpu() -> None:
+    """Start phase 30's CPU child (once), off the card; a child still
+    running when the script exits is stopped and its files removed."""
+    import tempfile
+    if "proc" not in _family_cpu:
+        atexit.register(_stop_family_cpu)
+        _family_cpu["dir"] = Path(tempfile.mkdtemp(prefix="train_cpu_"))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.pathsep.join([str(ROOT),
+                                               str(ROOT / "src")]))
+        _family_cpu["proc"] = subprocess.Popen(
+            [sys.executable, "-c", FAMILY_CPU_CHILD,
+             str(_family_cpu["dir"])], stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, env=env)
+
+
+class _BackwardRanges:
+    """Wraps the two torch-ops backwards, ``ops.flash_backward`` and
+    ``ops._SSD.backward``, in a profiler range each
+    (``BACKWARD_RANGES``), inside a ``with`` block."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.flash, self.ssd = ops.flash_backward, ops._SSD.__dict__[
+            "backward"]
+        flash, ssd = self.flash, self.ssd.__func__
+
+        def flash_backward(*a, **kw):
+            with record_function(BACKWARD_RANGES["flash"]):
+                return flash(*a, **kw)
+
+        def ssd_backward(ctx, *a):
+            with record_function(BACKWARD_RANGES["ssd"]):
+                return ssd(ctx, *a)
+        ops.flash_backward = flash_backward
+        ops._SSD.backward = staticmethod(ssd_backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_backward = self.flash
+        self.ops._SSD.backward = self.ssd
+
+
+def _train_profile_times(prof) -> dict:
+    """A profile with host and device activity of one train step: the
+    device's busy us (every device record but the ranges' own spans), each
+    kernel's (launches, us) by the names ``ATTN_KERNELS`` and
+    ``SSD_KERNELS`` give (a launch is one of the first name), and the
+    device us under each of ``BACKWARD_RANGES`` (the kernels of the torch
+    ops launched inside it)."""
+    from torch.autograd import DeviceType
+    names = {**ATTN_KERNELS, "ssd_scan": SSD_KERNELS}
+    ranges = {v: 0.0 for v in BACKWARD_RANGES.values()}
+    busy, kern = 0.0, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            # a range's (and the profiler schedule's step's) span on the
+            # device timeline is no device work of its own
+            if getattr(ev, "is_user_annotation", False) or \
+                    ev.name in ranges or ev.name.startswith("ProfilerStep"):
+                continue
+            us = float(ev.time_range.elapsed_us())
+            busy += us
+            for op, ks in names.items():
+                for i, nm in enumerate(ks):
+                    if nm in ev.name:
+                        n, t = kern.get(op, (0, 0.0))
+                        kern[op] = (n + (i == 0), t + us)
+        elif ev.name in ranges:
+            ranges[ev.name] += float(ev.device_time_total)
+    return dict(busy_us=busy, kern=kern, ranges=ranges)
+
+
+def _train_cli_run(arch: str, cfg, B: int, S: int, steps: int) -> dict:
+    """zamba2's counted run: ``launch.train --use-kernel`` into a
+    checkpoint directory with a metrics file, then the same command
+    again, which must restore the checkpoint and run no step (it says so
+    on its standard output, and the metrics file keeps its rows)."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.launch.train import train
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, mpath = str(Path(tmp) / "ckpt"), Path(tmp) / "metrics.jsonl"
+        args = ["--arch", arch, "--use-kernel", "--batch", str(B), "--seq",
+                str(S), "--steps", str(steps), "--ckpt-dir", ck,
+                "--metrics", str(mpath), "--log-every", "1"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows = [json.loads(x) for x in mpath.read_text().splitlines()]
+        if rc != 0 or len(rows) != steps:
+            raise AssertionError(f"train {arch}: rc {rc}, {len(rows)} metric "
+                                 f"rows (expected 0 and {steps})")
+        reset_launches()
+        out = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc2 = train(args)
+        rerun_s = time.perf_counter() - t1
+        log(out.getvalue().rstrip())
+        again = launch_counts()
+        n_rows = len(mpath.read_text().splitlines())
+        if rc2 != 0 or again or n_rows != steps or \
+                f"resumed from checkpoint step {steps}" not in out.getvalue():
+            raise AssertionError(f"train {arch}: rerun rc {rc2}, launches "
+                                 f"{again}, {n_rows} metric rows (expected "
+                                 f"a restore of step {steps} and 0 steps)")
+    return dict(counts=counts, peak_gb=peak_gb,
+                losses=[r["loss"] for r in rows],
+                grad_norms=[r["grad_norm"] for r in rows],
+                dts=[r["dt"] for r in rows], wall_s=wall,
+                entry="launch.train --use-kernel", restored_step=steps,
+                rerun_rc=rc2, rerun_s=rerun_s, rerun_steps=0)
+
+
+def _train_steps_run(arch: str, cfg, B: int, S: int, steps: int) -> dict:
+    """The counted run of ``make_train_step`` (bf16, AdamW, remat,
+    use_kernel), batches of ``make_pipeline(cfg.vocab, S, B, seed=0)`` with
+    the vlm's patches or the audio family's frames from
+    ``default_rng(0)``; for the MoE first its first step's gradients twice
+    from the same state, which must be bitwise equal."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    params = lm.init_params(cfg, 0)
+    opt = AdamWConfig(total_steps=steps, warmup_steps=1)
+    state = adamw_init(params, opt)
+    step_fn = make_train_step(cfg, opt, use_kernel=True)
+    data = make_pipeline(cfg.vocab, S, B, seed=0)
+    rng = np.random.default_rng(0)
+
+    batches = [{**{k: torch.from_numpy(v).to(DEV)
+                   for k, v in data.next_batch().items()},
+                **_extra_inputs(cfg, B, rng, DEV, torch.bfloat16)}
+               for _ in range(steps + 1)]
+    out = {}
+    if cfg.moe is not None:
+        # the dispatch's backward scatters into each kept slot from one
+        # token copy only (a dropped copy adds an exact zero), so the
+        # gradients of one state and batch are the same bits every time
+        g = [_loss_grads(cfg, params, batches[0])[1] for _ in range(2)]
+        from repro_torch.tree import named_leaves
+        a, b = dict(named_leaves(g[0])), dict(named_leaves(g[1]))
+        diff = [n for n in a if not torch.equal(a[n], b[n])]
+        if diff:
+            raise AssertionError(f"train {arch}: the first step's gradients "
+                                 f"differ between two runs in {diff}")
+        out["repeat_bitwise"] = dict(leaves=len(a), differing=0)
+        del g, a, b
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, gnorms, dts = [], [], []
+    for b in batches[:steps]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, b)
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    return dict(out, params=params, state=state, step_fn=step_fn,
+                counts=launch_counts(),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                losses=losses, grad_norms=gnorms, dts=dts,
+                entry="make_train_step", next_batch=batches[steps])
+
+
+def family_train_phase(arch: str) -> dict:
+    """Phase 29 for one family: ``FAMILY_TRAIN[arch]`` steps at full width
+    (bf16, random weights from seed 0, AdamW, remat, ``use_kernel``)
+    through the entry the reference trains it with; the gates: finite
+    losses, grad norms and parameters, the parameter count from the
+    leaves, the kernels' launches exactly ``_train_launches``; then one
+    more step under the profiler (host and device activity), outside the
+    counted run, whose every flash launch must be ``flash_wgmma_kernel``
+    and whose SSD launches must equal the counter: its device-busy ms, the
+    kernels' device ms and the device ms of the two torch-ops backwards
+    (``BACKWARD_RANGES``), each as a share of the step."""
+    from torch.profiler import ProfilerActivity
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = _family_train_cfg(arch)
+    c = FAMILY_TRAIN[arch]
+    B, S, steps = c["batch"], c["seq"], c["steps"]
+    if cfg.family == "hybrid":
+        # the profiled step starts from new weights (the rerun above
+        # restored the trained ones and checked them)
+        run = _train_cli_run(arch, cfg, B, S, steps)
+        opt = AdamWConfig(total_steps=steps, warmup_steps=1)
+        run["params"] = lm.init_params(cfg, 0)
+        run["state"] = adamw_init(run["params"], opt)
+        run["step_fn"] = make_train_step(cfg, opt, use_kernel=True)
+        run["next_batch"] = _family_batch(cfg, B, S, 1, DEV)
+    else:
+        run = _train_steps_run(arch, cfg, B, S, steps)
+    params, state = run.pop("params"), run.pop("state")
+    step_fn, nb = run.pop("step_fn"), run.pop("next_batch")
+    counts, want = run["counts"], _train_launches(cfg, steps)
+    n_params = sum(t.numel() for t in _leaves(params))
+    if counts != want:
+        raise AssertionError(f"train {arch}: launches {counts}, expected "
+                             f"{want} (_train_launches)")
+    if n_params != FAMILY_TRAIN_PARAMS[arch]:
+        raise AssertionError(f"train {arch}: {n_params} parameters, expected "
+                             f"{FAMILY_TRAIN_PARAMS[arch]}")
+    if not (np.isfinite(run["losses"]).all()
+            and np.isfinite(run["grad_norms"]).all()
+            and _finite_tree(params) and _finite_tree(state)):
+        raise AssertionError(f"train {arch}: losses {run['losses']}, grad "
+                             f"norms {run['grad_norms']}, or a parameter, "
+                             f"not finite")
+    where = f"train {arch}"
+
+    def profiled():
+        nonlocal params, state
+        reset_launches()
+        t0 = time.perf_counter()
+        with _BackwardRanges():
+            params, state, _ = step_fn(params, state, nb)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def check(prof, _):
+        t = _train_profile_times(prof)
+        got = launch_counts()
+        _check_flash_route(t["kern"], got.get("flash_attention", 0), where)
+        n_ssd = t["kern"].get("ssd_scan", (0, 0.0))[0]
+        if n_ssd != got.get("ssd_scan", 0):
+            raise AssertionError(f"{where}: {got.get('ssd_scan', 0)} SSD "
+                                 f"launches, the profiler saw {n_ssd} "
+                                 f"{SSD_KERNELS[0]}")
+        return t
+
+    # a warm-up step first: the profiler lost one record in each first
+    # profile of a process late in the script (calls 2-3)
+    _, prof_s, t = _profiled(profiled, check, where,
+                             [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             warm_first=True)
+    del params, state, step_fn, nb
+    torch.cuda.empty_cache()
+    dts = run.pop("dts")
+    step_ms = float(np.median(dts[1:])) * 1e3
+    kern_ms = {k: t["kern"][k][1] / 1e3 for k in ("flash_attention",
+                                                   "ssd_scan")
+               if k in t["kern"]}
+    bwd_ms = {k: t["ranges"][v] / 1e3 for k, v in BACKWARD_RANGES.items()}
+    out = dict(arch=arch, layers=cfg.n_layers, params=n_params,
+               dtype=cfg.dtype, batch=B, seq=S, steps=steps, **run,
+               expected_launches=want, launches=counts,
+               step_ms=[d * 1e3 for d in dts], median_step_ms=step_ms,
+               tok_per_s=B * S / (step_ms / 1e3),
+               profiled_step=dict(
+                   wall_ms=prof_s * 1e3, device_busy_ms=t["busy_us"] / 1e3,
+                   kernel_device_ms=kern_ms,
+                   kernel_launches={k: v[0] for k, v in t["kern"].items()},
+                   kernel_share_of_step={k: v / step_ms
+                                         for k, v in kern_ms.items()},
+                   backward_device_ms=bwd_ms,
+                   backward_share_of_step={k: v / step_ms
+                                           for k, v in bwd_ms.items()}))
+    log(f"train {arch} ({run['entry']}): {cfg.n_layers} layers, {n_params} "
+        f"params bf16, batch {B} x seq {S}, {steps} steps: "
+        + ", ".join(f"{d * 1e3:.0f}" for d in dts) + f" ms (median after "
+        f"step 1 {step_ms:.1f} ms, {out['tok_per_s']:,.0f} tokens/s); "
+        f"losses " + ", ".join(f"{v:.4f}" for v in run["losses"])
+        + "; grad norms " + ", ".join(f"{v:.3f}" for v in run["grad_norms"])
+        + f"; launches {counts}; peak {run['peak_gb']:.2f} GB"
+        + (f"; first step's gradients bitwise equal twice "
+           f"({run['repeat_bitwise']['leaves']} leaves)"
+           if "repeat_bitwise" in run else "")
+        + (f"; checkpoint {run['restored_step']} restored, rerun ran 0 "
+           f"steps" if "rerun_rc" in run else "")
+        + f"; a profiled step {prof_s * 1e3:.1f} ms, device busy "
+        f"{t['busy_us'] / 1e3:.1f} ms; kernels "
+        + ", ".join(f"{k} {v:.2f} ms ({v / step_ms:.1%})"
+                    for k, v in kern_ms.items())
+        + "; torch-ops backwards "
+        + ", ".join(f"{k} {v:.2f} ms ({v / step_ms:.1%})"
+                    for k, v in bwd_ms.items()))
+    return out
+
+
+def family_train_vs_cpu(arch: str) -> dict:
+    """Phase 30 for one family: ``FAMILY_TRAIN_CPU[arch]`` at full width
+    and float32, the same weights (``init_params(cfg, 1)`` on the CPU)
+    and batch on the card (kernels) and the CPU (plain versions, in the
+    child process): the loss, every gradient leaf and one AdamW step
+    within ``TRAIN_CPU_TOL``.  An MoE's expert choices are compared first
+    (``_route_diffs``: a decisive difference fails, a float-class one is
+    reported with its gap), the card's recompute under remat must choose
+    as its forward did, and the CPU's gradients are taken under the
+    card's choices."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.tree import named_leaves, tree_map
+    start_family_cpu()
+    out_dir, proc = _family_cpu["dir"], _family_cpu["proc"]
+    cfg = _family_cpu_cfg(arch)
+    c = FAMILY_TRAIN_CPU[arch]
+    p = tree_map(lambda t: t.to(DEV), lm.init_params(cfg, 1, device="cpu"))
+    batch = _family_batch(cfg, c["batch"], c["seq"], 1, DEV)
+    routes = _RouteLog() if cfg.moe is not None else None
+    reset_launches()
+    try:
+        loss, grads = _loss_grads(cfg, p, batch)
+    finally:
+        if routes is not None:
+            routes.restore()
+    counts = launch_counts()
+    want = _train_launches(cfg, 1)
+    if counts != want:
+        raise AssertionError(f"train card vs cpu {arch}: launches {counts}, "
+                             f"expected {want}")
+    flips = []
+    if routes is not None:
+        calls, L = routes.take(), cfg.n_layers
+        if len(calls) != 2 * L or any(
+                not torch.equal(calls[i][2], calls[2 * L - 1 - i][2])
+                for i in range(L)):
+            raise AssertionError(f"train card vs cpu {arch}: {len(calls)} "
+                                 f"router calls, or the backward's "
+                                 f"recompute chose other experts than the "
+                                 f"forward")
+        _save_atomic([tope for _, _, tope in calls[:L]],
+                     out_dir / f"{arch}.card_routes.pt")
+        path = out_dir / f"{arch}.cpu_routes.pt"
+        _wait_file(path, proc)
+        flips = _route_diffs(cfg, torch.load(path)["routes"] + calls[:L],
+                             c["batch"], set(), f"train {arch}")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-5)
+    new_p, _, _ = adamw_update(grads, adamw_init(p, opt), p, opt)
+    step = dict(named_leaves(tree_map(lambda a, b: a - b, new_p, p)))
+    grads = dict(named_leaves(grads))
+    del new_p, p
+    path = out_dir / f"{arch}.cpu.pt"
+    t0 = time.perf_counter()
+    _wait_file(path, proc)
+    waited = time.perf_counter() - t0
+    cpu = torch.load(path, mmap=True)
+
+    def worst(got: dict, want: dict) -> dict:
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"train card vs cpu {arch}: leaves differ")
+        rel = {}
+        for name, w in want.items():
+            w = w.to(DEV, torch.float64)
+            rel[name] = float((got[name].double() - w).abs().max()) / \
+                max(float(w.abs().max()), 1e-30)
+        return rel
+    grad_rel, step_rel = worst(grads, cpu["grads"]), worst(step, cpu["step"])
+    loss_rel = abs(float(loss) - cpu["loss"]) / abs(cpu["loss"])
+    pinned_flips = 0
+    if routes is not None:
+        # the forward's calls (the first of each layer's two)
+        pinned_flips = sum(int((o != t).any(-1).sum()) for o, t in zip(
+            cpu["own_routes"], torch.load(out_dir /
+                                          f"{arch}.card_routes.pt")))
+    del cpu
+    path.unlink()
+    g_name = max(grad_rel, key=grad_rel.get)
+    s_name = max(step_rel, key=step_rel.get)
+    tol = TRAIN_CPU_TOL
+    log(f"train card vs cpu: {arch} at {cfg.n_layers} layers, float32, B="
+        f"{c['batch']} S={c['seq']}: loss {float(loss):.6f}, rel "
+        f"{loss_rel:.2e} (limit {tol['loss']:g}); gradients worst "
+        f"{grad_rel[g_name]:.2e} ({g_name}; limit {tol['grad']:g}); AdamW "
+        f"step worst {step_rel[s_name]:.2e} ({s_name}; limit "
+        f"{tol['step']:g}); launches {counts}"
+        + (f"; float-class routing differences {len(flips)}"
+           + "".join(f" (layer {f['layer']} token {f['token']} gap "
+                     f"{f['gap']:.2e})" for f in flips if "gap" in f)
+           + f"; tokens whose CPU choice the card's replaced under remat: "
+           f"{pinned_flips}" if routes is not None else "")
+        + f"; waited {waited:.1f} s for the CPU half")
+    if not (loss_rel <= tol["loss"] and grad_rel[g_name] <= tol["grad"]
+            and step_rel[s_name] <= tol["step"]):
+        raise AssertionError(f"train card vs cpu {arch}: past a limit")
+    return dict(arch=arch, layers=cfg.n_layers, batch=c["batch"],
+                seq=c["seq"], loss=float(loss), loss_rel=loss_rel,
+                grad_rel=grad_rel, step_rel=step_rel, launches=counts,
+                route_flips=flips, pinned_replacements=pinned_flips,
+                waited_s=waited)
+
+
 def run_only(phases: set, phase) -> int:
     """``--only 8,24,25``: the build, then only the named phases among
-    7 (its checks), 17, 8, 24, 25, 26, 12, 27 and 28 (26 with phase 3's
-    owner-mask checks of ``sweep_guards`` first; a development run: no
-    kernels line, no result line);
+    7 (its checks), 17, 8, 24, 25, 26, 12, 27, 28, 29 and 30 (26 with
+    phase 3's owner-mask checks of ``sweep_guards`` first; 30 starts its
+    CPU child first; a development run: no kernels line, no result
+    line);
     what they return goes to ``chiprun_out/chip_smoke_only.json``."""
     from repro_torch.core.compile_cache import shutdown_workers
     out = {}
@@ -5613,6 +6376,17 @@ def run_only(phases: set, phase) -> int:
         if "28" in phases:
             out["mesh_modules"] = phase("28 mesh modules",
                                         mesh_modules_phase)
+        if "30" in phases:
+            start_family_cpu()
+        if "29" in phases:
+            out["family_training"] = {
+                arch: phase(f"29 train {arch}", family_train_phase, arch)
+                for arch in FAMILY_TRAIN}
+        if "30" in phases:
+            out["family_train_card_vs_cpu"] = {
+                arch: phase(f"30 train card vs cpu {arch}",
+                            family_train_vs_cpu, arch)
+                for arch in FAMILY_TRAIN_CPU}
     finally:
         shutdown_workers()
     out_dir = ROOT / "chiprun_out"
@@ -5750,7 +6524,9 @@ def main() -> int:
     cli = phase("8 serve cli", cli_phase)
     vs_cpu = phase("9 card vs cpu", card_vs_cpu)
 
-    # 11-15: the training path
+    # 11-15: the training path (phase 17's compile processes start up
+    # beside it, and beside 16)
+    start_codegen_workers()
     ssd_checks, ssd_err = phase("11 ssd checks", check_ssd)
     ssd_time = phase("11 ssd times", time_ssd)
     training = phase("12 train mamba2", train_phase)
@@ -5766,6 +6542,7 @@ def main() -> int:
 
     # 18-20: the moe and vlm families at full width, and at 2 float32
     # layers against the CPU
+    start_family_cpu()                  # phase 30's CPU halves, on the host
     families = {arch: phase(f"{18 + i} serve {arch}", family_serving, arch)
                 for i, arch in enumerate(FAMILY_ARCHS)}
     families_cpu = {arch: phase(f"20 card vs cpu {arch}", card_vs_cpu, arch)
@@ -5791,6 +6568,13 @@ def main() -> int:
     sharded = phase("27 sharded train", sharded_train_phase)
     # 28: the mesh modules (compressed mean, pipeline) on one rank
     mesh_modules = phase("28 mesh modules", mesh_modules_phase)
+    # 29-30: the moe, hybrid, audio and vlm families trained at full
+    # width, and each family's float32 step against the CPU
+    fam_train = {arch: phase(f"29 train {arch}", family_train_phase, arch)
+                 for arch in FAMILY_TRAIN}
+    fam_train_cpu = {arch: phase(f"30 train card vs cpu {arch}",
+                                 family_train_vs_cpu, arch)
+                     for arch in FAMILY_TRAIN_CPU}
     part_launches = {k: sum(r["launches"][k] for app in PARTITIONED
                             for t, r in partitioned[app]["runs"].items()
                             if t.startswith("mesh")) for k in REPLACES}
@@ -5829,6 +6613,10 @@ def main() -> int:
             shape=head["shape"], by_shape=rows,
             train_launches=qwen["launches"].get(name, 0),
             sharded_train_launches=sharded["launches"].get(name, 0),
+            train_launches_by_model={
+                arch: r["launches"].get(name, 0)
+                for arch, r in fam_train.items()
+                if name in r["launches"]} or None,
             pipeline_launches=mesh_modules["pipeline"]["launches"][
                 "pipeline"].get(name, 0),
             launches_by_model={arch: c.get(name, 0)
@@ -5847,6 +6635,9 @@ def main() -> int:
         timing=ssd_time,
         launches_by_model={arch: r["launches"]["ssd_scan"]
                            for arch, r in recurrent.items()},
+        train_launches_by_model={arch: r["launches"]["ssd_scan"]
+                                 for arch, r in fam_train.items()
+                                 if "ssd_scan" in r["launches"]},
         launches_compiled=compiled_cpu["mamba2"]["launches"]["ssd_scan"],
         device_us_compiled=compiled_cpu["mamba2"]["ssd_device_us"]))
     out_dir = ROOT / "chiprun_out"
@@ -5870,7 +6661,8 @@ def main() -> int:
         compiled_serving=compiled, compiled_card_vs_cpu=compiled_cpu,
         partitioned=partitioned, sharded_training=sharded,
         decode_lse=decode_lse, mesh_modules=mesh_modules,
-        kernel_resources=resources,
+        kernel_resources=resources, family_training=fam_train,
+        family_train_card_vs_cpu=fam_train_cpu,
         phase_seconds=seconds), indent=1))
     print(smi)
     line = json.dumps({"kernels": kernels})
