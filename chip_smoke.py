@@ -7,8 +7,9 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --only 8,24,25`` builds the kernels and runs
-only those of phases 7 (its checks), 17, 8, 24, 25, 26, 12, 27, 28, 29
-and 30 named: a development run, with no kernels or result line.)
+only those of phases 7 (its checks), 17, 8, 24, 25, 26, 12, 27, 28, 29,
+30, 31 and 32 named: a development run, with no kernels or result
+line.)
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -113,7 +114,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cross-attention (1, 37, 64 and 448 queries against 1500 keys),
    zamba2-1.2b's shared block (32/32, causal, 37-1500), flash-decode on
    zamba2's one per-slot row of 2048 (a scalar length expanded) and on
-   whisper's 8 ragged rows of 2048.  Limits, relative to the plain
+   whisper's 8 ragged rows of 2048; then phase 31's dense models:
+   starcoder2-3b's 4,608-token prefill (24 query heads on 2 KV heads of
+   128, window 4096), groups 4 and 8 at 32 query heads, flash-decode on
+   yi-6b's (group 8), qwen3-4b's (group 4) and a group-12 cache of 8
+   slots x 2048 (starcoder2-3b's heads), group 16 at hd 96 and 64, and
+   groups over the kernel's 16 (24 and 40: one launch a chunk of each
+   KV head's query heads).  Limits, relative to the plain
    output's largest magnitude: ``ATTN_REL_TOL``; flash's ``lse`` within
    ``LSE_ABS_TOL``; exact zeros where ``kv_len == 0``; the largest error
    of each op, head width and dtype is printed.  Flash-decode's ``lse``
@@ -128,8 +135,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one rounding step of it everywhere.  CUDA-event times
    (``FLASH_TIMES``: Qwen3's B=1 S=1024 and 2048, B=8 S=256, B=4 S=1024,
    Phi-3's B=1 S=1024 and 2048, whisper's encoder and its decode step's
-   cross-attention, zamba2's shared block at S=1024; ``DECODE_TIMES``:
-   Qwen3's and Phi-3's packed caches, zamba2's per-slot row) of kernel,
+   cross-attention, zamba2's shared block at S=1024, phase 29's training
+   shapes, starcoder2-3b's windowed 4,608 and qwen3-4b's and yi-6b's
+   groups; ``DECODE_TIMES``: Qwen3's and Phi-3's packed caches, zamba2's
+   per-slot row, qwen3-4b's, yi-6b's and a group-12 cache) of kernel,
    plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
    port), each kernel's device time a call, reading a different layer's
@@ -156,7 +165,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    name; the profiler on the card now and then loses kernel records, so
    here and in phases 13 and 15 a profile that misses launches is taken
    again on a new run, ``PROFILE_TRIES`` in all); then the decode step
-   alone, 32 times over that wave's 8
+   alone, ``BREAKDOWN_STEPS`` (8) times over that wave's 8
    live slots: host and device ms per step, the busy share, and the aten
    operations one step dispatches.
 
@@ -284,7 +293,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    after prefill, within ``LOGIT_REL_TOL`` of their largest magnitude,
    greedy tokens equal, the card's launches those of the path.
 24. serving compiled — Qwen3-0.6B at full width cut to
-   ``COMPILED_LAYERS`` (4) layers (bf16, phase 8's seed, 8 slots of
+   ``COMPILED_LAYERS`` (2) layers (bf16, phase 8's seed, 8 slots of
    2048) through the serving engine's compiled
    steps: ``warmup(cache=...)`` into an empty compile cache under a
    temporary ``build/serve_cache_*`` (deleted) at batch sizes 1, 2, 4
@@ -400,9 +409,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    started before phase 18 (``family_cpu_child``).  The MoE's expert
    choices are compared first (``_route_diffs``; the card's recompute
    under remat must choose as its forward), and the CPU's gradients are
-   taken under the card's choices (``_PinnedRouter``).
+   taken under the card's choices (``_PinnedRouter``): its card half runs
+   first and its comparison last, after the other families'
+   (``family_train_vs_cpu_all``).
+31. the dense models qwen3-4b (qk-norm, tied, 32/8 heads of 128), yi-6b
+   (32/4: flash-decode at group 8, hd 128) and starcoder2-3b (24/2,
+   window 4096) at full width, 8 layers each (of 36, 32 and 30,
+   ``SERVE_LAYERS``), bf16, random weights from a seed, served as phase 8
+   serves Qwen3 (``SERVE``, ``attn_impl="kernel"``), with phase 8's
+   gates: every request ok with its ``max_new`` tokens, no NaN logit, the
+   parameter count, flash once a layer a prefill call and flash-decode
+   once a layer a decode call, none for starcoder2-3b, whose decode goes
+   through windowed ``sdpa`` as the reference's does.  starcoder2-3b also
+   serves one long request (``LONG_SERVE``: a 4,608-token prompt x 64
+   new in a cache of 8192 rows), so its prefill's rows from 4096 on and
+   all its decode steps see only the window; that prompt's prefill alone
+   is timed, and its logits must differ from the same weights' without a
+   window.  Then the decode step alone under the profiler
+   (``DECODE_ALONE_STEPS``: host and device ms a step, the busy share),
+   and each model's ``launch.serve --full --arch`` at full depth (rc 0,
+   ``mode=batched``, flash and flash-decode a whole number of layers a
+   call; no flash-decode for starcoder2-3b).  Printed: tok/s, prefill s,
+   ms a decode step while serving, the busy share, peak GB, the depth.
+32. card vs CPU, as phase 9, for the three models at 2 float32 layers of
+   full width (starcoder2-3b's window cut to ``CPU_WINDOW`` 256 on both
+   sides, so the prompts and the decode steps cross it): logits within
+   ``LOGIT_REL_TOL``, greedy tokens equal, the card's launches those of
+   the path.  The CPU halves run in the child process of phase 30
+   (``cpu_serving_half``), read from its files.
 
-Each phase's seconds are printed.
+Each phase's seconds are printed, and their sum.
 The last four lines of standard output are the ``nvidia-smi`` line, the
 JSON object of per-kernel numbers after the word ``kernels``, the same
 object alone, and the result object ``{"ok": true, "device": {...}}``.
@@ -414,6 +450,7 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -460,6 +497,15 @@ ARCH = "qwen3-0.6b"
 DEV = "cuda"                # the LM phases' device
 SERVE = dict(slots=8, max_seq=2048, requests=16, prompt=(64, 1500),
              max_new=32, seed=0)
+# phase 31: starcoder2-3b serves SERVE's requests and one more, whose
+# 4,608-token prompt passes its window of 4096 (the prefill's rows from
+# 4096 on, and every decode step, see only the last 4096 positions), in
+# a cache of 8192 rows
+LONG_SERVE = {"starcoder2-3b": dict(max_seq=8192, prompt=4608, max_new=64)}
+# phase 32: starcoder2-3b's window cut to 256 on both sides, so the
+# prompts of 37-512 tokens and the decode steps cross it at phase 20's
+# CPU cost
+CPU_WINDOW = {"starcoder2-3b": 256}
 # Full-size card run against the CPU (plain-version) lowering of the same
 # graph: max |card - cpu| / max |cpu|.  gemm sums its 4096-long dot
 # products in another order in cuBLAS than on the CPU; the other two run
@@ -1875,6 +1921,13 @@ FLASH_CASES = [             # (B, Sq, Sk, nh, nkv, hd, causal, window)
     (1, 37, 37, 32, 32, 64, True, None),
     (1, 1000, 1000, 32, 32, 64, True, None),
     (1, 1500, 1500, 32, 32, 64, True, None),
+    # starcoder2-3b's prefill of phase 31's long request: 24 query heads
+    # on 2 KV heads of 128 (group 12) with its window of 4096 over 4,608
+    # positions (the window hides keys from row 4096 on); qwen3-4b's and
+    # yi-6b's groups 4 and 8 at 32 query heads
+    (1, 4608, 4608, 24, 2, 128, True, 4096),
+    (2, 1024, 1024, 32, 8, 128, True, None),
+    (2, 1024, 1024, 32, 4, 128, True, None),
 ]
 DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
     (8, 2048, 16, 8, 128, [0, 1, 255, 256, 257, 2048, 1000, 37]),
@@ -1904,6 +1957,27 @@ DECODE_CASES = [            # (B, S_max, nh, nkv, hd, kv_len)
     (8, 2048, 12, 12, 64, [0, 1, 63, 64, 65, 2048, 1000, 97]),
     (8, 2048, 12, 12, 64,
      np.random.default_rng(5).integers(0, 2049, 8).tolist()),
+    # the dense models of phase 31 at 8 slots of 2048 rows, hd 128: yi-6b
+    # (32 query heads on 4 KV heads, group 8), qwen3-4b (32 on 8, group
+    # 4), and group 12 (starcoder2-3b's 24 on 2, which the 16-head
+    # instantiation takes); group 16 at hd 96 and 64 (the largest shared
+    # memory: float32 tiles 128 wide)
+    (8, 2048, 32, 4, 128, [0, 1, 63, 64, 65, 2048, 1000, 577]),
+    (8, 2048, 32, 4, 128,
+     np.random.default_rng(6).integers(0, 2049, 8).tolist()),
+    (8, 2048, 32, 8, 128, [0, 1, 255, 256, 257, 2048, 1000, 37]),
+    (8, 2048, 24, 2, 128, [0, 1, 63, 64, 65, 2048, 1000, 577]),
+    (8, 2048, 24, 2, 128,
+     np.random.default_rng(7).integers(0, 2049, 8).tolist()),
+    (2, 300, 32, 2, 96, [65, 300]),
+    (4, 200, 32, 2, 64, [0, 1, 64, 200]),
+]
+# groups over the kernel's 16 query heads a KV head, one launch a chunk
+# of a group's heads (decode_attention.head_chunks): 24 (12 + 12) and 40
+# (14 + 13 + 13)
+DECODE_CHUNKED_CASES = [
+    (8, 2048, 48, 2, 128, [0, 1, 63, 64, 65, 2048, 1000, 577]),
+    (4, 512, 80, 2, 64, [0, 5, 511, 512]),
 ]
 
 
@@ -1961,7 +2035,7 @@ def check_attention() -> tuple[list, dict]:
             key = f"flash_attention hd{hd} {dt}"
             worst[key] = max(worst.get(key, 0.0), err)
             del q, k, v, out, lse, p_out, p_lse
-        for B, S, nh, nkv, hd, lens in DECODE_CASES:
+        for B, S, nh, nkv, hd, lens in DECODE_CASES + DECODE_CHUNKED_CASES:
             q = _rand(gen, (B, nh, hd), dt)
             k = _rand(gen, (B, S, nkv, hd), dt)
             v = _rand(gen, (B, S, nkv, hd), dt)
@@ -2099,9 +2173,13 @@ def check_decode_lse() -> list:
 # short prompts, the training shape of phase 13), Phi-3-vision (hd 96,
 # MHA), whisper-small's encoder (non-causal, 1500 x 1500, hd 64) and its
 # decode step's cross-attention (B = 8, one query against 1500), and
-# zamba2's shared block at one per-slot prompt; (B, nh, nkv, hd) of
-# flash-decode over the serving runs' caches: the packed 8 slots of
-# Qwen3 and Phi-3, zamba2's one per-slot row
+# zamba2's shared block at one per-slot prompt; phase 29's training
+# shapes (granite-moe, zamba2's shared block, whisper's encoder, decoder
+# self- and cross-attention, phi-3); phase 31's (starcoder2-3b's long
+# prompt with its window as an eighth element, qwen3-4b's and yi-6b's
+# groups at one 1024-token prompt); (B, nh, nkv, hd) of flash-decode over
+# the serving runs' caches: the packed 8 slots of Qwen3 and Phi-3,
+# zamba2's one per-slot row, qwen3-4b's, yi-6b's and a group-12 cache
 FLASH_TIMES = [(1, 1024, 1024, 16, 8, 128, True),
                (1, 2048, 2048, 16, 8, 128, True),
                (8, 256, 256, 16, 8, 128, True),
@@ -2110,8 +2188,29 @@ FLASH_TIMES = [(1, 1024, 1024, 16, 8, 128, True),
                (1, 2048, 2048, 32, 32, 96, True),
                (1, 1500, 1500, 12, 12, 64, False),
                (8, 1, 1500, 12, 12, 64, False),
-               (1, 1024, 1024, 32, 32, 64, True)]
-DECODE_TIMES = [(8, 16, 8, 128), (8, 32, 32, 96), (1, 32, 32, 64)]
+               (1, 1024, 1024, 32, 32, 64, True),
+               (4, 1024, 1024, 16, 8, 64, True),
+               (2, 2048, 2048, 32, 32, 64, True),
+               (8, 1500, 1500, 12, 12, 64, False),
+               (8, 448, 448, 12, 12, 64, True),
+               (8, 448, 1500, 12, 12, 64, False),
+               (2, 2048, 2048, 32, 32, 96, True),
+               (1, 4608, 4608, 24, 2, 128, True, 4096),
+               (1, 1024, 1024, 32, 8, 128, True),
+               (1, 1024, 1024, 32, 4, 128, True)]
+DECODE_TIMES = [(8, 16, 8, 128), (8, 32, 32, 96), (1, 32, 32, 64),
+                (8, 32, 8, 128), (8, 32, 4, 128), (8, 24, 2, 128)]
+
+
+def _visible_pairs(Sq: int, Sk: int, causal: bool, window) -> float:
+    """(query, key) pairs the mask leaves: all of them non-causal, half
+    causal (the diagonal's half left out, as the earlier bounds count
+    it), and with a window each row's last ``window`` keys at most."""
+    if not causal:
+        return Sq * Sk
+    if window is None:
+        return Sq * Sk / 2
+    return sum(min(i + 1, window, Sk) for i in range(Sq))
 
 
 def time_attention() -> dict:
@@ -2130,32 +2229,41 @@ def time_attention() -> dict:
     def timed(fn):
         return time_ms(fn, reps=ATTN_REPS, warm=ATTN_WARM)
 
-    for B, Sq, Sk, nh, nkv, hd, causal in FLASH_TIMES:
+    for B, Sq, Sk, nh, nkv, hd, causal, *win in FLASH_TIMES:
+        window = win[0] if win else None
         qs = _rand(gen, (L, B, Sq, nh, hd), bf16)
         ks = _rand(gen, (L, B, Sk, nkv, hd), bf16)
         vs = _rand(gen, (L, B, Sk, nkv, hd), bf16)
-        # causal (Sq = Sk): half of the 4 B nh Sq Sk hd of the products
-        flops = (2 if causal else 4) * B * nh * Sq * Sk * hd
+        # 4 hd flops a visible (query, key) pair and head: causal (Sq =
+        # Sk) half of them, a window fewer
+        flops = 4 * B * nh * _visible_pairs(Sq, Sk, causal, window) * hd
         nbytes = (qs[0].numel() + ks[0].numel()) * 2 * 2 + 4 * B * nh * Sq
         bnd, by = bound_ms(nbytes, flops, TENSOR_BF16_FLOPS)
+        # SDPA takes a window as a boolean mask (True: attend)
+        mask = None if window is None else \
+            (torch.arange(Sk, device=DEV)[None, :]
+             <= torch.arange(Sq, device=DEV)[:, None]) & \
+            (torch.arange(Sk, device=DEV)[None, :]
+             > torch.arange(Sq, device=DEV)[:, None] - window)
 
         def flash(i):
             return flash_attention_fwd(qs[i % L], ks[i % L], vs[i % L],
-                                       causal=causal)
+                                       causal=causal, window=window)
         out["flash_attention"].append(dict(
             shape=f"B={B} Sq={Sq} Sk={Sk} nh={nh} nkv={nkv} hd={hd} bf16 "
-                  + ("causal" if causal else "non-causal"),
+                  + ("causal" if causal else "non-causal")
+                  + (f" window={window}" if window is not None else ""),
             ms=timed(flash), device_ms=_kernel_device_ms(
                 flash, ATTN_KERNELS["flash_attention"][0]),
             plain_ms=timed(lambda i: flash_attention_plain(
                 qs[i % L], ks[i % L], vs[i % L], causal=causal,
-                window=None)),
+                window=window)),
             library_ms=timed(lambda i: F.scaled_dot_product_attention(
                 qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
-                vs[i % L].transpose(1, 2), is_causal=causal,
-                enable_gqa=True)),
+                vs[i % L].transpose(1, 2), attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)),
             bound_ms=bnd, bound_by=by, flops=flops, bytes=nbytes))
-        del qs, ks, vs
+        del qs, ks, vs, mask
     # decode: the caches of the serving runs, rows of 2048, at lengths such
     # as those runs' (prompt 64-1500 plus up to 32 new): the packed 8 slots
     # of phases 8, 18 and 19, zamba2's one per-slot row of phase 21
@@ -2286,13 +2394,26 @@ def _leaves(tree) -> list:
 
 def _serve_requests(cfg) -> list:
     """``SERVE``'s requests for ``cfg``: prompts of random lengths and
-    tokens from ``SERVE["seed"]``, ``max_new`` new tokens each."""
+    tokens from ``SERVE["seed"]``, ``max_new`` new tokens each; then, for
+    a model ``LONG_SERVE`` names, its one long request."""
     from repro_torch.serve import Request
     rng = np.random.default_rng(SERVE["seed"])
     lo, hi = SERVE["prompt"]
     plens = rng.integers(lo, hi + 1, SERVE["requests"])
-    return [Request(i, rng.integers(0, cfg.vocab, int(n)).tolist(),
+    reqs = [Request(i, rng.integers(0, cfg.vocab, int(n)).tolist(),
                     max_new=SERVE["max_new"]) for i, n in enumerate(plens)]
+    long = LONG_SERVE.get(cfg.name)
+    if long is not None:
+        reqs.append(Request(len(reqs), rng.integers(
+            0, cfg.vocab, long["prompt"]).tolist(), max_new=long["max_new"]))
+    return reqs
+
+
+def _decode_apps(cfg) -> int:
+    """Flash-decode launches of one decode step: an attention application
+    each, none under a sliding window (decode then goes through windowed
+    ``sdpa``, as the reference's does)."""
+    return 0 if cfg.sliding_window is not None else _attn_apps(cfg)
 
 
 def serving_phase(arch: str = ARCH):
@@ -2304,9 +2425,11 @@ def serving_phase(arch: str = ARCH):
     tokens (the per-slot path turns a step's exception into that
     request's error, so an error here is a failure, not a quarantine), no
     logit NaN, flash once an attention application a prefill call,
-    flash-decode once one a decode call and the SSD kernel once a Mamba2
-    layer a prefill call.  Returns (report, engine, requests, call stats,
-    parameters)."""
+    flash-decode once one a decode call (none under a sliding window) and
+    the SSD kernel once a Mamba2 layer a prefill call.  A model
+    ``LONG_SERVE`` names serves with its cache of ``max_seq`` rows and
+    its long request among the others (phase 31).  Returns (report,
+    engine, requests, call stats, parameters)."""
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.launch.serve import per_slot_engine
     from repro_torch.models import lm
@@ -2326,14 +2449,15 @@ def serving_phase(arch: str = ARCH):
         raise AssertionError(f"{n_params} parameters, config says "
                              f"{cfg.param_count()}")
     stats = _CallStats()
-    scfg = ServeConfig(batch_slots=SERVE["slots"], max_seq=SERVE["max_seq"])
+    max_seq = LONG_SERVE.get(arch, {}).get("max_seq", SERVE["max_seq"])
+    scfg = ServeConfig(batch_slots=SERVE["slots"], max_seq=max_seq)
     if per_slot:
         eng = per_slot_engine(params, cfg, scfg, torch.device(DEV))
         eng.prefill_fn = stats.wrap("prefill", eng.prefill_fn)
         eng.decode_fn = stats.wrap("decode", eng.decode_fn)
         warm = {}
     else:
-        adapter = lm.serving_adapter(params, cfg, max_seq=SERVE["max_seq"])
+        adapter = lm.serving_adapter(params, cfg, max_seq=max_seq)
         adapter = dataclasses.replace(
             adapter, prefill_fn=stats.wrap("prefill", adapter.prefill_fn),
             step_fn=stats.wrap("decode", adapter.step_fn))
@@ -2363,16 +2487,15 @@ def serving_phase(arch: str = ARCH):
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     bad = {r.rid: res.get(r.rid) for r in reqs
            if not (isinstance(res.get(r.rid), list)
-                   and len(res[r.rid]) == SERVE["max_new"])}
+                   and len(res[r.rid]) == r.max_new)}
     if bad:
-        raise AssertionError(f"{arch}: requests not ok with "
-                             f"{SERVE['max_new']} tokens: {bad}")
+        raise AssertionError(f"{arch}: requests not ok with their max_new "
+                             f"tokens: {bad}")
     if bool(nan):
         raise AssertionError(f"{arch}: a logit of the serving run is NaN")
     n_prefill, n_decode = stats.n["prefill"], stats.n["decode"]
-    apps = _attn_apps(cfg)
-    want = {"flash_attention": apps * n_prefill,
-            "decode_attention": apps * n_decode}
+    want = {"flash_attention": _attn_apps(cfg) * n_prefill,
+            "decode_attention": _decode_apps(cfg) * n_decode}
     if cfg.ssm is not None:
         want["ssd_scan"] = cfg.n_layers * n_prefill
     if n_prefill == 0 or n_decode == 0 or any(
@@ -2384,7 +2507,9 @@ def serving_phase(arch: str = ARCH):
     mode = "per-slot" if per_slot else "batched"
     report = dict(
         arch=arch, params=n_params, dtype=cfg.dtype, attn_impl="kernel",
-        mode=mode, **SERVE, prompt_tokens=int(plens.sum()), init_s=init_s,
+        mode=mode, **{**SERVE, "max_seq": max_seq}, layers=cfg.n_layers,
+        sliding_window=cfg.sliding_window, requests_served=len(reqs),
+        prompt_tokens=int(plens.sum()), init_s=init_s,
         warmup_s=warm_s, wall_s=wall, tokens=n_tok, tok_per_s=n_tok / wall,
         prefill_calls=n_prefill, prefill_s=stats.s["prefill"],
         decode_steps=n_decode, decode_s=stats.s["decode"],
@@ -2532,7 +2657,7 @@ def _dev32(x) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x, np.int32)).to(DEV)
 
 
-def _decode_loop(adapter, wave: list, steps: int = 32) -> dict:
+def _decode_loop(adapter, wave: list, steps: int) -> dict:
     """The adapter's decode step alone, ``steps`` times on a packed cache
     whose slots hold ``wave``'s prompts, as the serving loop calls it (one
     ``[slots]`` copy to the host per step), under the profiler."""
@@ -2571,6 +2696,9 @@ def _decode_loop(adapter, wave: list, steps: int = 32) -> dict:
                 busy_share=busy_us / 1e6 / wall if busy_us else None)
 
 
+BREAKDOWN_STEPS = 8         # phase 10: decode steps profiled alone
+
+
 def serving_breakdown(eng, reqs, stats) -> dict:
     """Phase 10: the first wave of requests again under the profiler
     (device activity only), then the decode step alone on that wave."""
@@ -2602,7 +2730,7 @@ def serving_breakdown(eng, reqs, stats) -> dict:
     _, (wall, _), (busy_us, kern) = _profiled(run, check, "breakdown serve")
     dev_ms = {op: t / n / 1e3 for op, (n, t) in kern.items() if n}
     n_call, s_call = dict(stats.n), dict(stats.s)
-    loop = _decode_loop(eng.batched, wave)
+    loop = _decode_loop(eng.batched, wave, BREAKDOWN_STEPS)
     out = dict(requests=len(wave), wall_s=wall,
                prefill_calls=n_call["prefill"], prefill_s=s_call["prefill"],
                decode_steps=n_call["decode"], decode_s=s_call["decode"],
@@ -2658,9 +2786,10 @@ def cli_phase(arch: str = ARCH) -> dict:
     is phase 24's warm half) at its defaults, in this process (its output
     goes to this script's): rc 0,
     the mode its family takes (batched, or per-slot for ssm and hybrid),
-    its decode steps through the flash-decode kernel at every attention
-    application of every step, and its prefills through the SSD kernel
-    at every Mamba2 layer."""
+    its prefills through flash at every attention application, its
+    decode steps through the flash-decode kernel at every attention
+    application of every step (never under a sliding window), and its
+    prefills through the SSD kernel at every Mamba2 layer."""
     import contextlib
     from repro_torch.configs import get_config
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
@@ -2668,7 +2797,8 @@ def cli_phase(arch: str = ARCH) -> dict:
     from repro_torch.models import lm
     cfg = get_config(arch)
     mode = "per-slot" if cfg.family in lm.PER_SLOT_FAMILIES else "batched"
-    per_call = {"decode_attention": _attn_apps(cfg),
+    per_call = {"flash_attention": _attn_apps(cfg),
+                "decode_attention": _decode_apps(cfg),
                 "ssd_scan": cfg.n_layers if cfg.ssm is not None else 0}
     reset_launches()
     tee = _Tee(sys.stdout)
@@ -2684,7 +2814,7 @@ def cli_phase(arch: str = ARCH) -> dict:
                              f"{rc}, expected 0 and mode={mode}")
     for op, k in per_call.items():
         n = counts.get(op, 0)
-        if k and (n == 0 or n % k):
+        if k and (n == 0 or n % k) or not k and n:
             raise AssertionError(f"launch.serve --full --arch {arch}: {op} "
                                  f"{n} launches, not a whole number of "
                                  f"{k} a call: {counts}")
@@ -2777,24 +2907,21 @@ def _route_diffs(cfg, calls: list, rows: int, tainted: set,
     return found
 
 
-def card_vs_cpu(arch: str = ARCH) -> dict:
-    """Phase 9 (and 20 at the moe and vlm models): ``arch`` at full width
-    cut to 2 layers, float32, the same weights on the card and the CPU:
-    bucketed prefill of 4 ragged prompts (the vlm's with patches over its
-    first 576 positions), then 8 ragged decode steps; logits within
-    ``LOGIT_REL_TOL`` of their largest magnitude, greedy tokens equal.
-    An MoE's expert choices are compared first (:func:`_route_diffs`)."""
+def _vs_cpu_cfg(arch: str):
+    """``arch`` as phases 9, 20 and 32 hold it against the CPU: full width
+    cut to 2 layers, float32, the kernels' path, its window cut where
+    ``CPU_WINDOW`` names one."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.dispatch import launch_counts, reset_launches
-    from repro_torch.models import lm
     cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
                               attn_impl="kernel")
-    p_cpu = lm.init_params(cfg, 1, device="cpu")
+    if arch in CPU_WINDOW:
+        cfg = dataclasses.replace(cfg, sliding_window=CPU_WINDOW[arch])
+    return cfg
 
-    def to_card(t):
-        return {k: to_card(v) for k, v in t.items()} \
-            if isinstance(t, dict) else t.to(DEV)
-    p_card = to_card(p_cpu)
+
+def _vs_cpu_inputs(cfg) -> tuple:
+    """The card-vs-CPU prompts: 4 ragged lengths, the tokens in their
+    bucket, ``max_seq``, and the vlm's patches (host tensors)."""
     rng = np.random.default_rng(1)
     if cfg.vlm is None:
         lens = np.array([37, 512, *rng.integers(38, 512, 2)], np.int32)
@@ -2805,22 +2932,83 @@ def card_vs_cpu(arch: str = ARCH) -> dict:
     toks = np.zeros((len(lens), bucket), np.int32)
     for i, n in enumerate(lens):
         toks[i, :n] = rng.integers(0, cfg.vocab, n)
-    extra = {"cpu": {}, DEV: {}}
+    extra = {}
     if cfg.vlm is not None:
-        patches = torch.from_numpy(rng.standard_normal(
+        extra["patches"] = torch.from_numpy(rng.standard_normal(
             (len(lens), cfg.vlm.n_patches, cfg.vlm.d_patch))
             .astype(np.float32))
-        extra = {"cpu": {"patches": patches},
-                 DEV: {"patches": patches.to(DEV)}}
+    return lens, toks, bucket, max_seq, extra
+
+
+def _serve_steps(cfg, params, toks, lens, max_seq: int, extra: dict,
+               dev: str = "cpu"):
+    """One side of a card-vs-CPU run on ``dev``, a step at a time: yields
+    the bucketed prefill's logits, then each of ``CPU_STEPS`` decode
+    steps' on the token it is sent (the greedy token of the CPU's
+    logits)."""
+    from repro_torch.models import lm
+    logits, cache = lm.prefill(
+        params, cfg, torch.from_numpy(toks).to(dev), extra=extra,
+        max_seq=max_seq, true_len=torch.from_numpy(lens).to(dev))
+    for _ in range(CPU_STEPS):
+        tok = yield logits
+        logits, cache = lm.decode_step(params, cfg, tok.to(dev), cache)
+    yield logits
+
+
+def cpu_serving_half(arch: str) -> dict:
+    """Phase 32's CPU half of ``arch`` (in the child process): the logits
+    of the prefill and of ``CPU_STEPS`` greedy decode steps, from
+    ``lm.init_params(cfg, 1)`` on the CPU (plain versions)."""
+    from repro_torch.models import lm
+    cfg = _vs_cpu_cfg(arch)
+    lens, toks, _, max_seq, extra = _vs_cpu_inputs(cfg)
+    params = lm.init_params(cfg, 1, device="cpu")
+    steps = _serve_steps(cfg, params, toks, lens, max_seq, extra)
+    out = [next(steps)]
+    with torch.no_grad():
+        for _ in range(CPU_STEPS):
+            out.append(steps.send(out[-1].argmax(-1).to(torch.int32)))
+    return dict(logits=out)
+
+
+def card_vs_cpu(arch: str = ARCH, cpu: list | None = None,
+                p_cpu: dict | None = None) -> dict:
+    """Phase 9 (and 20 at the moe and vlm models, 32 at the dense ones):
+    ``arch`` at full width cut to 2 layers, float32, the same weights on
+    the card and the CPU: bucketed prefill of 4 ragged prompts (the vlm's
+    with patches over its first 576 positions), then ``CPU_STEPS`` ragged
+    decode steps on the CPU's greedy tokens; logits within
+    ``LOGIT_REL_TOL`` of their largest magnitude, greedy tokens equal.
+    An MoE's expert choices are compared first (:func:`_route_diffs`).
+    The CPU's logits are computed here step by step, or given as
+    ``cpu`` (phase 32: the child process's, :func:`cpu_serving_half`);
+    ``p_cpu`` are the weights, ``lm.init_params(cfg, 1)`` on the CPU,
+    where they were drawn already."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    cfg = _vs_cpu_cfg(arch)
+    lens, toks, bucket, max_seq, extra = _vs_cpu_inputs(cfg)
+    if p_cpu is None:
+        p_cpu = lm.init_params(cfg, 1, device="cpu")
+
+    def to_card(t):
+        return {k: to_card(v) for k, v in t.items()} \
+            if isinstance(t, dict) else t.to(DEV)
+    p_card = to_card(p_cpu)
+    if cpu is None:
+        cpu = _serve_steps(cfg, p_cpu, toks, lens, max_seq, extra)
+    else:
+        del p_cpu
+        cpu = iter(cpu)
+    card = _serve_steps(cfg, p_card, toks, lens, max_seq,
+                      {k: v.to(DEV) for k, v in extra.items()}, DEV)
     routes = _RouteLog() if cfg.moe is not None else None
     tainted, flips = set(), []
     reset_launches()
-    logits, caches = {}, {}
+    logits = {}
     try:
-        for dev, p in (("cpu", p_cpu), (DEV, p_card)):
-            logits[dev], caches[dev] = lm.prefill(
-                p, cfg, torch.from_numpy(toks).to(dev), extra=extra[dev],
-                max_seq=max_seq, true_len=torch.from_numpy(lens).to(dev))
+        logits["cpu"], logits[DEV] = next(cpu), next(card)
         steps = []
 
         def compare(what: str) -> torch.Tensor:
@@ -2848,31 +3036,33 @@ def card_vs_cpu(arch: str = ARCH) -> dict:
             return tok_c.to(torch.int32)
 
         tok = compare("prefill")
-        for s in range(8):
-            for dev, p in (("cpu", p_cpu), (DEV, p_card)):
-                logits[dev], caches[dev] = lm.decode_step(
-                    p, cfg, tok.to(dev), caches[dev])
+        for s in range(CPU_STEPS):
+            logits["cpu"] = cpu.send(tok) if hasattr(cpu, "send") \
+                else next(cpu)
+            logits[DEV] = card.send(tok)
             tok = compare(f"decode {s}")
     finally:
         if routes is not None:
             routes.restore()
     counts = launch_counts()
     if counts.get("flash_attention", 0) != cfg.n_layers or \
-            counts.get("decode_attention", 0) != 8 * cfg.n_layers:
+            counts.get("decode_attention", 0) != \
+            CPU_STEPS * _decode_apps(cfg):
         raise AssertionError(f"card side did not go through the kernels: "
                              f"{counts}")
     worst = max(s["rel_err"] for s in steps)
     log(f"card vs cpu: {arch} at 2 layers, float32, prompts {lens.tolist()} "
         f"in a {bucket} bucket"
         + (" with patches" if cfg.vlm is not None else "")
-        + f" + 8 ragged decode steps: logits within {worst:.2e} of max "
-        f"|logit| (limit {LOGIT_REL_TOL:g}), greedy tokens equal"
+        + (f", window {cfg.sliding_window}" if cfg.sliding_window else "")
+        + f" + {CPU_STEPS} ragged decode steps: logits within {worst:.2e} "
+        f"of max |logit| (limit {LOGIT_REL_TOL:g}), greedy tokens equal"
         + (f"; float-class routing differences: {len(flips)}"
            if routes is not None else "") + f"; launches {counts}")
     return dict(arch=arch, layers=cfg.n_layers, prompt_lens=lens.tolist(),
-                bucket=bucket, steps=steps, max_rel_err=worst,
-                launches=counts, route_flips=flips,
-                rows_left_out=sorted(tainted))
+                bucket=bucket, sliding_window=cfg.sliding_window,
+                steps=steps, max_rel_err=worst, launches=counts,
+                route_flips=flips, rows_left_out=sorted(tainted))
 
 
 # ---------------------------------------------------------------------------
@@ -2924,9 +3114,10 @@ SSD_CASES = [
     ("mamba2 S=37 small", 1, 37, 24, 1, 64, 128, 37, "small", 1.0),
 ]
 # timed shapes beside the training shape (SSD_CASES[0]): the per-slot
-# prefills of phase 21, (B, S, H, G, P, N, chunk)
+# prefills of phase 21 and zamba2's training shape of phase 29, (B, S, H,
+# G, P, N, chunk)
 SSD_TIMES = [(1, 1000, 64, 1, 64, 64, 256), (1, 1000, 24, 1, 64, 128, 256),
-             (1, 37, 64, 1, 64, 64, 37)]
+             (1, 37, 64, 1, 64, 64, 37), (2, 2048, 64, 1, 64, 64, 256)]
 # Kernel vs plain version, max |kernel - plain| / max |y64|, where y64 is
 # the plain version evaluated in float64 on the card from the same inputs;
 # the kernel against y64 is held to the same limit, and both errors
@@ -4586,17 +4777,19 @@ def codegen_phase() -> dict:
 # ---------------------------------------------------------------------------
 
 FAMILY_ARCHS = ("granite-moe-1b-a400m", "phi-3-vision-4.2b")
-# phases 18, 19 and 21 at full width and a cut depth (the script's time
-# limit, with phases 24-25 added; the decode steps are host-bound,
+# phases 18, 19, 21 and 31 at full width and a cut depth (the script's
+# time limit, with phases 24-25 added; the decode steps are host-bound,
 # so their ms scale with the layers): granite 24 -> 12, phi-3 32 -> 16,
 # mamba2 24 -> 12, zamba2 38 -> 12 (its shared block twice, both cache
-# blocks); each command line (launch.serve --full) keeps full depth
+# blocks), qwen3-4b 36 -> 8, yi-6b 32 -> 8, starcoder2-3b 30 -> 8;
+# each command line (launch.serve --full) keeps full depth
 SERVE_LAYERS = {"granite-moe-1b-a400m": 12, "phi-3-vision-4.2b": 16,
-                "mamba2-130m": 12, "zamba2-1.2b": 12}
+                "mamba2-130m": 12, "zamba2-1.2b": 12,
+                "qwen3-4b": 8, "yi-6b": 8, "starcoder2-3b": 8}
 
 
 def _serve_cfg(arch: str):
-    """``arch`` as phases 8, 18, 19 and 21 serve it: full width, flash
+    """``arch`` as phases 8, 18, 19, 21 and 31 serve it: full width, flash
     attention, at ``SERVE_LAYERS``' depth where it names one."""
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(arch), attn_impl="kernel")
@@ -4871,8 +5064,9 @@ COMPILED_BATCH_SIZES = (1, 2, 4, 8)
 # model's graphs, whose seconds scale with the layers (a 28-layer run on
 # a slow host: 72 s of export and 151 s of compile of a 219 s warmup,
 # the script 1322 s; 8 layers, 82.0 s of warmup, until the families'
-# training was added); phase 8 serves all 28
-COMPILED_LAYERS = 4
+# training was added; 4 layers, 81.1 s of warmup on a slow host, until
+# the dense models were served); phase 8 serves all 28
+COMPILED_LAYERS = 2
 COMPILED_STEPS = 16         # decode steps profiled alone
 # phase 25: Qwen3 at 2 float32 layers, 4 ragged prompts in a 512 bucket,
 # 8 decode steps; mamba2 at 2 float32 layers per slot, prompts of
@@ -5892,7 +6086,7 @@ def _wait_file(path: Path, proc=None, timeout: float = FAMILY_CPU_WAIT_S):
         if proc is not None and proc.poll() is not None and \
                 not path.exists():
             err = proc.stderr.read() if proc.stderr else ""
-            raise AssertionError(f"train CPU child exited {proc.returncode} "
+            raise AssertionError(f"the CPU child exited {proc.returncode} "
                                  f"before writing {path.name}:\n"
                                  f"{err[-3000:]}")
         if time.perf_counter() - t0 > timeout:
@@ -5900,22 +6094,28 @@ def _wait_file(path: Path, proc=None, timeout: float = FAMILY_CPU_WAIT_S):
         time.sleep(0.2)
 
 
-def family_cpu_child(out_dir: str) -> None:
-    """The child process of phase 30 (``FAMILY_CPU_CHILD``): the MoE's own
-    expert choices, then the CPU halves of the families that need nothing
-    from the card, then the MoE's under the card's choices (written by
-    phase 30 as ``<arch>.card_routes.pt``); each result written to
+def family_cpu_child(out_dir: str, parts: str = "train,serve") -> None:
+    """The child process of phases 30 and 32 (``FAMILY_CPU_CHILD``), which
+    computes the CPU halves named in ``parts``: for phase 30 (``train``)
+    the MoE's own expert choices, then the CPU halves of the families
+    that need nothing from the card; for phase 32 (``serve``) each dense
+    model's prefill and decode logits (``<arch>.serve_cpu.pt``); then,
+    for phase 30, the MoE's under the card's choices (written by phase 30
+    as ``<arch>.card_routes.pt``); each phase 30 result written to
     ``<arch>.cpu.pt`` in ``out_dir``."""
     torch.set_num_threads(FAMILY_CPU_THREADS)
-    out = Path(out_dir)
+    out, parts = Path(out_dir), parts.split(",")
     moe = [a for a in FAMILY_TRAIN_CPU
-           if _family_cpu_cfg(a).moe is not None]
+           if _family_cpu_cfg(a).moe is not None] if "train" in parts \
+        else []
     for arch in moe:
         _save_atomic(_cpu_half(arch, step=False),
                      out / f"{arch}.cpu_routes.pt")
-    for arch in FAMILY_TRAIN_CPU:
+    for arch in FAMILY_TRAIN_CPU if "train" in parts else ():
         if arch not in moe:
             _save_atomic(_cpu_half(arch), out / f"{arch}.cpu.pt")
+    for arch in DENSE_ARCHS if "serve" in parts else ():
+        _save_atomic(cpu_serving_half(arch), out / f"{arch}.serve_cpu.pt")
     for arch in moe:
         path = out / f"{arch}.card_routes.pt"
         _wait_file(path, timeout=FAMILY_CHILD_WAIT_S)
@@ -5926,7 +6126,7 @@ def family_cpu_child(out_dir: str) -> None:
 FAMILY_CPU_CHILD = """
 import sys
 import chip_smoke
-chip_smoke.family_cpu_child(sys.argv[1])
+chip_smoke.family_cpu_child(*sys.argv[1:])
 """
 _family_cpu: dict = {}
 
@@ -5941,8 +6141,9 @@ def _stop_family_cpu() -> None:
         shutil.rmtree(_family_cpu["dir"], ignore_errors=True)
 
 
-def start_family_cpu() -> None:
-    """Start phase 30's CPU child (once), off the card; a child still
+def start_family_cpu(parts: tuple = ("train", "serve")) -> None:
+    """Start the CPU child of phases 30 and 32 (once), off the card, for
+    the halves ``parts`` names (``family_cpu_child``); a child still
     running when the script exits is stopped and its files removed."""
     import tempfile
     if "proc" not in _family_cpu:
@@ -5953,7 +6154,8 @@ def start_family_cpu() -> None:
                                                str(ROOT / "src")]))
         _family_cpu["proc"] = subprocess.Popen(
             [sys.executable, "-c", FAMILY_CPU_CHILD,
-             str(_family_cpu["dir"])], stdout=subprocess.DEVNULL,
+             str(_family_cpu["dir"]), ",".join(parts)],
+            stdout=subprocess.DEVNULL,
             stderr=subprocess.PIPE, text=True, env=env)
 
 
@@ -6238,7 +6440,7 @@ def family_train_phase(arch: str) -> dict:
     return out
 
 
-def family_train_vs_cpu(arch: str) -> dict:
+def family_train_vs_cpu(arch: str, defer: bool = False):
     """Phase 30 for one family: ``FAMILY_TRAIN_CPU[arch]`` at full width
     and float32, the same weights (``init_params(cfg, 1)`` on the CPU)
     and batch on the card (kernels) and the CPU (plain versions, in the
@@ -6247,7 +6449,10 @@ def family_train_vs_cpu(arch: str) -> dict:
     (``_route_diffs``: a decisive difference fails, a float-class one is
     reported with its gap), the card's recompute under remat must choose
     as its forward did, and the CPU's gradients are taken under the
-    card's choices."""
+    card's choices.  With ``defer`` the card's half runs now and the
+    comparison is returned as a function, to be called later (the MoE's:
+    its CPU half starts from the card's expert choices, and the other
+    families' card halves run meanwhile)."""
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
@@ -6291,62 +6496,200 @@ def family_train_vs_cpu(arch: str) -> dict:
     step = dict(named_leaves(tree_map(lambda a, b: a - b, new_p, p)))
     grads = dict(named_leaves(grads))
     del new_p, p
-    path = out_dir / f"{arch}.cpu.pt"
-    t0 = time.perf_counter()
-    _wait_file(path, proc)
-    waited = time.perf_counter() - t0
-    cpu = torch.load(path, mmap=True)
 
-    def worst(got: dict, want: dict) -> dict:
-        if sorted(got) != sorted(want):
-            raise AssertionError(f"train card vs cpu {arch}: leaves differ")
-        rel = {}
-        for name, w in want.items():
-            w = w.to(DEV, torch.float64)
-            rel[name] = float((got[name].double() - w).abs().max()) / \
-                max(float(w.abs().max()), 1e-30)
-        return rel
-    grad_rel, step_rel = worst(grads, cpu["grads"]), worst(step, cpu["step"])
-    loss_rel = abs(float(loss) - cpu["loss"]) / abs(cpu["loss"])
-    pinned_flips = 0
-    if routes is not None:
-        # the forward's calls (the first of each layer's two)
-        pinned_flips = sum(int((o != t).any(-1).sum()) for o, t in zip(
-            cpu["own_routes"], torch.load(out_dir /
-                                          f"{arch}.card_routes.pt")))
-    del cpu
+    def finish() -> dict:
+        path = out_dir / f"{arch}.cpu.pt"
+        t0 = time.perf_counter()
+        _wait_file(path, proc)
+        waited = time.perf_counter() - t0
+        cpu = torch.load(path, mmap=True)
+
+        def worst(got: dict, want: dict) -> dict:
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"train card vs cpu {arch}: leaves "
+                                     f"differ")
+            rel = {}
+            for name, w in want.items():
+                w = w.to(DEV, torch.float64)
+                rel[name] = float((got[name].double() - w).abs().max()) / \
+                    max(float(w.abs().max()), 1e-30)
+            return rel
+        grad_rel = worst(grads, cpu["grads"])
+        step_rel = worst(step, cpu["step"])
+        loss_rel = abs(float(loss) - cpu["loss"]) / abs(cpu["loss"])
+        pinned_flips = 0
+        if routes is not None:
+            # the forward's calls (the first of each layer's two)
+            pinned_flips = sum(int((o != t).any(-1).sum()) for o, t in zip(
+                cpu["own_routes"], torch.load(out_dir /
+                                              f"{arch}.card_routes.pt")))
+        del cpu
+        path.unlink()
+        g_name = max(grad_rel, key=grad_rel.get)
+        s_name = max(step_rel, key=step_rel.get)
+        tol = TRAIN_CPU_TOL
+        log(f"train card vs cpu: {arch} at {cfg.n_layers} layers, float32, B="
+            f"{c['batch']} S={c['seq']}: loss {float(loss):.6f}, rel "
+            f"{loss_rel:.2e} (limit {tol['loss']:g}); gradients worst "
+            f"{grad_rel[g_name]:.2e} ({g_name}; limit {tol['grad']:g}); AdamW "
+            f"step worst {step_rel[s_name]:.2e} ({s_name}; limit "
+            f"{tol['step']:g}); launches {counts}"
+            + (f"; float-class routing differences {len(flips)}"
+               + "".join(f" (layer {f['layer']} token {f['token']} gap "
+                         f"{f['gap']:.2e})" for f in flips if "gap" in f)
+               + f"; tokens whose CPU choice the card's replaced under remat: "
+               f"{pinned_flips}" if routes is not None else "")
+            + f"; waited {waited:.1f} s for the CPU half")
+        if not (loss_rel <= tol["loss"] and grad_rel[g_name] <= tol["grad"]
+                and step_rel[s_name] <= tol["step"]):
+            raise AssertionError(f"train card vs cpu {arch}: past a limit")
+        return dict(arch=arch, layers=cfg.n_layers, batch=c["batch"],
+                    seq=c["seq"], loss=float(loss), loss_rel=loss_rel,
+                    grad_rel=grad_rel, step_rel=step_rel, launches=counts,
+                    route_flips=flips, pinned_replacements=pinned_flips,
+                    waited_s=waited)
+
+    return finish if defer else finish()
+
+
+def family_train_vs_cpu_all(phase) -> dict:
+    """Phase 30 over ``FAMILY_TRAIN_CPU``, through ``phase``: the MoE's
+    card half first (its expert choices start its CPU half in the child),
+    then the other families, then the MoE's comparison, whose CPU half the
+    child computed meanwhile."""
+    moe = [a for a in FAMILY_TRAIN_CPU if _family_cpu_cfg(a).moe is not None]
+    later = {arch: phase(f"30 train card vs cpu {arch}", family_train_vs_cpu,
+                         arch, True) for arch in moe}
+    out = {arch: phase(f"30 train card vs cpu {arch}", family_train_vs_cpu,
+                       arch) for arch in FAMILY_TRAIN_CPU if arch not in moe}
+    return {**out, **{arch: phase(f"30 train card vs cpu {arch} (compared)",
+                                  finish) for arch, finish in later.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phases 31-32: the dense models qwen3-4b, yi-6b and starcoder2-3b served
+# at full width, and each at 2 float32 layers against the CPU
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("qwen3-4b", "yi-6b", "starcoder2-3b")
+DECODE_ALONE_STEPS = 8      # phase 31: decode steps profiled alone
+
+
+def _long_prefill(params, cfg) -> dict:
+    """Phase 31's long prompt (``LONG_SERVE``) alone, as the engine
+    prefills it: padded to its bucket of ``max_seq`` positions with its
+    true length given; its seconds (warm: the engine's warmup ran that
+    bucket), flash once a layer, finite logits, and the window shown to
+    bind: the same weights and tokens without a window give other
+    logits."""
+    from repro_torch.kernels.dispatch import launch_counts, reset_launches
+    from repro_torch.models import lm
+    long = LONG_SERVE[cfg.name]
+    n, bucket = long["prompt"], long["max_seq"]
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    toks = torch.zeros((1, bucket), dtype=torch.int32, device=DEV)
+    toks[0, :n] = torch.randint(0, cfg.vocab, (n,), generator=gen,
+                                device=DEV, dtype=torch.int32)
+    true_len = torch.tensor([n], dtype=torch.int32, device=DEV)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, cfg, toks, max_seq=bucket,
+                               true_len=true_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    del cache
+    full, _ = lm.prefill(params, dataclasses.replace(cfg, sliding_window=None),
+                         toks, max_seq=bucket, true_len=true_len)
+    finite = bool(torch.isfinite(logits).all())
+    moved = float((logits.float() - full.float()).abs().max())
+    if not finite or moved == 0 or \
+            counts.get("flash_attention", 0) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} long prefill: finite {finite}, "
+                             f"moved by the window {moved}, launches "
+                             f"{counts} (expected {cfg.n_layers} flash)")
+    log(f"serve {cfg.name}: prefill of {n} tokens (bucket {bucket}, window "
+        f"{cfg.sliding_window}) in {wall:.3f} s, finite logits, max change "
+        f"against no window {moved:.3g}; launches {counts}")
+    return dict(prompt=n, bucket=bucket, wall_s=wall, launches=counts,
+                max_change_without_window=moved)
+
+
+def dense_serving(arch: str) -> dict:
+    """Phase 31 for one dense model: ``serving_phase`` at ``SERVE`` (at
+    ``SERVE_LAYERS``' depth; starcoder2-3b with its long request in a
+    cache of ``LONG_SERVE``'s rows) with its gates, the decode step alone
+    under the profiler (``_decode_loop``: the device's busy share), the
+    long prompt alone (``_long_prefill``), then ``launch.serve --full
+    --arch arch`` at full depth (``cli_phase``)."""
+    from repro_torch.configs import get_config
+    report, eng, reqs, stats, params = serving_phase(arch)
+    cfg = _serve_cfg(arch)
+    loop = report["decode_alone"] = _decode_loop(
+        eng.batched, reqs[:SERVE["slots"]], steps=DECODE_ALONE_STEPS)
+    if arch in LONG_SERVE:
+        report["long_prefill"] = _long_prefill(params, cfg)
+    del eng, reqs, stats, params
+    torch.cuda.empty_cache()
+    share = loop["busy_share"]
+    log(f"serve {arch}: {cfg.n_layers} of {get_config(arch).n_layers} "
+        f"layers, {report['tok_per_s']:.1f} tok/s, prefill "
+        f"{report['prefill_s']:.3f} s, {report['decode_ms_per_step']:.2f} "
+        f"ms a decode step while serving; the step alone "
+        f"{loop['host_ms_per_step']:.2f} ms, device busy "
+        + (f"{share:.1%}" if share is not None else "not measured")
+        + f"; peak {report['peak_gb']:.2f} GB")
+    report["cli"] = cli_phase(arch)
+    # the command line's full-depth engine holds its weights in reference
+    # cycles: freed here, not under the next phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+_dense_params: dict = {}
+
+
+def prefetch_dense_params() -> None:
+    """Draw phase 32's float32 weights on the host (``init_params(cfg, 1)``
+    on the CPU, as the child's CPU halves do), one model after another in
+    a thread, beside phase 31: the card's copy comes from them."""
+    from repro_torch.models import lm
+    if _dense_params:
+        return
+    pool = ThreadPoolExecutor(1)
+    for arch in DENSE_ARCHS:
+        _dense_params[arch] = pool.submit(lm.init_params, _vs_cpu_cfg(arch),
+                                          1, device="cpu")
+    pool.shutdown(wait=False)
+
+
+def dense_vs_cpu(arch: str) -> dict:
+    """Phase 32 for one dense model: ``card_vs_cpu`` (2 float32 layers at
+    full width; starcoder2-3b's window ``CPU_WINDOW``), the CPU half
+    computed in the child process (``cpu_serving_half``) and read from
+    its file, the weights those :func:`prefetch_dense_params` drew."""
+    prefetch_dense_params()
+    p_cpu = _dense_params.pop(arch).result()
+    start_family_cpu()
+    path = _family_cpu["dir"] / f"{arch}.serve_cpu.pt"
+    t0 = time.perf_counter()
+    _wait_file(path, _family_cpu["proc"])
+    waited = time.perf_counter() - t0
+    cpu = torch.load(path)["logits"]
     path.unlink()
-    g_name = max(grad_rel, key=grad_rel.get)
-    s_name = max(step_rel, key=step_rel.get)
-    tol = TRAIN_CPU_TOL
-    log(f"train card vs cpu: {arch} at {cfg.n_layers} layers, float32, B="
-        f"{c['batch']} S={c['seq']}: loss {float(loss):.6f}, rel "
-        f"{loss_rel:.2e} (limit {tol['loss']:g}); gradients worst "
-        f"{grad_rel[g_name]:.2e} ({g_name}; limit {tol['grad']:g}); AdamW "
-        f"step worst {step_rel[s_name]:.2e} ({s_name}; limit "
-        f"{tol['step']:g}); launches {counts}"
-        + (f"; float-class routing differences {len(flips)}"
-           + "".join(f" (layer {f['layer']} token {f['token']} gap "
-                     f"{f['gap']:.2e})" for f in flips if "gap" in f)
-           + f"; tokens whose CPU choice the card's replaced under remat: "
-           f"{pinned_flips}" if routes is not None else "")
-        + f"; waited {waited:.1f} s for the CPU half")
-    if not (loss_rel <= tol["loss"] and grad_rel[g_name] <= tol["grad"]
-            and step_rel[s_name] <= tol["step"]):
-        raise AssertionError(f"train card vs cpu {arch}: past a limit")
-    return dict(arch=arch, layers=cfg.n_layers, batch=c["batch"],
-                seq=c["seq"], loss=float(loss), loss_rel=loss_rel,
-                grad_rel=grad_rel, step_rel=step_rel, launches=counts,
-                route_flips=flips, pinned_replacements=pinned_flips,
-                waited_s=waited)
+    out = card_vs_cpu(arch, cpu, p_cpu)
+    log(f"card vs cpu {arch}: waited {waited:.1f} s for the CPU half")
+    return {**out, "waited_s": waited}
 
 
 def run_only(phases: set, phase) -> int:
     """``--only 8,24,25``: the build, then only the named phases among
-    7 (its checks), 17, 8, 24, 25, 26, 12, 27, 28, 29 and 30 (26 with
-    phase 3's owner-mask checks of ``sweep_guards`` first; 30 starts its
-    CPU child first; a development run: no kernels line, no result
-    line);
+    7 (its checks), 17, 8, 24, 25, 26, 12, 27, 28, 29, 30, 31 and 32 (26
+    with phase 3's owner-mask checks of ``sweep_guards`` first; 30 and 32
+    start their CPU child first, for their own halves; a development
+    run: no kernels line, no result line);
     what they return goes to ``chiprun_out/chip_smoke_only.json``."""
     from repro_torch.core.compile_cache import shutdown_workers
     out = {}
@@ -6376,17 +6719,26 @@ def run_only(phases: set, phase) -> int:
         if "28" in phases:
             out["mesh_modules"] = phase("28 mesh modules",
                                         mesh_modules_phase)
-        if "30" in phases:
-            start_family_cpu()
+        if {"30", "32"} & phases:
+            start_family_cpu(tuple(part for part, ph in (("train", "30"),
+                                                         ("serve", "32"))
+                                   if ph in phases))
         if "29" in phases:
             out["family_training"] = {
                 arch: phase(f"29 train {arch}", family_train_phase, arch)
                 for arch in FAMILY_TRAIN}
         if "30" in phases:
-            out["family_train_card_vs_cpu"] = {
-                arch: phase(f"30 train card vs cpu {arch}",
-                            family_train_vs_cpu, arch)
-                for arch in FAMILY_TRAIN_CPU}
+            out["family_train_card_vs_cpu"] = family_train_vs_cpu_all(phase)
+        if "32" in phases:
+            prefetch_dense_params()
+        if "31" in phases:
+            out["dense_serving"] = {
+                arch: phase(f"31 serve {arch}", dense_serving, arch)
+                for arch in DENSE_ARCHS}
+        if "32" in phases:
+            out["dense_card_vs_cpu"] = {
+                arch: phase(f"32 card vs cpu {arch}", dense_vs_cpu, arch)
+                for arch in DENSE_ARCHS}
     finally:
         shutdown_workers()
     out_dir = ROOT / "chiprun_out"
@@ -6454,6 +6806,7 @@ def kernel_resources() -> list:
 
 
 def main() -> int:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -6572,9 +6925,16 @@ def main() -> int:
     # width, and each family's float32 step against the CPU
     fam_train = {arch: phase(f"29 train {arch}", family_train_phase, arch)
                  for arch in FAMILY_TRAIN}
-    fam_train_cpu = {arch: phase(f"30 train card vs cpu {arch}",
-                                 family_train_vs_cpu, arch)
-                     for arch in FAMILY_TRAIN_CPU}
+    fam_train_cpu = family_train_vs_cpu_all(phase)
+    # 31-32: the dense models qwen3-4b, yi-6b and starcoder2-3b served at
+    # full width, and at 2 float32 layers against the CPU (the CPU halves
+    # from the child started before phase 18; the card's copy of the
+    # weights drawn on the host beside phase 31)
+    prefetch_dense_params()
+    dense = {arch: phase(f"31 serve {arch}", dense_serving, arch)
+             for arch in DENSE_ARCHS}
+    dense_cpu = {arch: phase(f"32 card vs cpu {arch}", dense_vs_cpu, arch)
+                 for arch in DENSE_ARCHS}
     part_launches = {k: sum(r["launches"][k] for app in PARTITIONED
                             for t, r in partitioned[app]["runs"].items()
                             if t.startswith("mesh")) for k in REPLACES}
@@ -6586,7 +6946,8 @@ def main() -> int:
 
     by_model = {**{arch: r["launches"] for arch, r in families.items()},
                 **{arch: r["launches"] for arch, r in recurrent.items()},
-                AUDIO_ARCH: whisper["decode"]["launches"]}
+                AUDIO_ARCH: whisper["decode"]["launches"],
+                **{arch: r["launches"] for arch, r in dense.items()}}
 
     kernels = []
     for name in REPLACES:
@@ -6662,8 +7023,10 @@ def main() -> int:
         partitioned=partitioned, sharded_training=sharded,
         decode_lse=decode_lse, mesh_modules=mesh_modules,
         kernel_resources=resources, family_training=fam_train,
-        family_train_card_vs_cpu=fam_train_cpu,
-        phase_seconds=seconds), indent=1))
+        family_train_card_vs_cpu=fam_train_cpu, dense_serving=dense,
+        dense_card_vs_cpu=dense_cpu, phase_seconds=seconds), indent=1))
+    log(f"phases: {sum(seconds.values()):.1f} s of {len(seconds)} phases, "
+        f"{time.perf_counter() - start:.1f} s since the script started")
     print(smi)
     line = json.dumps({"kernels": kernels})
     print(f"kernels {line}")

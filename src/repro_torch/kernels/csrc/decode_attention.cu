@@ -35,18 +35,23 @@
 //   cache (the bytes from HBM are those of hd) and zero-fills columns hd
 //   .. HDP - 1 (cp.async with a source size of 0); the lanes of q past hd
 //   hold zeros, and only hd columns are stored out.
-//   The kernel is instantiated for groups of up to 2, 4 and 8 heads, so a
-//   small group (Qwen3's 2) holds no registers for heads it does not have:
-//   7 blocks fit an SM, and the serving shape's live blocks fit in one
-//   wave.
+//   The kernel is instantiated for groups of up to 2, 4, 8 and 16 heads,
+//   so a small group (Qwen3's 2) holds no registers for heads it does not
+//   have: 7 blocks fit an SM, and the serving shape's live blocks fit in
+//   one wave.  A group over 16 (the reference's kernel takes any) is
+//   launched by the wrapper once a chunk of at most 16 query heads of
+//   each KV head (decode_attention.py, head_chunks).
 // * P . V: each thread holds 8 adjacent output columns for every query
 //   head and walks its share of the V rows, 16 bytes a row from shared
 //   memory; the shares are summed by shuffles and once through shared
-//   memory (the K tile's space).
+//   memory (the K tile's space; for 16 bf16 heads the K and V tiles',
+//   after a barrier, since the V tile is still being read).
 // * decode_merge_kernel combines the partials of the splits that hold
 //   data: a warp a query head turns the splits' maxima into weights, then
 //   the splits' partials of each 4 output columns are summed by several
-//   threads at once (group * hd / 4 outputs over 256 threads).
+//   threads at once (group * hd / 4 outputs over 256 threads; more
+//   outputs than threads, as groups over 8 at hd 128 give, in passes of
+//   256, one thread an output).
 // * kv_len is read from device memory by both kernels (no host sync).  A
 //   split at or past kv_len returns before reading anything, so the
 //   unfilled tail of the cache costs no traffic; the ragged last split
@@ -73,7 +78,7 @@ namespace {
 constexpr int kSplit = 64;      // cache positions per block
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;    // query heads per KV head
+constexpr int kMaxGroup = 16;   // query heads per KV head a launch
 constexpr int kElem = 8;        // elements a lane owns in a row
 constexpr int kMergeThreads = 256;
 
@@ -187,8 +192,9 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* src,
   }
 }
 
-// G: the most query heads a KV head this instantiation takes (2, 4 or 8),
-// so that q and the accumulators of a smaller group take no registers.
+// G: the most query heads a KV head this instantiation takes (2, 4, 8 or
+// 16), so that q and the accumulators of a smaller group take no
+// registers.
 template <typename T, int HD, int G>
 size_t partial_smem() {
   return 2 * sizeof(T) * kSplit * padded<HD>() + sizeof(float) * G * kSplit;
@@ -202,9 +208,13 @@ decode_partial_kernel(DecodeArgs a) {
   constexpr int kRowsWarp = 32 / kLanes;          // rows a warp a step
   constexpr int kRowStep = kRowsWarp * kWarps;
   constexpr int kSubsets = kThreads / kLanes;     // P.V row shares
+  // the P.V reduction's space: the K tile's, or for 16 bf16 heads the K
+  // and V tiles' (after a barrier: the V tile is read up to then)
+  constexpr bool kRedPastK =
+      kWarps * G * HDP * 4 > kSplit * HDP * (int)sizeof(T);
   static_assert(G <= kMaxGroup &&
-                    kWarps * G * HDP * 4 <= kSplit * HDP * (int)sizeof(T),
-                "the P.V reduction reuses the K tile's space");
+                    kWarps * G * HDP * 4 <= 2 * kSplit * HDP * (int)sizeof(T),
+                "the P.V reduction reuses the K and V tiles' space");
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int len = valid_len(a.kv_len, b, a.s_max);
   const int s0 = split * kSplit;
@@ -217,7 +227,7 @@ decode_partial_kernel(DecodeArgs a) {
   T* ks = reinterpret_cast<T*>(smem);                       // [kSplit][HDP]
   T* vs = ks + kSplit * HDP;                                // [kSplit][HDP]
   float* p_s = reinterpret_cast<float*>(vs + kSplit * HDP); // [group][kSplit]
-  float* red = reinterpret_cast<float*>(ks);  // [kWarps][group][HDP], later
+  float* red = reinterpret_cast<float*>(ks);  // [kWarps][G][HDP], later
 
   copy_rows<T, HD>(ks, static_cast<const T*>(a.k) + b * a.k_sb +
                            kvh * a.k_sh + (long long)s0 * a.k_ss,
@@ -327,6 +337,7 @@ decode_partial_kernel(DecodeArgs a) {
 #pragma unroll
         for (int o = kLanes; o < 32; o <<= 1)
           acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+  if constexpr (kRedPastK) __syncthreads();   // every V row read
   if (lane < kLanes) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -361,7 +372,8 @@ decode_partial_kernel(DecodeArgs a) {
 // (kv_head, b).  Each split's max becomes its weight exp(m_s - M) / L in
 // place (part_m); then each output float4 is summed over the splits by
 // kMergeThreads / (group * HD / 4) threads at once, whose shares meet in
-// shared memory.
+// shared memory (more outputs than threads: passes of kMergeThreads
+// outputs, a thread each).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kMergeThreads)
 decode_merge_kernel(DecodeArgs a) {
@@ -394,42 +406,46 @@ decode_merge_kernel(DecodeArgs a) {
   }
   __syncthreads();
   const int n_out = group * HD / 4;              // float4 outputs
-  const int per = max(1, kMergeThreads / n_out);  // threads an output
-  const int o = tid % n_out, k = tid / n_out;
-  const int g = o / (HD / 4), d = (o % (HD / 4)) * 4;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (k < per) {
-    for (int s = k; s < used; s += per) {
-      const long long i = (base + s) * group + g;
-      const float w = a.part_m[i];
-      const float4 v = *reinterpret_cast<const float4*>(a.part_acc + i * HD
-                                                        + d);
-      acc.x = fmaf(v.x, w, acc.x);
-      acc.y = fmaf(v.y, w, acc.y);
-      acc.z = fmaf(v.z, w, acc.z);
-      acc.w = fmaf(v.w, w, acc.w);
+  const int span = min(n_out, kMergeThreads);    // outputs a pass
+  const int per = kMergeThreads / span;          // threads an output
+  for (int o0 = 0; o0 < n_out; o0 += span) {
+    const int o = o0 + tid % span, k = tid / span;
+    const int g = o / (HD / 4), d = (o % (HD / 4)) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k < per && o < n_out) {
+      for (int s = k; s < used; s += per) {
+        const long long i = (base + s) * group + g;
+        const float w = a.part_m[i];
+        const float4 v = *reinterpret_cast<const float4*>(a.part_acc +
+                                                          i * HD + d);
+        acc.x = fmaf(v.x, w, acc.x);
+        acc.y = fmaf(v.y, w, acc.y);
+        acc.z = fmaf(v.z, w, acc.z);
+        acc.w = fmaf(v.w, w, acc.w);
+      }
     }
-  }
-  share[tid] = acc;
-  __syncthreads();
-  if (k == 0) {
-    for (int kk = 1; kk < per; ++kk) {
-      const float4 v = share[kk * n_out + o];
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
+    share[tid] = acc;
+    __syncthreads();
+    if (k == 0 && o < n_out) {
+      for (int kk = 1; kk < per; ++kk) {
+        const float4 v = share[kk * span + tid % span];
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      const long long at = row0 + g * HD + d;   // used == 0: exact zeros
+      if (a.lse != nullptr) {
+        *reinterpret_cast<float4*>(static_cast<float*>(a.out) + at) = acc;
+      } else {
+        T* po = static_cast<T*>(a.out) + at;
+        from_f(acc.x, po);
+        from_f(acc.y, po + 1);
+        from_f(acc.z, po + 2);
+        from_f(acc.w, po + 3);
+      }
     }
-    const long long at = row0 + g * HD + d;   // used == 0: exact zeros
-    if (a.lse != nullptr) {
-      *reinterpret_cast<float4*>(static_cast<float*>(a.out) + at) = acc;
-    } else {
-      T* po = static_cast<T*>(a.out) + at;
-      from_f(acc.x, po);
-      from_f(acc.y, po + 1);
-      from_f(acc.z, po + 2);
-      from_f(acc.w, po + 3);
-    }
+    if (o0 + span < n_out) __syncthreads();     // share is written again
   }
 }
 
@@ -453,14 +469,16 @@ template <typename T, int HD>
 int launch(const DecodeArgs& a, int batch, cudaStream_t stream) {
   if (a.group <= 2) return launch_g<T, HD, 2>(a, batch, stream);
   if (a.group <= 4) return launch_g<T, HD, 4>(a, batch, stream);
-  return launch_g<T, HD, 8>(a, batch, stream);
+  if (a.group <= 8) return launch_g<T, HD, 8>(a, batch, stream);
+  return launch_g<T, HD, 16>(a, batch, stream);
 }
 
 template <typename T, int HD>
 long long smem_of(int group) {
   if (group <= 2) return partial_smem<T, HD, 2>();
   if (group <= 4) return partial_smem<T, HD, 4>();
-  return partial_smem<T, HD, 8>();
+  if (group <= 8) return partial_smem<T, HD, 8>();
+  return partial_smem<T, HD, 16>();
 }
 
 }  // namespace

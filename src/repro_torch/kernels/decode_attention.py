@@ -16,9 +16,12 @@ A CUDA tensor launches ``csrc/decode_attention.cu`` — a split-KV pass
 over 64-row splits (``decode_partial_kernel``) and a merge pass
 (``decode_merge_kernel``) in one call, counted as one launch — which
 reads ``kv_len`` on the device (no host sync) and skips every cache block
-at or past it (``hd`` 64, 96 or 128, float32 or bfloat16, at most 8
-query heads per KV head; anything else raises; hd 96 runs in tiles 128
-wide whose last 32 columns are zeros, reading only 96 columns).  :func:`launch_args` is the
+at or past it (``hd`` 64, 96 or 128, float32 or bfloat16; anything
+else raises; hd 96 runs in tiles 128 wide whose last 32 columns are
+zeros, reading only 96 columns).  A launch takes at most ``MAX_GROUP``
+(16) query heads per KV head; a larger group, which the reference's
+kernel also takes, runs one launch a chunk of :func:`head_chunks` (each
+reads the cache again).  :func:`launch_args` is the
 launch's host side as plain numbers (split count from ``S_max`` alone,
 grids, scratch, strides).  A CPU or meta tensor takes
 :func:`decode_attention_plain` (:mod:`.dispatch`).
@@ -37,7 +40,7 @@ from .dispatch import count_launch, uses_kernel
 from .flash_attention import _aligned
 
 NEG_INF = -1e30
-MAX_GROUP = 8
+MAX_GROUP = 16          # query heads per KV head a launch (csrc kMaxGroup)
 SPLIT = 64              # cache rows a block (csrc kSplit)
 HEAD_DIMS = (64, 96, 128)
 _VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -62,12 +65,23 @@ class Launch(NamedTuple):
     n_stat: int             # m (and l) slots, rounded up to 4: acc aligned
     part_numel: int         # float32 scratch: m, l and acc of each split
     scale: float
+    chunks: tuple           # query heads a KV head of each launch
 
 
 def group_bound(group: int) -> int:
-    """The partial kernel instantiation a group runs: the most query heads
-    a KV head it takes (2, 4 or 8)."""
-    return 2 if group <= 2 else 4 if group <= 4 else MAX_GROUP
+    """The partial kernel instantiation a launch of ``group`` query heads
+    a KV head runs: the most it takes (2, 4, 8 or 16)."""
+    return 2 if group <= 2 else 4 if group <= 4 else 8 if group <= 8 \
+        else MAX_GROUP
+
+
+def head_chunks(group: int) -> tuple:
+    """The query heads a KV head of each launch: the whole group up to
+    ``MAX_GROUP``, a larger one in ``ceil(group / MAX_GROUP)`` chunks as
+    equal as they come (24 -> 12 + 12)."""
+    n = -(-group // MAX_GROUP)
+    size, extra = divmod(group, n)
+    return tuple(size + (i < extra) for i in range(n))
 
 
 def padded(hd: int) -> int:
@@ -79,36 +93,40 @@ def padded(hd: int) -> int:
 def smem_bytes(dtype: torch.dtype, hd: int, group: int) -> int:
     """Dynamic shared memory a block of the partial kernel: its K and V
     tiles (rows :func:`padded` wide) and the scores of its group bound's
-    heads (csrc partial_smem)."""
+    heads (csrc partial_smem); for a group over ``MAX_GROUP``, a block
+    of its largest chunk's launch."""
     return 2 * SPLIT * padded(hd) * dtype.itemsize + \
-        4 * group_bound(group) * SPLIT
+        4 * group_bound(max(head_chunks(group))) * SPLIT
 
 
 def launch_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_len: torch.Tensor) -> Launch:
     """Everything a launch needs but the outputs, scratch and stream, on
     any device; raises on what no kernel takes.  ``n_split`` comes from
-    ``S_max`` alone (``kv_len`` stays on the device)."""
+    ``S_max`` alone (``kv_len`` stays on the device).  A group over
+    ``MAX_GROUP`` runs one launch a chunk (``chunks``); ``smem_partial``,
+    ``n_stat`` and ``part_numel`` are then those of its largest chunk's
+    launch, and the other fields describe the whole call."""
     _check_shapes(q, k, v, kv_len)
     B, nh, hd = q.shape
     S, nkv = k.shape[1], k.shape[2]
     group = nh // nkv
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype \
-            or hd not in HEAD_DIMS or group > MAX_GROUP:
+            or hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention kernel takes float32 or bfloat16 "
-                         f"q/k/v of one dtype, head_dim 64, 96 or 128 and at "
-                         f"most {MAX_GROUP} query heads per KV head, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}, hd={hd}, "
-                         f"group={group}")
+                         f"q/k/v of one dtype and head_dim 64, 96 or 128, "
+                         f"got {q.dtype}/{k.dtype}/{v.dtype}, hd={hd}")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     n_split = -(-S // SPLIT)
-    slots = B * nkv * n_split * group
+    chunks = head_chunks(group)
+    slots = B * nkv * n_split * max(chunks)
     n_stat = -(-slots // 4) * 4         # acc's float4 stores stay aligned
     return Launch(q, k, v, (q.stride(0), q.stride(1), *k.stride()[:3],
                             *v.stride()[:3]),
                   (B, S, nkv, group, hd), _DTYPES[q.dtype], n_split,
                   (n_split, nkv, B), (nkv, B), smem_bytes(q.dtype, hd, group),
-                  n_stat, 2 * n_stat + hd * slots, 1.0 / math.sqrt(hd))
+                  n_stat, 2 * n_stat + hd * slots, 1.0 / math.sqrt(hd),
+                  chunks)
 
 
 def _check_shapes(q, k, v, kv_len) -> None:
@@ -169,6 +187,8 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or S == 0:
         out.zero_()
         return (out, lse.fill_(-math.inf)) if return_lse else out
+    if len(a.chunks) > 1:
+        return _by_chunks(q, k, v, kv_len, a.chunks, out, lse)
     kv_len = kv_len.contiguous()
     part = torch.empty(a.part_numel, dtype=torch.float32, device=q.device)
     lib = _build.bind("decode_attention", _SIGNATURES)
@@ -181,3 +201,26 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, "decode_attention", "decode_attention", rc)
     count_launch("decode_attention")
     return (out, lse) if return_lse else out
+
+
+def _by_chunks(q, k, v, kv_len, chunks: tuple, out: torch.Tensor, lse):
+    """A group over ``MAX_GROUP``: one launch a chunk of each KV head's
+    query heads (its own contiguous copy of those rows of ``q``), the
+    results written into ``out`` (and ``lse``) at the chunk's heads."""
+    B, nh, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(B, nkv, nh // nkv, hd)
+    og = out.view(B, nkv, nh // nkv, hd)
+    c0 = 0
+    for c in chunks:
+        part = decode_attention_fwd(
+            qg[:, :, c0:c0 + c].reshape(B, nkv * c, hd), k, v, kv_len,
+            return_lse=lse is not None)
+        if lse is None:
+            og[:, :, c0:c0 + c] = part.view(B, nkv, c, hd)
+        else:
+            og[:, :, c0:c0 + c] = part[0].view(B, nkv, c, hd)
+            lse.view(B, nkv, nh // nkv)[:, :, c0:c0 + c] = \
+                part[1].view(B, nkv, c)
+        c0 += c
+    return out if lse is None else (out, lse)

@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import (
-    MAX_GROUP, SPLIT, decode_attention_fwd, decode_attention_plain,
-    group_bound, launch_args, padded, smem_bytes)
+    MAX_GROUP, SPLIT, _by_chunks, decode_attention_fwd,
+    decode_attention_plain, group_bound, head_chunks, launch_args, padded,
+    smem_bytes)
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -69,7 +70,8 @@ def test_split_count_comes_from_s_max_alone(S, n_split):
 
 
 @pytest.mark.parametrize("group,bound", [(1, 2), (2, 2), (3, 4), (4, 4),
-                                         (5, 8), (8, 8)])
+                                         (5, 8), (8, 8), (9, 16), (12, 16),
+                                         (16, 16)])
 def test_group_picks_its_instantiation(group, bound):
     assert group_bound(group) == bound
     for dtype in (BF16, F32):
@@ -125,13 +127,55 @@ def test_unaligned_cache_is_copied():
     (BF16, F32, 128, 16, 8, "one dtype"),
     (BF16, BF16, 80, 16, 8, "head_dim 64, 96 or 128"),
     (F32, F32, 80, 32, 32, "head_dim 64, 96 or 128"),
-    (BF16, BF16, 128, 2 * MAX_GROUP * 2, 2, f"most {MAX_GROUP}"),
+    (BF16, BF16, 128, 24, 16, r"nkv \| nh"),
 ])
 def test_refuses_what_no_kernel_takes(q_dt, kv_dt, hd, nh, nkv, match):
     q = torch.zeros(2, nh, hd, dtype=q_dt)
     k = torch.zeros(2, 64, nkv, hd, dtype=kv_dt)
     with pytest.raises(ValueError, match=match):
         launch_args(q, k, k.clone(), _lens(2))
+
+
+@pytest.mark.parametrize("group,chunks", [
+    (12, (12,)), (16, (16,)), (17, (9, 8)), (24, (12, 12)),
+    (48, (16, 16, 16))])
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_large_groups_take_one_launch_a_chunk(group, chunks, dtype):
+    """A group up to MAX_GROUP (16) is one launch of the 16-head
+    instantiation (starcoder2-3b's 12); a larger one, which the
+    reference's kernel also takes, one launch a chunk of at most 16 heads
+    of each KV head, each with the 16-head block's shared memory."""
+    B, S, nkv, hd = 8, 2048, 2, 128
+    a = launch_args(*_qkv(B, S, group * nkv, nkv, hd, dtype), _lens(B))
+    assert head_chunks(group) == a.chunks == chunks
+    assert sum(chunks) == group and max(chunks) <= MAX_GROUP
+    assert a.dims == (B, S, nkv, group, hd)
+    assert a.grid_partial == (S // SPLIT, nkv, B)
+    want = 2 * SPLIT * 128 * dtype.itemsize + 4 * 16 * SPLIT
+    assert a.smem_partial == smem_bytes(dtype, hd, group) == want
+    assert want <= SMEM_LIMIT
+    slots = B * nkv * (S // SPLIT) * max(chunks)
+    assert a.n_stat == slots and a.part_numel == 2 * slots + hd * slots
+
+
+@pytest.mark.parametrize("chunks", [(12, 12), (9, 8, 7)])
+def test_chunked_launches_assemble_the_whole_group(chunks):
+    """The chunked call's assembly: each chunk's heads of every KV head
+    through the wrapper (its plain version here) land at their heads of
+    ``out`` and ``lse``: bitwise the plain version on the whole group."""
+    g = torch.Generator().manual_seed(1)
+    B, S, nkv, hd = 3, SPLIT + 7, 2, 64
+    nh = sum(chunks) * nkv
+    q = torch.randn(B, nh, hd, generator=g)
+    k = torch.randn(B, S, nkv, hd, generator=g)
+    v = torch.randn(B, S, nkv, hd, generator=g)
+    kv_len = torch.tensor([0, 9, S], dtype=torch.int32)
+    out, lse = _by_chunks(q, k, v, kv_len, chunks, torch.empty(B, nh, hd),
+                          torch.empty(B, nh))
+    want, want_lse = decode_attention_plain(q, k, v, kv_len, return_lse=True)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    out = _by_chunks(q, k, v, kv_len, chunks, torch.empty(B, nh, hd), None)
+    assert torch.equal(out, decode_attention_plain(q, k, v, kv_len))
 
 
 @pytest.mark.parametrize("kv_len,match", [

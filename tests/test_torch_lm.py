@@ -241,7 +241,7 @@ def test_sample_tokens_greedy_and_topk1():
     assert set(draws.tolist()) <= {0, 1} and draws.dtype == torch.int32
 
 
-def test_non_dense_families_not_ported():
+def test_batched_adapter_refuses_the_hybrid_family():
     """Batched serving is not ported for the non-attention-cache families,
     nor is it in the reference: the adapter refuses the hybrid family
     (zamba2, served per slot: ``tests/test_torch_recurrent_audio.py``)
@@ -257,7 +257,7 @@ def test_non_dense_families_not_ported():
         lm.init_params(dataclasses.replace(cfg, family="rnn"), device="cpu")
 
 
-def test_mamba2_serving_not_ported():
+def test_batched_adapter_refuses_mamba2_which_serves_per_slot():
     """Mamba2 serves per slot only (recurrent decode): the batched adapter
     refuses it, as the reference's does; prefill fills the per-slot
     cache (states, no K/V) and ``init_decode_cache`` makes its zeros."""
