@@ -1535,9 +1535,10 @@ def _schedule(rep, eng) -> tuple:
 
 
 def async_vs_cpu() -> dict:
-    """Each async-port graph of phase 4 again on the card, with CUDA events
-    around each block of replays (device time a sweep in the sweep's
-    graphs), and on the CPU (the plain versions): the schedule (sweeps,
+    """Each async-port graph of phase 4 again on the card, with the device
+    time a sweep in the sweep's graphs (``CompiledEngine.graph_device_s``:
+    the program's CUDA events around each block of replays), and on the
+    CPU (the plain versions): the schedule (sweeps,
     fires, channel stats, port counters) equal, the outputs within
     ``CPU_REL_TOL`` of the CPU's and ``REF_REL_TOL`` of the reference
     (relative to max |out|)."""
@@ -1549,15 +1550,14 @@ def async_vs_cpu() -> dict:
         for dev in ("cuda", "cpu"):
             top, args, check = APPS[name].build_step_async(device=dev, **kw)
             eng = ENGINES["compiled"](device=dev)
-            with _TimedReplays() as tr:
-                rep = eng.run(top, *args)
+            rep = eng.run(top, *args)
             if not rep.ok:
                 raise AssertionError(f"{name} async on {dev}: {rep.error}")
             runs[dev] = dict(y=_async_outputs(name, args).cpu().double(),
                              schedule=_schedule(rep, eng), eng=eng,
                              err=check()[1])
             if dev == "cuda":
-                graph_s = tr.device_s()[0]
+                graph_s = eng.graph_device_s
         c, g = runs["cpu"], runs["cuda"]
         if g["schedule"] != c["schedule"]:
             raise AssertionError(f"{name} async: the card's schedule "
@@ -1700,47 +1700,12 @@ def twin_vs_compiled() -> dict:
     return out
 
 
-class _TimedReplays:
-    """Inside the block, every block of replays of a sweep's graph
-    (``SweepGraph.replay(k)``) is bracketed by two CUDA events on its
-    stream.  Inside a block the host submits the replays back to back and
-    runs ahead of the card; only a block's first replay may wait for the
-    host's submission, so the blocks of :data:`TIMED_BLOCK` replays
-    before the run's last block (which replays past the run's end) give
-    the device time a replay of a sweep that runs."""
-
-    def __enter__(self):
-        from repro_torch.kernels.ring import SweepGraph
-        self.events, self._orig = [], SweepGraph.replay
-        events, orig = self.events, self._orig
-
-        def replay(graph, k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            orig(graph, k)
-            e1.record()
-            events.append((k, e0, e1))
-
-        SweepGraph.replay = replay
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.kernels.ring import SweepGraph
-        SweepGraph.replay = self._orig
-
-    def device_s(self) -> tuple[float, float, int]:
-        """Seconds in all the blocks, seconds in the blocks of
-        :data:`TIMED_BLOCK` replays but the last block, and their
-        replays."""
-        torch.cuda.synchronize()
-        ms = [(k, a.elapsed_time(b)) for k, a, b in self.events]
-        full = [(k, t) for k, t in ms[:-1] if k == TIMED_BLOCK]
-        return (sum(t for _, t in ms) / 1e3, sum(t for _, t in full) / 1e3,
-                sum(k for k, _ in full))
-
-
-TIMED_BLOCK = 64            # the sweep program's largest block
+# the sweep program's largest block: inside a block the host submits the
+# replays back to back and runs ahead of the card, so only a block's first
+# replay may wait for the host's submission, and the blocks of TIMED_BLOCK
+# replays before a run's last (which replays past the run's end) give the
+# device time a replay of a sweep that runs
+TIMED_BLOCK = 64
 
 
 def _graph_time_us(replay, n: int = 200) -> float:
@@ -1805,11 +1770,12 @@ def graph_node_costs() -> list:
 
 
 def breakdown(device_ms: dict) -> dict:
-    """Phase 6: each app at full size, twice more.  Uninstrumented: host
+    """Phase 6: each app at full size, twice more.  The first run: host
     ms a sweep two ways (``program_s`` over the sweeps: the sweep loop
     with its capture and the write-back, as earlier trees measured it;
-    and without the capture).  With CUDA events around every block of
-    replays: the device time spent in the sweep's graphs, over the sweeps
+    and without the capture).  From the program's own CUDA events around
+    every block of replays (``CompiledEngine.trace.blocks()``,
+    ``graph_device_s``): the device time spent in the sweep's graphs, over the sweeps
     and as a share of that run's loop, and a replay's over the blocks of
     :data:`TIMED_BLOCK` (gaussian's; gemm's and page_rank's runs end in
     shorter blocks).  Not under the profiler: on this card it does not
@@ -1830,10 +1796,12 @@ def breakdown(device_ms: dict) -> dict:
         sweeps, loop_s = eng.n_sweeps, eng.program_s - eng.capture_s
         top, args, _ = APPS[name].build_step(device="cuda", **kw)
         timed = ENGINES["compiled"](device="cuda")
-        with _TimedReplays() as tr:
-            if not timed.run(top, *args).ok:
-                raise AssertionError(f"{name}: the timed run failed")
-        graph_s, full_s, full_replays = tr.device_s()
+        if not timed.run(top, *args).ok:
+            raise AssertionError(f"{name}: the timed run failed")
+        blocks = timed.trace.blocks()
+        full = [(k, t) for k, t in blocks[:-1] if k == TIMED_BLOCK]
+        graph_s = timed.graph_device_s
+        full_s, full_replays = sum(t for _, t in full), sum(k for k, _ in full)
         per_replay = full_s / full_replays * 1e6 if full_replays else None
         timed_loop_s = timed.program_s - timed.capture_s
         out[name] = dict(build_s=build_s, lower_s=eng.lower_s,
@@ -5631,8 +5599,9 @@ def _partitioned_run(name: str, built: tuple, mesh, pins, cache) -> dict:
     """One run of ``name``'s graph (``built``: what ``build_step`` returned)
     through the compiled engine on the card (``mesh=None``: the
     single-device run), its outputs zeroed first, its launch counts zeroed
-    just before and read just after, CUDA events around each replay of a
-    sweep graph; its outputs, as the engine left them."""
+    just before and read just after, the device time in the sweep graphs
+    (``graph_device_s``: the program's CUDA events around each block of
+    replays over every partition); its outputs, as the engine left them."""
     from repro_torch import ENGINES
     from repro_torch.kernels.dispatch import launch_counts, reset_launches
     top, args, check = built
@@ -5643,12 +5612,11 @@ def _partitioned_run(name: str, built: tuple, mesh, pins, cache) -> dict:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    with _TimedReplays() as tr:
-        rep = eng.run(top, *args)
+    rep = eng.run(top, *args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: launch_counts().get(k, 0) for k in REPLACES}
-    graph_s = tr.device_s()[0]
+    graph_s = eng.graph_device_s
     correct, err = check() if rep.ok else (False, float("nan"))
     if not (rep.ok and correct):
         raise AssertionError(f"partitioned {name} mesh={mesh}: the run or "
@@ -5713,7 +5681,7 @@ def partitioned_phase() -> dict:
     Recorded: the cost probes' cells and seconds, the placement, lowering
     and capture seconds, host syncs, sweeps/s over the sweep loop alone
     (host seconds from the first sweep to the last done-flag read:
-    ``loop_s``) and device us a sweep (CUDA events around each replay)
+    ``loop_s``) and device us a sweep (``graph_device_s``)
     against the single-device run, and the cut bytes copied a sweep.
     Each app is built once (page_rank's build takes seconds) and its
     outputs zeroed before each run.  The
@@ -6686,7 +6654,9 @@ def dense_vs_cpu(arch: str) -> dict:
 
 def run_only(phases: set, phase) -> int:
     """``--only 8,24,25``: the build, then only the named phases among
-    7 (its checks), 17, 8, 24, 25, 26, 12, 27, 28, 29, 30, 31 and 32 (26
+    4a (phase 4's async graphs against the CPU), 6 (without phase 3's
+    kernel times), 7 (its checks), 17, 8, 24, 25, 26, 12, 27, 28, 29, 30,
+    31 and 32 (26
     with phase 3's owner-mask checks of ``sweep_guards`` first; 30 and 32
     start their CPU child first, for their own halves; a development
     run: no kernels line, no result line);
@@ -6694,6 +6664,10 @@ def run_only(phases: set, phase) -> int:
     from repro_torch.core.compile_cache import shutdown_workers
     out = {}
     try:
+        if "4a" in phases:
+            out["async_vs_cpu"] = phase("4 async vs cpu", async_vs_cpu)
+        if "6" in phases:       # without phase 3's kernel times
+            out["breakdown"] = phase("6 breakdown", breakdown, {})
         if "7" in phases:
             out["attention_checks"] = phase("7 attention checks",
                                             check_attention)[0]

@@ -72,6 +72,7 @@ from .errors import (ChannelMisuse, DeadlockReport, GraphValidationError,
                      SynthesisError)
 from .graph import extract_graph
 from .interface import AsyncMMap, MMap
+from .trace import Trace
 from .task import (AutoStream, TaskInstance, bind_streams,
                    builder_stack_depth, join_pending_builders)
 from ..kernels.ring import (MAX_PORT_DEPTH, MAX_SWEEP_CHANNELS,
@@ -79,7 +80,8 @@ from ..kernels.ring import (MAX_PORT_DEPTH, MAX_SWEEP_CHANNELS,
                             P_ACC_W, P_DEL_R, P_DEL_W, P_MAX_R, P_MAX_W,
                             P_RHEAD, P_RSIZE, P_WSIZE,
                             PORT_WORDS, PortQueue, RingHandle, ServicePorts,
-                            SweepGraph, SweepGuards, sparse_needs)
+                            SweepGraph, SweepGuards, SweepStamps,
+                            sparse_needs)
 
 # JAX's canonicalization with 64-bit mode off, which the reference
 # package's rings, mmaps and states carry
@@ -977,6 +979,10 @@ def _host_tensor(a: Any) -> torch.Tensor:
     return torch.tensor(a)
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _rebase_port_dues(q: PortQueue, sweeps: torch.Tensor) -> None:
     """Rewrite ``q``'s due stamps, in place, from the chunk's sweep counter
     to "sweeps remaining": ``due - sweeps`` in a slot in use, 0 in a free
@@ -1203,6 +1209,16 @@ class ChunkRead(NamedTuple):
     ports: list
 
 
+def _spent(name: str) -> property:
+    """A read-only view: host seconds in the trace's spans ``name``."""
+    return property(lambda self: self.trace.seconds(name))
+
+
+def _counted(name: str) -> property:
+    """A read-only view: the trace's counter ``name``."""
+    return property(lambda self: self.trace.counters.get(name, 0))
+
+
 class _SweepProgram:
     """The whole graph as one sweep loop on ``device``.
 
@@ -1273,19 +1289,46 @@ class _SweepProgram:
     sampled from the sweep-end sizes, then the cut rings in
     :attr:`copies`.
 
-    After a run: ``capture_s`` (host seconds capturing, 0 on the CPU),
-    ``n_captures`` (0 on the CPU), ``n_replays`` (sweeps replayed, those
-    past the end included), ``n_blocks`` and ``n_host_syncs`` (one a block
-    and one final read; a resumable run also syncs once before each
-    chunk's read), ``n_graph_nodes`` (the sweep graph's top-level nodes, 0
-    on the CPU), ``read_s`` (host seconds of the last :meth:`read`).
-    On the card the ring kernels count their own launches, replayed ones
-    included (:mod:`..kernels.dispatch`).
+    The program records into ``trace`` (:class:`~.trace.Trace`; its own
+    when none is given) the spans ``prepare`` (by :meth:`__call__`),
+    ``capture`` (``capture.warm``, ``capture.kept``,
+    ``capture.instantiate``), ``drop`` (the captured bodies freed),
+    ``loop``, ``read``, ``release`` and, when stamped, ``stamps``; the
+    counters ``n_replays``, ``n_blocks``, ``n_host_syncs``,
+    ``read_bytes``, ``body_nodes[row]`` and ``sweep_nodes`` (the
+    guards' and the tail's nodes a replay); and a pair of timing events
+    around each block of replays and each copy the final read makes,
+    anchored to the host's clock when the loop starts.  ``stamps`` (on
+    the card) puts the stamps of :class:`~..kernels.ring.SweepStamps`
+    into the sweep graph and their reading into ``trace.stamps``.
+
+    After a run, views of the trace: ``capture_s`` (host seconds
+    capturing, 0 on the CPU), ``n_replays`` (sweeps replayed, those past
+    the end included), ``n_blocks`` and ``n_host_syncs`` (one a block and
+    one final read; a resumable run also syncs once before each chunk's
+    read), ``read_s`` (host seconds of the last :meth:`read`); and
+    ``n_captures`` (0 on the CPU), ``n_graph_nodes`` (the sweep graph's
+    top-level nodes, 0 on the CPU).  On the card the ring kernels count
+    their own launches, replayed ones included (:mod:`..kernels.dispatch`).
     """
 
+    capture_s = _spent("capture")
+    loop_s = _spent("loop")
+    n_replays = _counted("n_replays")
+    n_blocks = _counted("n_blocks")
+    n_host_syncs = _counted("n_host_syncs")
+
+    @property
+    def read_s(self) -> float:
+        return self.trace.last_seconds("read")
+
     def __init__(self, plan: _Plan, device: torch.device,
-                 owned: Optional[list] = None):
+                 owned: Optional[list] = None, trace: Optional[Trace] = None,
+                 stamps: bool = False):
         self.plan, self.device, self.owned = plan, device, owned
+        self.trace = Trace() if trace is None else trace
+        self._stamping = stamps and device.type == "cuda" and owned is None
+        self.stamps: Optional[SweepStamps] = None
         need_r, need_w, bounds, self.n_ph = _guard_tables(plan)
         caps = [c.capacity for c in plan.channels]
         n_tasks = len(plan.tasks)
@@ -1312,24 +1355,46 @@ class _SweepProgram:
             owned, dtype=torch.bool, device=device)
         self.copies: list = []      # a partition's (dst, src) cut rings
         self.carry: Optional[_Carry] = None
-        self.capture_s = self.loop_s = 0.0
-        self.n_replays = self.n_blocks = self.n_host_syncs = 0
         self.n_graph_nodes = self.n_captures = 0
-        self.read_s = 0.0
         self._graph = self._flag = None
 
     def __call__(self, states0: tuple, mmaps0: tuple, ports0: tuple = ()):
-        self.prepare(states0, mmaps0, ports0)
+        with self.trace.span("prepare"):
+            self.prepare(states0, mmaps0, ports0, capture=False)
+        return self.run()
+
+    def run(self) -> tuple:
+        """The run after :meth:`prepare` without its capture: on the card
+        the capture, then blocks of replays until the done flag is set,
+        the final read (:meth:`_read`) and :meth:`close`."""
+        tr = self.trace
         try:
-            t0 = time.perf_counter()
-            for k in self._blocks:
-                self.block(k)
-                if self._done():
-                    break
-            self.loop_s = time.perf_counter() - t0
-            return self._read()
+            if self._flag is not None and self._graph is None:
+                self._build_graph()
+            with tr.span("loop"):
+                host = tr.anchor(self.device)
+                if self.stamps is not None:
+                    self.stamps.now()
+                for k in self._blocks:
+                    self.block(k)
+                    if self._done():
+                        break
+            with tr.span("read"):
+                out = self._read()
+            if self.stamps is not None:
+                with tr.span("stamps"):
+                    tr.stamps = self.stamps.read(self._rows, host)
+                    tr.stamps["names"] = {row: self._body_name(row)
+                                          for row in self._rows}
+            return out
         finally:
-            self.close()
+            with tr.span("release"):
+                self.close()
+
+    def _body_name(self, row: int) -> str:
+        """``task.phase`` of the body at ``row = t * P + p``."""
+        tp = self.plan.tasks[row // self.n_ph]
+        return f"{tp.inst.name}.{tp.phases[row % self.n_ph].label}"
 
     def prepare(self, states0: tuple, mmaps0: tuple,
                 ports0: tuple = (), capture: bool = True) -> None:
@@ -1402,13 +1467,16 @@ class _SweepProgram:
             _rebase_port_dues(q, c.state[1])
         if self._flag is not None:      # the read's time is its own
             torch.cuda.current_stream(self.device).synchronize()
-            self.n_host_syncs += 1
+            self.trace.count("n_host_syncs")
         return self.read()
 
     def read(self) -> "ChunkRead":
         """The carry on the host in one read: on the card every carried
         tensor is copied into pinned memory, then one sync."""
-        t0 = time.perf_counter()
+        with self.trace.span("read"):
+            return self._read_carry()
+
+    def _read_carry(self) -> "ChunkRead":
         c = self.carry
         small = torch.cat([c.fires, c.state, c.heads, c.sizes,
                            c.pint.view(-1)])
@@ -1424,7 +1492,8 @@ class _SweepProgram:
             torch.cuda.current_stream(self.device).synchronize()
         else:
             host = [x.clone() for x in [small] + big]
-        self.n_host_syncs += 1
+        self.trace.count("n_host_syncs")
+        self.trace.count("read_bytes", sum(_nbytes(x) for x in host))
         t, n = len(c.fires), len(c.sizes)
         vec = host[0].numpy()
         fires, (done, sweeps) = vec[:t].copy(), vec[t:t + 2].tolist()
@@ -1443,18 +1512,22 @@ class _SweepProgram:
             mmaps=[next(it) for _ in c.mmaps],
             ports=[port_rows(next(it), next(it), next(it), pint[pi])
                    for pi in range(len(c.ports))])
-        self.read_s = time.perf_counter() - t0
         return out
 
     def block(self, k: int) -> None:
-        """``k`` sweeps back to back, with no sync between them."""
+        """``k`` sweeps back to back, with no sync between them, between
+        two timing events on the card."""
+        with self.trace.on_device("replays", self.device, k):
+            self._replay(k)
+        self.trace.count("n_replays", k)
+        self.trace.count("n_blocks")
+
+    def _replay(self, k: int) -> None:
         if self._graph is not None:
             self._graph.replay(k)
         else:
             for _ in range(k):
                 self._sweep()
-        self.n_replays += k
-        self.n_blocks += 1
 
     def _sweep(self, capture: Optional[_Capture] = None) -> None:
         """One sweep; on the card (``capture``) it captures the bodies and
@@ -1521,30 +1594,49 @@ class _SweepProgram:
             dst.copy_(src)
 
     def _build_graph(self) -> None:
-        """Capture the sweep's bodies and build its graph.  A first
-        capture in relaxed mode is thrown away: it warms up what a body's
-        first call does beside the stream (cuBLAS handles and workspaces,
+        """Capture the sweep's bodies and build its graph (span
+        ``capture``).  A first capture in relaxed mode, after a synchronize,
+        is thrown away (``capture.warm``): it warms up what a body's first
+        call does beside the stream (cuBLAS handles and workspaces,
         allocator growth, kernel loading) without running anything; the
-        second is the one the graph holds."""
+        second is the one the graph holds (``capture.kept``); then the
+        graph's instantiation (``capture.instantiate``)."""
         _require_conditional_nodes()
-        t0 = time.perf_counter()
-        torch.cuda.synchronize(self.device)
-        for mode in ("relaxed", "global"):
-            capture = _Capture(self.plan, self.device, mode, self.n_ph)
-            self._sweep(capture)
-        self._graph = SweepGraph(
-            self._guards, [(row, g.raw_cuda_graph())
-                           for row, g in capture.graphs],
-            capture.tail.raw_cuda_graph() if capture.tail is not None
-            else None)
+        tr = self.trace
+        with tr.span("capture"):
+            with tr.span("capture.warm"):
+                torch.cuda.synchronize(self.device)
+                capture = _Capture(self.plan, self.device, "relaxed",
+                                   self.n_ph)
+                self._sweep(capture)
+            with tr.span("capture.kept"):
+                capture = _Capture(self.plan, self.device, "global",
+                                   self.n_ph)
+                self._sweep(capture)
+            with tr.span("capture.instantiate"):
+                self._rows = [row for row, _ in capture.graphs]
+                if self._stamping:
+                    self.stamps = SweepStamps(self._guards, len(self._rows))
+                    # its buffers are zeroed on the stream, and the loop's
+                    # anchor wants an idle device
+                    torch.cuda.synchronize(self.device)
+                self._graph = SweepGraph(
+                    self._guards, [(row, g.raw_cuda_graph())
+                                   for row, g in capture.graphs],
+                    capture.tail.raw_cuda_graph() if capture.tail is not None
+                    else None, self.stamps)
+        with tr.span("drop"):   # the sweep graph holds copies of the bodies
+            del capture
+        for row, n in zip(self._rows, self._graph.body_nodes):
+            tr.count(f"body_nodes[{row}]", n)
+        tr.count("sweep_nodes", 1 + self._graph.tail_nodes)
         self.n_graph_nodes = self._graph.nodes
         self.n_captures += 1
-        self.capture_s = time.perf_counter() - t0
 
     def _done(self) -> bool:
         """One read of the done flag: on the card, one copy into pinned
         memory and one sync."""
-        self.n_host_syncs += 1
+        self.trace.count("n_host_syncs")
         flag = self.carry.state[:1]
         if self._flag is not None:
             self._flag.copy_(flag, non_blocking=True)
@@ -1556,23 +1648,28 @@ class _SweepProgram:
         """The run's results in one read: ``(mmaps, fires, sweeps, maxocc,
         sizes, (port_counters, port_buffers))``, all but the mmaps on the
         host: ``port_counters[port, PORT_WORDS]`` and the buffer of each
-        port the graph writes (``{port: tensor}``)."""
-        c = self.carry
+        port the graph writes (``{port: tensor}``).  Counts the bytes it
+        reads (``read_bytes``); on the card each copy is timed."""
+        c, tr = self.carry, self.trace
         vec = torch.cat([c.fires, c.state, c.maxocc, c.sizes,
                          c.pint.view(-1)])
         written = {pi: c.ports[pi].data
                    for pi, dirs in enumerate(self.plan.port_dirs)
                    if "write" in dirs}
+        tr.count("read_bytes", _nbytes(vec) + sum(
+            _nbytes(x) for x in written.values()))
         if self._flag is not None:
             host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
-            host.copy_(vec, non_blocking=True)
+            with tr.on_device("read", self.device):
+                host.copy_(vec, non_blocking=True)
             for pi, x in written.items():
                 written[pi] = torch.empty(x.shape, dtype=x.dtype,
                                           pin_memory=True)
-                written[pi].copy_(x, non_blocking=True)
+                with tr.on_device("read", self.device):
+                    written[pi].copy_(x, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
             vec = host
-        self.n_host_syncs += 1
+        tr.count("n_host_syncs")
         t, n = len(c.fires), len(c.sizes)
         fires = vec[:t].numpy().astype(np.int64)
         counters = vec[t + 2 + 2 * n:].view(-1, PORT_WORDS).numpy()
@@ -1620,21 +1717,34 @@ class _PartitionedProgram:
     stream's order (``CompiledEngine`` refuses a mesh over distinct
     cards).  The host reads partition 0's done flag once a block.
 
-    ``program(states0, mmaps0)`` (one tuple of each a partition) returns
-    ``(mmaps, fires, sweeps, maxocc, sizes)``: each written mmap from its
-    writer's partition (the one-writer rule makes it unique), the rest
-    from partition 0.  After a run: ``capture_s``, ``n_replays`` (sweeps
-    replayed, each by every partition), ``n_blocks``, ``n_host_syncs``,
-    ``nodes`` (each partition's sweep graph's top-level nodes, on the
-    card), ``cuts`` (channel, producer's partition, consumer's) and
-    ``cut_bytes`` (ring bytes copied a sweep) and ``loop_s`` (host
-    seconds from the first sweep to the last done-flag read).
+    ``program.prepare(states0, mmaps0)`` (one tuple of each a partition),
+    then ``program.run()`` returns ``(mmaps, fires, sweeps, maxocc,
+    sizes)``: each written mmap from its writer's partition (the
+    one-writer rule makes it unique), the rest from partition 0.  The
+    partitions record into one ``trace`` (spans ``capture`` once a
+    partition, ``loop``, ``read``, ``release``; a pair of timing events
+    around each block of replays over every partition; no stamps).
+    After a run, views of it: ``capture_s`` (summed over the partitions),
+    ``n_replays`` (sweeps replayed, each by every partition), ``n_blocks``,
+    ``n_host_syncs``, ``loop_s`` (host seconds from the first sweep to the
+    last done-flag read); and ``nodes`` (each partition's sweep graph's
+    top-level nodes, on the card), ``cuts`` (channel, producer's
+    partition, consumer's) and ``cut_bytes`` (ring bytes copied a sweep).
     """
 
-    def __init__(self, plan: _Plan, devices: list, owners: list):
+    capture_s = _spent("capture")
+    loop_s = _spent("loop")
+    n_replays = _counted("n_replays")
+    n_blocks = _counted("n_blocks")
+    n_host_syncs = _counted("n_host_syncs")
+
+    def __init__(self, plan: _Plan, devices: list, owners: list,
+                 trace: Optional[Trace] = None):
         from .floorplan import channel_endpoints
         self.plan, self.owners = plan, [int(o) for o in owners]
-        self.parts = [_SweepProgram(plan, dev, [o == p for o in self.owners])
+        self.trace = Trace() if trace is None else trace
+        self.parts = [_SweepProgram(plan, dev, [o == p for o in self.owners],
+                                    self.trace)
                       for p, dev in enumerate(devices)]
         self.cuts = [(ci, self.owners[prod], self.owners[cons])
                      for ci, (prod, cons) in enumerate(
@@ -1649,11 +1759,11 @@ class _PartitionedProgram:
         self.writer = {mi: self.owners[ti]
                        for ti, tp in enumerate(plan.tasks)
                        for ph in tp.phases for mi in ph.mmap_stores}
-        self.capture_s = self.loop_s = 0.0
-        self.n_replays = self.n_blocks = self.n_host_syncs = 0
         self.nodes: list = []
 
-    def __call__(self, states0: tuple, mmaps0: tuple):
+    def prepare(self, states0: tuple, mmaps0: tuple) -> None:
+        """Each partition's carry, from its tuple of ``states0`` and
+        ``mmaps0``, and the cut rings' copies."""
         parts = self.parts
         for prog, st, mm in zip(parts, states0, mmaps0):
             prog.prepare(st, mm, capture=False)
@@ -1661,31 +1771,36 @@ class _PartitionedProgram:
             parts[max(src, dst)].copies.append(
                 (parts[dst].carry.rings[ci].buf,
                  parts[src].carry.rings[ci].buf))
+
+    def run(self) -> tuple:
+        """On the card each partition's capture, then blocks of sweeps
+        until partition 0's done flag is set, and the read."""
+        parts, tr = self.parts, self.trace
         try:
             for prog in parts:
                 if prog.device.type == "cuda":
                     prog._build_graph()
-                    self.capture_s += prog.capture_s
             self.nodes = [prog.n_graph_nodes for prog in parts]
-            t0 = time.perf_counter()
-            for k in _block_sizes():
-                for _ in range(k):
-                    for prog in parts:
-                        prog.block(1)
-                self.n_replays += k
-                self.n_blocks += 1
-                self.n_host_syncs += 1
-                if parts[0]._done():
-                    break
-            self.loop_s = time.perf_counter() - t0
-            return self._read()
+            with tr.span("loop"):
+                tr.anchor(parts[0].device)
+                for k in _block_sizes():
+                    with tr.on_device("replays", parts[0].device, k):
+                        for _ in range(k):
+                            for prog in parts:
+                                prog._replay(1)
+                    tr.count("n_replays", k)
+                    tr.count("n_blocks")
+                    if parts[0]._done():
+                        break
+            with tr.span("read"):
+                return self._read()
         finally:
-            for prog in parts:
-                prog.close()
+            with tr.span("release"):
+                for prog in parts:
+                    prog.close()
 
     def _read(self) -> tuple:
         mmaps, fires, sweeps, maxocc, sizes, _ = self.parts[0]._read()
-        self.n_host_syncs += 1
         mmaps = tuple(self.parts[self.writer.get(mi, 0)].carry.mmaps[mi]
                       for mi in range(len(mmaps)))
         return mmaps, fires, sweeps, maxocc, sizes
@@ -1734,40 +1849,88 @@ class CompiledEngine(EngineBase):
     :class:`SynthesisError` naming the offending task/channel; a lowered
     graph that stalls (a genuine dataflow deadlock) returns ``ok=False``
     with the blocked tasks listed, mirroring the simulation engines.
+
+    Each ``run`` records one :class:`~.trace.Trace` (``trace``, replaced by
+    the next run): the root span ``invoke``; inside it ``lower``
+    (``lower.elaborate``: the wiring bodies; ``lower.plan``: the
+    templates, initial states and channel specs; ``lower.count``: the
+    counting pass on meta tensors; ``lower.rules``: the ports'
+    directions and the one-writer rules; ``lower.graph``:
+    ``extract_graph`` and ``validate``), ``place`` (under a mesh),
+    ``prepare`` (the inputs on the device, the program's tables, the
+    carry, the guards, the port service, the views), ``capture``
+    (``capture.warm``, ``capture.kept``, ``capture.instantiate``; once a
+    partition under a mesh), ``drop`` (the captured bodies freed, once
+    the sweep graph holds copies of them), ``loop``, ``read``, ``stamps`` (when
+    stamped), ``release`` (the sweep graph destroyed) and ``writeback``;
+    the counters of the program, ``n_sweeps``; and timing events around
+    each block of replays and each copy outside the sweep graphs.
+    ``trace=True`` also stamps the sweep graph on the card
+    (``trace.stamps``; not under a mesh), which leaves every output as it
+    is and adds about 2 us a top-level node to each replay on an H100.
+
+    After a run, views of the trace: host seconds in the wiring + counting
+    pass (``lower_s``), in placing the tasks under a mesh (``place_s``:
+    cost probes and the planner), from the end of those to the end of the
+    write-back (``program_s``), capturing (``capture_s``, 0 on the CPU;
+    under a mesh summed over the partitions), in the loop (``loop_s``:
+    first sweep to last done-flag read); the sweeps (``n_sweeps``), sweeps
+    replayed (``n_replays``, those past the end included; under a mesh
+    each by every partition), blocks and host syncs (``n_host_syncs``: one
+    a block and one final read); on the card the device seconds in the
+    sweep graphs (``graph_device_s``, timed by the program) and the
+    nodes the sweeps ran (``nodes_per_sweep``).  Beside them: the sweep
+    graph's top-level nodes (``n_graph_nodes``; under a mesh their sum,
+    and ``partition_nodes`` each partition's); the ring pops and pushes
+    the firings made (``ring_ops``: on the card, the kernel launches the
+    run should count, summed over partitions); under a mesh the placement
+    (``placement_used``: a ``floorplan.Placement``; ``partition_source``:
+    ``"partitioned"``, or ``"memo"`` when read back from the cache) and
+    the ring bytes the cut channels copy a sweep (``cut_bytes``).
     """
 
     name = "compiled"
 
+    lower_s = _spent("lower")
+    place_s = _spent("place")
+    capture_s = _spent("capture")
+    loop_s = _spent("loop")
+    n_sweeps = _counted("n_sweeps")
+    n_replays = _counted("n_replays")
+    n_blocks = _counted("n_blocks")
+    n_host_syncs = _counted("n_host_syncs")
+
+    @property
+    def program_s(self) -> float:
+        first, last = self.trace.first("prepare"), \
+            self.trace.first("writeback")
+        return (last.t1 - first.t0) / 1e9 if first and last else 0.0
+
+    @property
+    def graph_device_s(self) -> float:
+        return self.trace.device_seconds("replays")
+
+    @property
+    def nodes_per_sweep(self) -> Optional[float]:
+        """The nodes the sweeps ran over the sweeps: each body graph's
+        nodes times its phase's firings, plus the guards' and the tail's
+        a replay; None off the card or before a run."""
+        c = self.trace.counters
+        if "sweep_nodes" not in c or not self.n_sweeps:
+            return None
+        return (c["body_nodes_run"] + c["sweep_nodes"] * self.n_replays) \
+            / self.n_sweeps
+
     def __init__(self, track_stats: bool = False, device: Any = None,
                  mesh: Any = None, placement: Any = None, cache: Any = None,
-                 **kw):
+                 trace: bool = False, **kw):
         super().__init__(track_stats, **kw)
         self.device = resolve_device(device)
         self.mesh, self.placement, self.cache = mesh, placement, cache
+        self.stamped = bool(trace)
         self._cur: Optional[TaskInstance] = None
-        # post-run introspection: sweeps, and host seconds spent in the
-        # wiring + counting pass (lower_s), in placing the tasks under a
-        # mesh (place_s: cost probes and the planner) and in the sweep loop
-        # with its capture and the write-back (program_s); of the sweep loop
-        # (_SweepProgram, or _PartitionedProgram under a mesh): the
-        # capture's host seconds (capture_s, 0 on the CPU), the loop's own
-        # (loop_s: first sweep to last done-flag read), sweeps replayed
-        # (n_replays, those past the end included; under a mesh each by
-        # every partition), blocks and host syncs (n_host_syncs: one a block
-        # and one final read), the sweep graph's top-level nodes
-        # (n_graph_nodes; under a mesh their sum, and partition_nodes each
-        # partition's); the ring pops and pushes the firings made
-        # (ring_ops: on the card, the kernel launches the run should count,
-        # summed over partitions); under a mesh the placement
-        # (placement_used: a floorplan.Placement; partition_source:
-        # "partitioned", or "memo" when read back from the cache) and the
-        # ring bytes the cut channels copy a sweep (cut_bytes)
-        self.n_sweeps = 0
-        self.lower_s = 0.0
-        self.place_s = 0.0
-        self.program_s = 0.0
-        self.capture_s = self.loop_s = 0.0
-        self.n_replays = self.n_blocks = self.n_host_syncs = 0
+        self.trace = Trace()
+        self._phase_fires: dict = {}
         self.n_graph_nodes = 0
         self.ring_ops: dict = {}
         self.placement_used = None
@@ -1853,6 +2016,25 @@ class CompiledEngine(EngineBase):
             raise SynthesisError(
                 "graph contains no step-function tasks; CompiledEngine "
                 "lowers StepTask leaves (see docs/synthesis.md)")
+        tr = self.trace
+        with tr.span("lower.plan"):
+            plan = self._plan(step_insts)
+        with tr.span("lower.count"):
+            self._count(plan)
+        with tr.span("lower.rules"):
+            self._rules(plan)
+        with tr.span("lower.graph"):
+            graph = extract_graph(self)
+            try:
+                graph.validate()
+            except GraphValidationError as e:
+                raise SynthesisError(f"graph failed validation: {e}") from e
+        return plan, graph
+
+    @staticmethod
+    def _plan(step_insts: list) -> _Plan:
+        """The plan's tasks (the templates of their bound arguments, their
+        initial states) and channels, before the counting pass."""
         plan = _Plan()
         bound = []
         for inst in step_insts:
@@ -1877,6 +2059,12 @@ class CompiledEngine(EngineBase):
                     f"channel {c.name!r} has no declared element spec; "
                     f"synthesis sizes its ring buffer from "
                     f"Channel(dtype=..., shape=...)")
+        return plan
+
+    @staticmethod
+    def _count(plan: _Plan) -> None:
+        """The counting pass: each (task, phase) run once on meta tensors
+        (:func:`_count_phase`)."""
         for tp in plan.tasks:
             for label, fn, count in tp.task.phases():
                 tp.phases.append(
@@ -1884,6 +2072,12 @@ class CompiledEngine(EngineBase):
             if not tp.phases:
                 raise SynthesisError(
                     f"task {tp.inst.name!r} has zero total firings")
+
+    @staticmethod
+    def _rules(plan: _Plan) -> None:
+        """Each async port's direction, and the refusals that keep the
+        results independent of the sweep order: no port both read and
+        written, one writer an mmap and no other task reading it."""
         # async ports: record each port's direction from its member-channel
         # traffic, and refuse read+write ports — a read racing an in-flight
         # write to the same buffer resolves by response timing, which the
@@ -1932,57 +2126,61 @@ class CompiledEngine(EngineBase):
                     f"by {sorted(others)}: cross-task read-after-write "
                     f"through memory is schedule-dependent; route the "
                     f"value through a channel instead")
-        graph = extract_graph(self)
-        try:
-            graph.validate()
-        except GraphValidationError as e:
-            raise SynthesisError(f"graph failed validation: {e}") from e
-        return plan, graph
 
     # -- run -----------------------------------------------------------------
     def _elaborate(self, top: Callable, *args, **kwargs):
         """Execute the wiring bodies and lower to a plan, without running
         the program.  Returns ``(plan, graph, result)``.  The caller owns
         ``clear_context()``."""
-        root = TaskInstance(top, args, kwargs, detach=False, parent=None,
-                            name=getattr(top, "__name__", "top"))
-        set_context(self, None)
-        self._register(root)
-        result = self._exec(root)
+        with self.trace.span("lower.elaborate"):
+            root = TaskInstance(top, args, kwargs, detach=False, parent=None,
+                                name=getattr(top, "__name__", "top"))
+            set_context(self, None)
+            self._register(root)
+            result = self._exec(root)
         plan, graph = self._lower()
         return plan, graph, result
 
     def run(self, top: Callable, *args, **kwargs) -> SimReport:
         t0 = time.perf_counter()
+        tr = self.trace = Trace()
+        self._phase_fires = {}
         try:
-            devices = None if self.mesh is None else self._resolve_mesh()
-            plan, graph, result = self._elaborate(top, *args, **kwargs)
-            t1 = time.perf_counter()
-            self.lower_s = t1 - t0
-            if devices is not None:
-                return self._run_partitioned(plan, graph, result, devices,
-                                             t0)
-            states0 = tuple(_materialize_state(tp.state0, self.device)
-                            for tp in plan.tasks)
-            mmaps0 = tuple(_as_canon(m.data, self.device).clone()
-                           for m in plan.mmaps)
-            ports0 = tuple(_as_canon(p.data, self.device).clone()
-                           for p in plan.ports)
-            program = _SweepProgram(plan, self.device)
-            mm_final, fires, sweeps, maxocc, sizes, (counters, written) = \
-                program(states0, mmaps0, ports0)
-            self.capture_s, self.loop_s = program.capture_s, program.loop_s
-            self.n_replays, self.n_blocks, self.n_host_syncs = \
-                program.n_replays, program.n_blocks, program.n_host_syncs
-            self.n_graph_nodes = program.n_graph_nodes
-            self._writeback_ports(plan, written)
-            self._fill_port_stats(plan, counters)
-            rep = self._finish(plan, mm_final, fires, sweeps, maxocc, sizes,
-                               result, t0)
-            self.program_s = time.perf_counter() - t1
-            return rep
+            with tr.span("invoke"):
+                return self._invoke(top, args, kwargs, t0)
         finally:
             clear_context()
+            tr.finish()
+
+    def _invoke(self, top: Callable, args: tuple, kwargs: dict,
+                t0: float) -> SimReport:
+        tr, dev = self.trace, self.device
+        with tr.span("lower"):
+            devices = None if self.mesh is None else self._resolve_mesh()
+            plan, graph, result = self._elaborate(top, *args, **kwargs)
+        if devices is not None:
+            return self._run_partitioned(plan, graph, result, devices, t0)
+        with tr.span("prepare"):
+            states0 = tuple(_materialize_state(tp.state0, dev)
+                            for tp in plan.tasks)
+            mmaps0 = tuple(self._clone(m.data, dev) for m in plan.mmaps)
+            ports0 = tuple(self._clone(p.data, dev) for p in plan.ports)
+            program = _SweepProgram(plan, dev, trace=tr,
+                                    stamps=self.stamped)
+            program.prepare(states0, mmaps0, ports0, capture=False)
+        mm_final, fires, sweeps, maxocc, sizes, (counters, written) = \
+            program.run()
+        self.n_graph_nodes = program.n_graph_nodes
+        with tr.span("writeback"):
+            self._writeback_ports(plan, written)
+            self._fill_port_stats(plan, counters)
+            return self._finish(plan, mm_final, fires, sweeps, maxocc, sizes,
+                                result, t0)
+
+    def _clone(self, x: Any, device: torch.device) -> torch.Tensor:
+        """An input's own copy on ``device``, timed there."""
+        with self.trace.on_device("clone", device):
+            return _as_canon(x, device).clone()
 
     def _resolve_mesh(self) -> list:
         """``self.mesh`` as the partitions' devices: an int N is the first
@@ -2043,8 +2241,29 @@ class CompiledEngine(EngineBase):
         """The mesh floorplan path: place the tasks (a memoized artifact),
         run the partitioned program, take each written mmap from its
         writer's partition, and finish as the single-device path does."""
+        tr = self.trace
+        with tr.span("place"):
+            placement = self._place(plan, graph, devices)
+        with tr.span("prepare"):
+            states0 = tuple(tuple(_materialize_state(tp.state0, dev)
+                                  for tp in plan.tasks) for dev in devices)
+            mmaps0 = tuple(tuple(self._clone(m.data, dev)
+                                 for m in plan.mmaps) for dev in devices)
+            program = _PartitionedProgram(plan, devices, placement.owners,
+                                          tr)
+            program.prepare(states0, mmaps0)
+        mm_final, fires, sweeps, maxocc, sizes = program.run()
+        self.partition_nodes = program.nodes
+        self.n_graph_nodes = sum(program.nodes)
+        self.cut_bytes = program.cut_bytes
+        with tr.span("writeback"):
+            return self._finish(plan, mm_final, fires, sweeps, maxocc, sizes,
+                                result, t0)
+
+    def _place(self, plan: _Plan, graph, devices: list):
+        """The placement of the tasks over ``devices``: the one given, or
+        the planner's (memoized)."""
         from .floorplan import Placement, plan_placement
-        t1 = time.perf_counter()
         n_dev = len(devices)
         if plan.ports:
             member = {ci for cis in plan.port_chan_ids.values()
@@ -2073,24 +2292,7 @@ class CompiledEngine(EngineBase):
                                        cache=self.cache)
         self.placement_used = placement
         self.partition_source = placement.source
-        t2 = time.perf_counter()
-        self.place_s = t2 - t1
-        states0 = tuple(tuple(_materialize_state(tp.state0, dev)
-                              for tp in plan.tasks) for dev in devices)
-        mmaps0 = tuple(tuple(_as_canon(m.data, dev).clone()
-                             for m in plan.mmaps) for dev in devices)
-        program = _PartitionedProgram(plan, devices, placement.owners)
-        mm_final, fires, sweeps, maxocc, sizes = program(states0, mmaps0)
-        self.capture_s, self.loop_s = program.capture_s, program.loop_s
-        self.n_replays, self.n_blocks, self.n_host_syncs = \
-            program.n_replays, program.n_blocks, program.n_host_syncs
-        self.partition_nodes = program.nodes
-        self.n_graph_nodes = sum(program.nodes)
-        self.cut_bytes = program.cut_bytes
-        rep = self._finish(plan, mm_final, fires, sweeps, maxocc, sizes,
-                           result, t0)
-        self.program_s = time.perf_counter() - t2
-        return rep
+        return placement
 
     def _finish(self, plan: _Plan, mm_final, fires, sweeps, maxocc,
                 sizes, result, t0: float) -> SimReport:
@@ -2099,7 +2301,8 @@ class CompiledEngine(EngineBase):
         fires = np.asarray(fires)
         maxocc = maxocc.cpu().numpy()
         sizes = sizes.cpu().numpy()
-        self.n_sweeps = self.switches = int(sweeps)
+        self.switches = int(sweeps)
+        self.trace.count("n_sweeps", self.switches)
         self._writeback(plan, mm_final)
         self._fill_stats(plan, fires, maxocc)
         totals = np.asarray([tp.total for tp in plan.tasks], np.int64)
@@ -2138,9 +2341,12 @@ class CompiledEngine(EngineBase):
             m = plan.mmaps[mi]
             out = mm_final[mi]
             if isinstance(m.data, torch.Tensor):
-                m.data.copy_(out)
+                with self.trace.on_device("writeback", out.device):
+                    m.data.copy_(out)
             elif isinstance(m.data, np.ndarray):
-                np.copyto(m.data, out.cpu().numpy())
+                with self.trace.on_device("writeback", out.device):
+                    host = out.cpu()
+                np.copyto(m.data, host.numpy())
             else:
                 m.data = out
 
@@ -2150,7 +2356,8 @@ class CompiledEngine(EngineBase):
         for pi, out in written.items():
             p = plan.ports[pi]
             if isinstance(p.data, torch.Tensor):
-                p.data.copy_(out)
+                with self.trace.on_device("writeback", p.data.device):
+                    p.data.copy_(out)
             elif isinstance(p.data, np.ndarray):
                 np.copyto(p.data, out.numpy())
             else:
@@ -2182,10 +2389,12 @@ class CompiledEngine(EngineBase):
         simulators' per-push statistics — and the ring ops the firings
         made (``ring_ops``)."""
         ops = {"ring_pop": 0, "ring_push": 0}
-        for tp, f in zip(plan.tasks, fires):
+        n_ph = max((len(tp.phases) for tp in plan.tasks), default=1)
+        for ti, (tp, f) in enumerate(zip(plan.tasks, fires)):
             start = 0
-            for ph in tp.phases:
+            for pi, ph in enumerate(tp.phases):
                 k = int(np.clip(int(f) - start, 0, ph.count))
+                self._phase_fires[ti * n_ph + pi] = k
                 start += ph.count
                 ops["ring_pop"] += ph.pops * k
                 ops["ring_push"] += ph.pushes * k
@@ -2203,6 +2412,11 @@ class CompiledEngine(EngineBase):
         for c, occ in zip(plan.channels, maxocc):
             c.max_occupancy = int(occ)
         self.ring_ops = ops
+        counters = self.trace.counters
+        if "sweep_nodes" in counters:       # the bodies' nodes that ran
+            self.trace.count("body_nodes_run", sum(
+                counters.get(f"body_nodes[{row}]", 0) * k
+                for row, k in self._phase_fires.items()))
 
 
 def elaborate_step_graph(top: Callable, *args, **kwargs):

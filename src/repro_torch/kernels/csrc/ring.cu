@@ -210,6 +210,20 @@ struct ServiceLaunch {
   int blocks;               // the cluster of one port
 };
 
+// A traced sweep graph's stamps (kernels/ring.py, class SweepStamps),
+// passed to each stamp node by value.  Region r of acc holds four words:
+// the device ns and the count of the intervals that ended at one of its
+// stamps while its body ran (or for a region that is no IF node, always),
+// then the same while its body was skipped.
+struct StampLaunch {
+  unsigned long long* acc;     // [R, 4]
+  unsigned long long* clock;   // [2] the last stamp's time, replays stamped
+  unsigned long long* first;   // [cap] each replay's first stamp
+  unsigned long long* last;    // [cap] and its last
+  const bool* run;             // [T * P] the guards' predicates
+  int cap;
+};
+
 // Launches of ring_pop, ring_push, sweep_guards and service_ports (in that
 // order) since the host last zeroed them.  Outside the anonymous
 // namespace: an extern "C" entry returns its address.
@@ -452,6 +466,40 @@ sweep_guards_kernel(const SweepLaunch a) {
       if (!any_live || !any_fire || !any_left) a.state[0] = 1;
     }
   }
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// One stamp of a traced sweep graph, one thread: the time since the
+// previous stamp goes to `region` (to its skipped half where `row` names an
+// IF node whose predicate is false); edge 0 opens a replay (no region),
+// edge 2 closes it.  The nodes of the graph run one after another, so a
+// stamp reads what the previous one wrote.
+__global__ void stamp_kernel(const StampLaunch s, int region, int row,
+                             int edge) {
+  const unsigned long long t = global_ns();
+  const unsigned long long i = s.clock[1];
+  if (edge == 0) {
+    if (i < static_cast<unsigned long long>(s.cap)) s.first[i] = t;
+  } else {
+    unsigned long long* a = s.acc + 4 * region +
+                            (row >= 0 && !s.run[row] ? 2 : 0);
+    a[0] += t - s.clock[0];
+    a[1] += 1;
+    if (edge == 2) {
+      if (i < static_cast<unsigned long long>(s.cap)) s.last[i] = t;
+      s.clock[1] = i + 1;
+    }
+  }
+  s.clock[0] = t;
+}
+
+__global__ void stamp_now_kernel(unsigned long long* out) {
+  *out = global_ns();
 }
 
 // The port counters' layout (st), as the reference's port carry holds them.
@@ -776,17 +824,41 @@ int sweep_guards(const SweepLaunch* s) {
 // rows[i] = t * P + p, body the captured graph bodies[i] (a cudaGraph_t
 // the caller keeps with its memory), added as a child graph; last, when
 // `tail` is not null, the captured graph `tail` as an unconditional child
-// graph (a graph with async ports: its service_ports launch).  *out
-// receives the SweepGraph.
+// graph (a graph with async ports: its service_ports launch).
+// body_nodes[i] receives the nodes of bodies[i], body_nodes[n] the tail's.
+// Given `stamp`, a stamp node opens the replay, a second one follows it at
+// once (region 0: a region that holds nothing, the stamps' own cost), and
+// one follows each top-level node: region 1 the guards, 2 + i body i's IF
+// node, 2 + n the tail; the last closes the replay.  *out receives the
+// SweepGraph.
 struct SweepGraph {
   cudaGraph_t graph;
   cudaGraphExec_t exec;
   int nodes;   // the top-level nodes: the guards, the IF nodes, the tail
 };
 
+static cudaError_t add_stamp(cudaGraph_t g, cudaGraphNode_t* prev,
+                             const StampLaunch* st, int region, int row,
+                             int edge) {
+  StampLaunch a = *st;
+  void* args[] = {&a, &region, &row, &edge};
+  cudaKernelNodeParams kp = {};
+  kp.func = reinterpret_cast<void*>(stamp_kernel);
+  kp.gridDim = dim3(1, 1, 1);
+  kp.blockDim = dim3(1, 1, 1);
+  kp.kernelParams = args;
+  cudaGraphNode_t node;
+  const cudaError_t e =
+      cudaGraphAddKernelNode(&node, g, *prev ? prev : nullptr, *prev ? 1 : 0,
+                             &kp);
+  if (e == cudaSuccess) *prev = node;
+  return e;
+}
+
 int sweep_graph_create(const SweepLaunch* s, const int* rows,
                        void* const* bodies, int n, void* tail,
-                       unsigned long long* handles, void** out) {
+                       unsigned long long* handles, const StampLaunch* stamp,
+                       int* body_nodes, void** out) {
   *out = nullptr;
   if (!sweep_args_ok(s) || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -794,15 +866,27 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
   cudaGraph_t g = nullptr;
   cudaGraphExec_t exec = nullptr;
   cudaError_t e = cudaGraphCreate(&g, 0);
+  int last = -1;   // the last body that holds a node
   for (int i = 0; e == cudaSuccess && i < n; ++i) {
     if (rows[i] < 0 || rows[i] >= s->T * s->P) {
       e = cudaErrorInvalidValue;
       break;
     }
+    size_t k = 0;
+    e = cudaGraphGetNodes(static_cast<cudaGraph_t>(bodies[i]), nullptr, &k);
+    body_nodes[i] = static_cast<int>(k);
+    if (k) last = i;
+    if (e != cudaSuccess) break;
     cudaGraphConditionalHandle c;
     e = cudaGraphConditionalHandleCreate(&c, g, 0,
                                          cudaGraphCondAssignDefault);
     h[rows[i]] = c;
+  }
+  body_nodes[n] = 0;
+  if (e == cudaSuccess && tail) {
+    size_t k = 0;
+    e = cudaGraphGetNodes(static_cast<cudaGraph_t>(tail), nullptr, &k);
+    body_nodes[n] = static_cast<int>(k);
   }
   if (e == cudaSuccess)
     e = cudaMemcpy(handles, h.data(), h.size() * sizeof(h[0]),
@@ -812,6 +896,10 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
   void* args[] = {&a};
   cudaGraphNode_t prev = nullptr;
   int nodes = 0;
+  if (e == cudaSuccess && stamp) {
+    e = add_stamp(g, &prev, stamp, 0, -1, 0);
+    if (e == cudaSuccess) e = add_stamp(g, &prev, stamp, 0, -1, 1);
+  }
   if (e == cudaSuccess) {
     cudaKernelNodeParams kp = {};
     kp.func = reinterpret_cast<void*>(sweep_guards_kernel);
@@ -819,14 +907,16 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
     kp.blockDim = dim3((s->T + 31) / 32 * 32, 1, 1);
     kp.sharedMemBytes = s->C * sizeof(int32_t);
     kp.kernelParams = args;
-    e = cudaGraphAddKernelNode(&prev, g, nullptr, 0, &kp);
+    cudaGraphNode_t node;
+    e = cudaGraphAddKernelNode(&node, g, prev ? &prev : nullptr, prev ? 1 : 0,
+                               &kp);
+    prev = node;
     nodes += 1;
+    if (e == cudaSuccess && stamp)
+      e = add_stamp(g, &prev, stamp, 1, -1, last < 0 && !tail ? 2 : 1);
   }
   for (int i = 0; e == cudaSuccess && i < n; ++i) {
-    size_t body_nodes = 0;
-    e = cudaGraphGetNodes(static_cast<cudaGraph_t>(bodies[i]), nullptr,
-                          &body_nodes);
-    if (e != cudaSuccess || body_nodes == 0) continue;   // nothing to run
+    if (body_nodes[i] == 0) continue;   // nothing to run
     cudaGraphNodeParams cp = {};
     cp.type = cudaGraphNodeTypeConditional;
     cp.conditional.handle = h[rows[i]];
@@ -840,12 +930,17 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
                                      nullptr, 0,
                                      static_cast<cudaGraph_t>(bodies[i]));
     prev = node;
+    if (e == cudaSuccess && stamp)
+      e = add_stamp(g, &prev, stamp, 2 + i, rows[i],
+                    i == last && !tail ? 2 : 1);
   }
   if (e == cudaSuccess && tail) {
     cudaGraphNode_t node;
     e = cudaGraphAddChildGraphNode(&node, g, &prev, 1,
                                    static_cast<cudaGraph_t>(tail));
+    prev = node;
     nodes += 1;
+    if (e == cudaSuccess && stamp) e = add_stamp(g, &prev, stamp, 2 + n, -1, 2);
   }
   if (e == cudaSuccess) e = cudaGraphInstantiate(&exec, g, 0);
   if (e != cudaSuccess) {
@@ -855,6 +950,13 @@ int sweep_graph_create(const SweepLaunch* s, const int* rows,
   }
   *out = new SweepGraph{g, exec, nodes};
   return 0;
+}
+
+// stamp_now: the device clock the stamps read (%globaltimer, ns) into
+// *out, on `stream`: the anchor of a traced run's stamps.
+int stamp_now(unsigned long long* out, void* stream) {
+  stamp_now_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // sweep_graph_nodes: the sweep graph's top-level nodes (a count, not an

@@ -95,11 +95,12 @@ _ARGTYPES = {
     "eval_guards": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
     "sweep_guards": [_VP],          # the program's _SweepLaunch by reference
     "service_ports": [_VP],         # the program's _ServiceLaunch
-    "sweep_graph_create": [_VP, _VP, _VP, _INT, _VP, _VP, _VP],
+    "sweep_graph_create": [_VP, _VP, _VP, _INT, _VP, _VP, _VP, _VP, _VP],
     "sweep_graph_replay": [_VP, _VP, _INT],
     "sweep_graph_destroy": [_VP],
     "sweep_graph_nodes": [_VP],
     "ring_launch_counters": [_VP],
+    "stamp_now": [_VP, _VP],
 }
 # csrc/ring.cu: kCopyThreads threads a block, each moving kUnroll 16-byte
 # words a pass, and clusters of at most kMaxCluster blocks (the portable
@@ -651,6 +652,67 @@ def sweep_guards(totals, bounds, row_ptr, entries, sizes, fires, state, run,
                 fire, phase, flags, owned, heads)()
 
 
+class _StampLaunch(ctypes.Structure):
+    """``csrc/ring.cu``'s ``struct StampLaunch``."""
+    _fields_ = [("acc", _VP), ("clock", _VP), ("first", _VP), ("last", _VP),
+                ("run", _VP), ("cap", _INT)]
+
+
+class SweepStamps:
+    """The device buffers of a traced sweep graph's stamps (``csrc/ring.cu``,
+    ``stamp_kernel``): each region's device ns and count, fired and skipped
+    (``acc[regions, 4]``), the last stamp's time and the replays stamped
+    (``clock``), and the first and last stamp of each of the first ``cap``
+    replays, all on the card's ``%globaltimer`` (ns).  Regions: 0 a region
+    that holds nothing (one stamp's own cost), 1 the guards, ``2 + i`` body
+    ``i``'s IF node, ``2 + n`` the tail.  :meth:`now` reads the same clock
+    on the current stream, to anchor it to the host's."""
+
+    cap = 1 << 16
+
+    def __init__(self, guards: "SweepGuards", n_bodies: int):
+        run = guards.args[7]
+        dev, i64 = run.device, torch.int64
+        self.n, cap = n_bodies, self.cap
+        self.acc = torch.zeros((n_bodies + 3, 4), dtype=i64, device=dev)
+        self.clock = torch.zeros(2, dtype=i64, device=dev)
+        self.first = torch.zeros(cap, dtype=i64, device=dev)
+        self.last = torch.zeros(cap, dtype=i64, device=dev)
+        self.anchor = torch.zeros(1, dtype=i64, device=dev)
+        self._lib, self._stream = guards._lib, guards._stream
+        self.launch = _StampLaunch(*(x.data_ptr() for x in (
+            self.acc, self.clock, self.first, self.last, run)), cap)
+
+    def now(self) -> None:
+        """``%globaltimer`` into :attr:`anchor`, on the current stream."""
+        _build.check(self._lib, "ring", "stamp_now", self._lib.stamp_now(
+            self.anchor.data_ptr(), self._stream()))
+
+    def read(self, rows: list, host_ns: int) -> dict:
+        """The stamps on the host, once the device has passed them:
+        ``stamp``, ``guards`` and ``tail`` as (ns, count), ``fired`` and
+        ``skipped`` as ``{row: (ns, count)}`` over the bodies (``rows``:
+        each body's row, in the graph's order; those of no node absent),
+        ``replays`` (replays stamped) and ``spans``, each replay's first and
+        last stamp on the host's clock: ``host_ns`` is the host time of
+        :meth:`now`."""
+        acc = self.acc.cpu().tolist()
+        n = int(self.clock[1])
+        k = min(n, self.cap)
+        base = host_ns - int(self.anchor[0])
+        first = (self.first[:k].cpu() + base).tolist()
+        last = (self.last[:k].cpu() + base).tolist()
+        pair = lambda r, h: (acc[r][h], acc[r][h + 1])  # noqa: E731
+        return dict(
+            stamp=pair(0, 0), guards=pair(1, 0),
+            tail=pair(2 + self.n, 0),
+            fired={row: pair(2 + i, 0) for i, row in enumerate(rows)
+                   if acc[2 + i][1] + acc[2 + i][3]},
+            skipped={row: pair(2 + i, 2) for i, row in enumerate(rows)
+                     if acc[2 + i][1] + acc[2 + i][3]},
+            replays=n, spans=list(zip(first, last)))
+
+
 class SweepGraph:
     """A sweep on the card as one CUDA graph, instantiated once
     (``csrc/ring.cu``, ``sweep_graph_create``): the ``sweep_guards`` kernel
@@ -663,9 +725,13 @@ class SweepGraph:
     ``row = t * P + p``; the caller keeps each body graph, the tail and
     their memory for the life of this one.  ``nodes``: the graph's
     top-level nodes (the guards, one a body that holds any node, the
-    tail)."""
+    tail; stamps not counted); ``body_nodes``: each body's nodes, in the
+    order given, and ``tail_nodes``.  Given ``stamps``
+    (:class:`SweepStamps`), a stamp node opens each replay and follows
+    every top-level node."""
 
-    def __init__(self, guards: SweepGuards, bodies: list, tail=None):
+    def __init__(self, guards: SweepGuards, bodies: list, tail=None,
+                 stamps: "SweepStamps" = None):
         if not guards._kernel:
             raise ValueError("SweepGraph: the guards of a program on the card")
         self._lib = guards._lib
@@ -675,13 +741,16 @@ class SweepGraph:
                                     device=run.device)
         rows = (ctypes.c_int * n)(*(r for r, _ in bodies))
         graphs = (ctypes.c_void_p * n)(*(g for _, g in bodies))
+        counts = (ctypes.c_int * (n + 1))()
         out = ctypes.c_void_p()
-        rc = self._lib.sweep_graph_create(guards._ref, rows, graphs, n, tail,
-                                          self._handles.data_ptr(),
-                                          ctypes.byref(out))
+        rc = self._lib.sweep_graph_create(
+            guards._ref, rows, graphs, n, tail, self._handles.data_ptr(),
+            None if stamps is None else ctypes.addressof(stamps.launch),
+            counts, ctypes.byref(out))
         _build.check(self._lib, "ring", "sweep_graph_create", rc)
         self._graph = out.value
         self.nodes = self._lib.sweep_graph_nodes(self._graph)
+        self.body_nodes, self.tail_nodes = list(counts[:n]), counts[n]
         self._stream = guards._stream
 
     def replay(self, k: int) -> None:

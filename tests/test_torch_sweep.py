@@ -314,9 +314,15 @@ def test_sweep_launch_struct_matches_the_c_layout():
     assert ctypes.sizeof(f) == 136
     vp = ctypes.c_void_p
     assert ring._ARGTYPES["sweep_guards"] == [vp]
-    # launch, rows, bodies, n, tail, handles, out
+    # launch, rows, bodies, n, tail, handles, stamp, body_nodes, out
     assert ring._ARGTYPES["sweep_graph_create"] == [vp, vp, vp, ctypes.c_int,
-                                                    vp, vp, vp]
+                                                    vp, vp, vp, vp, vp]
+    # csrc/ring.cu's struct StampLaunch: five pointers, then cap
+    s = ring._StampLaunch
+    assert [(n, getattr(s, n).offset) for n, _ in s._fields_] == [
+        ("acc", 0), ("clock", 8), ("first", 16), ("last", 24), ("run", 32),
+        ("cap", 40)]
+    assert ctypes.sizeof(s) == 48
     assert (ring.MAX_SWEEP_TASKS, ring.MAX_SWEEP_PHASES,
             ring.MAX_SWEEP_CHANNELS) == (1024, 4, 12288)
 
